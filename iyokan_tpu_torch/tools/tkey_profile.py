@@ -1,0 +1,86 @@
+"""Where the port's blind rotation spends its time on the card.
+
+    python3 -m iyokan_tpu_torch.tools.tkey_profile [--G 1,64,2048] [--steps 635]
+
+For each gate batch G: the CUDA kernel's time per blind rotation (CUDA
+events, after a warm-up), and one torch.profiler trace of a blind rotation
+split by kernel (digits_kernel / conv_kernel) with the device's idle share
+over the traced window.  Uses a random int8 slab of the cggi128 shape
+[steps, 5120, 768] (the kernel's cost depends on shapes only).  Needs a
+card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+
+import torch
+
+from .. import params
+from ..ops import tkey
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--G", default="1,64,2048")
+    ap.add_argument("--steps", type=int, default=635)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    p = dataclasses.replace(params.CGGI128, n=args.steps)
+    L, lb = 3, 2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bk = torch.randint(-128, 128, (p.n, (p.l + lb) * p.N, 2 * L * 128),
+                       dtype=torch.int8, device="cuda", generator=gen)
+    testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
+    out = {"card": card, "steps": p.n, "rows": []}
+    for G in (int(g) for g in args.G.split(",")):
+        tl = torch.randint(-2**31, 2**31, (G, p.n + 1), dtype=torch.int64,
+                           device="cuda", generator=gen).to(torch.int32)
+        tkey.blind_rotate_tkey(tl, bk, testv, p)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(3):
+            tkey.blind_rotate_tkey(tl, bk, testv, p)
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / 3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            e0.record()
+            tkey.blind_rotate_tkey(tl, bk, testv, p)
+            e1.record()
+            torch.cuda.synchronize()
+        window_us = e0.elapsed_time(e1) * 1e3
+        kern = {}
+        for ev in prof.key_averages():
+            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                continue                        # host-side op records
+            dev_us = getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0))
+            kern[ev.key[:80]] = {"device_us": dev_us, "calls": ev.count}
+        busy = sum(v["device_us"] for v in kern.values())
+        row = {"G": G, "ms_per_blind_rotation": ms,
+               "us_per_step": ms * 1e3 / p.n,
+               "traced_window_us": window_us, "kernels": kern,
+               "device_idle_share": (1 - busy / window_us
+                                     if window_us else None)}
+        out["rows"].append(row)
+        print(json.dumps(row), flush=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
