@@ -1,0 +1,126 @@
+"""Negacyclic NTT over two CRT primes, in torch int64.
+
+Counterpart of iyokan_tpu/crypto/ntt.py, and the same transforms: the
+external products of the CMUX memories and of circuit bootstrapping are
+``small signed digit poly  x  torus poly``, computed exactly over the
+integers with a two-prime CRT NTT and then reduced mod 2^32 (or, for the
+64-bit torus, per 32-bit half):
+
+  lvl1: |digit| <= Bg/2 = 32, torus < 2^32, N = 1024  =>  |conv| < 2^49.6
+  lvl2 halves: |digit| <= 128, half < 2^32, N2 = 2048 =>  |conv| < 2^55
+
+  P1 * P2 ~= 2^61.8, so the centred CRT reconstruction is exact in int64.
+
+Forward: merged-psi Cooley-Tukey with bit-reversed output; inverse:
+Gentleman-Sande consuming bit-reversed input.  Every product is of two
+residues below 2^31, so (x * s) % p fits int64; torch's `%` is `remainder`
+(the sign of the divisor), as jnp's `%` is.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+P1 = 2013265921  # 15 * 2^27 + 1
+P2 = 1811939329  # 27 * 2^26 + 1
+PRIMES = (P1, P2)
+_GENERATORS = {P1: 31, P2: 13}
+
+P1P2 = P1 * P2
+INV_P1_MOD_P2 = pow(P1, -1, P2)
+
+
+def _bit_reverse(x: np.ndarray, bits: int) -> np.ndarray:
+    out = np.zeros_like(x)
+    for i in range(bits):
+        out |= ((x >> i) & 1) << (bits - 1 - i)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def tables(N: int) -> dict:
+    """Per-ring-size twiddle tables for both primes (host numpy, cached):
+    psirev / psiinvrev int64 [2, N] (bit-reversed powers of the primitive
+    2N-th root and of its inverse), ninv int64 [2]."""
+    logn = int(np.log2(N))
+    assert 1 << logn == N
+    out = {"psirev": [], "psiinvrev": [], "ninv": []}
+    rev = _bit_reverse(np.arange(N), logn)
+    for p in PRIMES:
+        psi = pow(_GENERATORS[p], (p - 1) // (2 * N), p)
+        assert pow(psi, N, p) == p - 1
+        pows = np.array([pow(psi, i, p) for i in range(N)], np.int64)
+        ipows = np.array([pow(psi, -i % (2 * N), p) for i in range(N)],
+                         np.int64)
+        out["psirev"].append(pows[rev])
+        out["psiinvrev"].append(ipows[rev])
+        out["ninv"].append(pow(N, -1, p))
+    return {"psirev": np.stack(out["psirev"]),
+            "psiinvrev": np.stack(out["psiinvrev"]),
+            "ninv": np.array(out["ninv"], np.int64)}
+
+
+_DEV_TABLES = {}
+
+
+def device_tables(N: int, device) -> dict:
+    """tables(N) as int64 tensors on `device` (cached per device)."""
+    key = (N, str(device))
+    if key not in _DEV_TABLES:
+        _DEV_TABLES[key] = {k: torch.from_numpy(v).to(device)
+                            for k, v in tables(N).items()}
+    return _DEV_TABLES[key]
+
+
+def ntt_fwd(x: torch.Tensor, N: int, pi: int) -> torch.Tensor:
+    """Forward negacyclic NTT; x int64 [..., N] in [0, p); bit-reversed
+    output."""
+    p = PRIMES[pi]
+    psirev = device_tables(N, x.device)["psirev"][pi]
+    x = x.to(torch.int64)
+    lead = x.shape[:-1]
+    m = 1
+    while m < N:
+        t = N // (2 * m)
+        x = x.reshape(*lead, m, 2, t)
+        s = psirev[m: 2 * m].reshape(m, 1)
+        u = x[..., 0, :]
+        v = (x[..., 1, :] * s) % p
+        x = torch.stack([(u + v) % p, (u - v) % p], dim=-2).reshape(*lead, N)
+        m *= 2
+    return x
+
+
+def ntt_inv(x: torch.Tensor, N: int, pi: int) -> torch.Tensor:
+    """Inverse negacyclic NTT; consumes bit-reversed input, natural output."""
+    p = PRIMES[pi]
+    tab = device_tables(N, x.device)
+    psiinvrev = tab["psiinvrev"][pi]
+    ninv = int(tables(N)["ninv"][pi])
+    x = x.to(torch.int64)
+    lead = x.shape[:-1]
+    m = N
+    while m > 1:
+        h = m // 2
+        t = N // m
+        x = x.reshape(*lead, h, 2, t)
+        s = psiinvrev[h: 2 * h].reshape(h, 1)
+        u = x[..., 0, :]
+        v = x[..., 1, :]
+        x = torch.stack([(u + v) % p, ((u - v) * s) % p],
+                        dim=-2).reshape(*lead, N)
+        m = h
+    return (x * ninv) % p
+
+
+def crt_center(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """CRT-reconstruct the centred integer in (-P1P2/2, P1P2/2), int64
+    (Garner: x = r1 + P1 * ((r2 - r1) * P1^-1 mod P2), below P1P2 < 2^62)."""
+    r1 = r1.to(torch.int64)
+    diff = (r2.to(torch.int64) - r1) % P2
+    t = (diff * INV_P1_MOD_P2) % P2
+    x = r1 + P1 * t
+    return torch.where(x >= P1P2 // 2, x - P1P2, x)

@@ -1,24 +1,31 @@
-"""Batched homomorphic operations (torch), the gate-bootstrap subset.
+"""Batched homomorphic operations (torch).
 
 Counterpart of iyokan_tpu/crypto/ops.py.  Everything is batched over gates:
 the levelized executor evaluates all ready gates of a circuit level in one
-call.
+call.  Gate bootstrapping, the lvl1 CMUX (decompose1 / extprod_term / cmux
+/ trgsw_invert), and circuit bootstrapping (blind_rotate2 on the 64-bit
+torus, privks, circuit_bootstrap).
 
-Torus representation: torch has no uint32 arithmetic, so lvl0/lvl1 torus
-values live in int32 tensors as uint32 bit patterns.  Arithmetic that may
-wrap is done in int64 on values in [0, 2^32) and masked (`to_u64`,
-`from_u64`); a right shift is only ever taken of such a non-negative int64,
-so it is logical, never arithmetic.
+Torus representation: torch has no unsigned 32/64-bit arithmetic.
+lvl0/lvl1 torus values live in int32 tensors as uint32 bit patterns;
+arithmetic that may wrap is done in int64 on values in [0, 2^32) and masked
+(`to_u64`, `from_u64`), so a right shift of such a value is logical.  lvl2
+torus values live in int64 tensors as uint64 bit patterns: + - * and
+negation wrap mod 2^64 in two's complement, and every right shift is
+arithmetic, so it is masked right after (`(x >> s) & mask`).
 
-Shapes (i32 = int32 bit patterns of u32):
+Shapes (i32 = int32 bit patterns of u32, i64 = int64 bit patterns of u64):
   TLWE lvl0   i32 [..., n+1]
   TLWE lvl1   i32 [..., N+1]
   TRLWE lvl1  i32 [..., 2, N]
+  TRGSW lvl1  i32 [..., 2l, 2, N]     row i*l+j: digit j on part i
+  TRLWE lvl2  i64 [..., 2, N2]
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 
 import numpy as np
@@ -58,16 +65,123 @@ def u32_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().view(np.uint32)
 
 
+def u64_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy uint64 array -> int64 bit-pattern tensor on `device`."""
+    a = np.ascontiguousarray(np.asarray(a, np.uint64))
+    return torch.from_numpy(a.view(np.int64)).to(device)
+
+
+def _i64(v: int) -> int:
+    """A 64-bit constant (mod 2^64) as the int64 of the same bit pattern."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >> 63 else v
+
+
+# --------------------------------------------------------------------------- #
+# gadget decomposition
+# --------------------------------------------------------------------------- #
+
+
+def decompose1(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """Signed gadget decomposition, 32-bit torus.
+
+    x: [..., 2, N], i32 bit patterns or any int64 (taken mod 2^32) ->
+    int32 [..., 2l, N], digit (i*l+j) for part i.  The offset centres the
+    digits (Bg/2 per level) and rounds the truncated tail to nearest.
+    """
+    offset = sum((p.Bg // 2) << (32 - (j + 1) * p.Bgbit) for j in range(p.l))
+    offset += 1 << (31 - p.l * p.Bgbit)
+    xp = (x.to(torch.int64) + offset) & MASK32
+    outs = [((xp >> (32 - (j + 1) * p.Bgbit)) & (p.Bg - 1)) - p.Bg // 2
+            for j in range(p.l)]
+    dig = torch.stack(outs, dim=-2).to(torch.int32)     # [..., 2, l, N]
+    return dig.reshape(*dig.shape[:-3], 2 * p.l, dig.shape[-1])
+
+
+def decompose2(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """Signed gadget decomposition, 64-bit torus: i64 [..., 2, N2] ->
+    int32 [..., 2l2, N2] (row i*l2+j)."""
+    offset = sum((p.Bg2 // 2) << (64 - (j + 1) * p.Bgbit2)
+                 for j in range(p.l2))
+    offset += 1 << (63 - p.l2 * p.Bgbit2)
+    xp = x + _i64(offset)
+    outs = [((xp >> (64 - (j + 1) * p.Bgbit2)) & (p.Bg2 - 1)) - p.Bg2 // 2
+            for j in range(p.l2)]
+    dig = torch.stack(outs, dim=-2).to(torch.int32)
+    return dig.reshape(*dig.shape[:-3], 2 * p.l2, dig.shape[-1])
+
+
+# --------------------------------------------------------------------------- #
+# external product / CMUX (lvl1)
+# --------------------------------------------------------------------------- #
+
+
+def prep_trgsw(trgsw: torch.Tensor, p: Params) -> torch.Tensor:
+    """i32 TRGSW rows [..., 2l, 2, N] -> the CRT64-prepared key
+    int32 [..., 2l, 2, P, N] that ops/extprod.py consumes."""
+    return polymul.prep1(trgsw, p)
+
+
+def extprod_term(g_prep: torch.Tensor, c: torch.Tensor, p: Params,
+                 idx: torch.Tensor = None) -> torch.Tensor:
+    """TRGSW (x) TRLWE product term decomp(c) * G as i32 [..., 2, N].
+
+    g_prep: one prepared TRGSW [2l, 2, P, N], or, with idx, a stack
+    [K, 2l, 2, P, N] of which row r of c takes key idx[r] (idx: int
+    [...] over c's leading dims).  Runs ops/extprod.extprod1: the
+    extprod1_ntt kernel for a CUDA tensor, its plain twin on the CPU."""
+    from ..ops.extprod import extprod1
+
+    lead = c.shape[:-2]
+    d = decompose1(c, p).reshape(-1, 2 * p.l, p.N)
+    if idx is None:
+        keys = g_prep[None]
+    else:
+        keys = g_prep
+        idx = idx.expand(lead).reshape(-1)
+    return extprod1(d, keys, idx, p).reshape(*lead, 2, p.N)
+
+
+def cmux(g_prep: torch.Tensor, c1: torch.Tensor, c0: torch.Tensor,
+         p: Params, idx: torch.Tensor = None) -> torch.Tensor:
+    """CMUX(g, c1, c0) = c0 + g (x) (c1 - c0): g ? c1 : c0 (TFHEpp CMUXFFT
+    as the reference ROM/RAM trees use it)."""
+    c0u = to_u64(c0)
+    diff = to_u64(c1) - c0u
+    return from_u64(c0u + to_u64(extprod_term(g_prep, diff, p, idx)))
+
+
+def trgsw_invert(trgsw: torch.Tensor, p: Params) -> torch.Tensor:
+    """TRGSW(1-m) from TRGSW(m): the trivial gadget of 1 minus the rows
+    (TFHEpp's CircuitBootstrappingFFTwithInv pair)."""
+    g = torch.zeros((2 * p.l, 2, p.N), dtype=torch.int64,
+                    device=trgsw.device)
+    for j in range(p.l):
+        val = 1 << (32 - (j + 1) * p.Bgbit)
+        g[j, 0, 0] = val
+        g[p.l + j, 1, 0] = val
+    return from_u64(g - to_u64(trgsw))
+
+
 # --------------------------------------------------------------------------- #
 # polynomial rotation / sample extraction
 # --------------------------------------------------------------------------- #
 
 
+def _negate_where(cond: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """-v where cond, else v, on v's torus: i32 (u32 patterns) or i64 (u64
+    patterns, whose negation wraps mod 2^64)."""
+    if v.dtype == torch.int64:
+        return torch.where(cond, -v, v)
+    u = to_u64(v)
+    return from_u64(torch.where(cond, -u, u))
+
+
 def rot_poly(poly: torch.Tensor, r: torch.Tensor, N: int) -> torch.Tensor:
     """X^r * poly mod (X^N + 1), batched.
 
-    poly: i32 [..., N]; r: integer [...] broadcastable against the leading
-    dims (one rotation amount per batch row), values in [0, 2N).
+    poly: i32 or i64 [..., N]; r: integer [...] broadcastable against the
+    leading dims (one rotation amount per batch row), values in [0, 2N).
     Coefficient k of the result is poly[m] for m = (k - r) mod 2N below N,
     and -poly[m - N] otherwise.
     """
@@ -76,20 +190,20 @@ def rot_poly(poly: torch.Tensor, r: torch.Tensor, N: int) -> torch.Tensor:
     shape = torch.broadcast_shapes(poly.shape, m.shape)
     m = m.expand(shape)
     src = torch.where(m < N, m, m - N)
-    v = torch.gather(to_u64(poly).expand(shape), -1, src)
-    return from_u64(torch.where(m < N, v, -v))
+    v = torch.gather(poly.expand(shape), -1, src)
+    return _negate_where(m >= N, v)
 
 
 def sample_extract(trlwe: torch.Tensor, idx: int) -> torch.Tensor:
-    """TRLWE [..., 2, N] -> TLWE lvl1 [..., N+1] extracting coefficient idx.
+    """TRLWE [..., 2, N] -> TLWE [..., N+1] extracting coefficient idx
+    (lvl1 i32 or lvl2 i64).
 
     a'_j = a_{idx-j} (j <= idx), -a_{N+idx-j} (j > idx); b' = b_idx.
     """
     N = trlwe.shape[-1]
     j = torch.arange(N, device=trlwe.device)
     src = torch.remainder(idx - j, N)
-    a = to_u64(trlwe[..., 0, :])[..., src]
-    a2 = from_u64(torch.where(j > idx, -a, a))
+    a2 = _negate_where(j > idx, trlwe[..., 0, :][..., src])
     b = trlwe[..., 1, idx: idx + 1]
     return torch.cat([a2, b], dim=-1)
 
@@ -151,12 +265,32 @@ def _modswitch(x: torch.Tensor, log2n: int) -> torch.Tensor:
 def blind_rotate(tlwe0: torch.Tensor, bk_prep: torch.Tensor,
                  testv: torch.Tensor, p: Params) -> torch.Tensor:
     """Batched blind rotation lvl0 -> TRLWE lvl1: i32 [G, 2, N] with phase
-    testv * X^{-phase_2N}.  Only the fat Toeplitz-slab key is ported, so
-    this always routes to the tkey kernel (ops/tkey.py), which rejects any
-    other key layout."""
-    from ..ops.tkey import blind_rotate_tkey
+    testv * X^{-phase_2N}, routed by the key's layout:
 
-    return blind_rotate_tkey(tlwe0, bk_prep, testv, p)
+    * int8 fat Toeplitz slab [n, (l+lb)*N, 2L*128]: the tkey kernel
+      (ops/tkey.py), the default;
+    * int32 CRT64-prepared bk [n, 2l, 2, P, N] (DeviceKeys on the NTT
+      route): n steps of rotate -> decompose1 -> extprod1 against the
+      step's key, the counterpart of iyokan_tpu's IYOKAN_EP=pallas loop
+      (K6 per step; here the extprod1_ntt kernel)."""
+    if bk_prep.dtype == torch.int8:
+        from ..ops.tkey import blind_rotate_tkey
+
+        return blind_rotate_tkey(tlwe0, bk_prep, testv, p)
+    if bk_prep.dim() != 5 or tuple(bk_prep.shape[:2]) != (p.n, 2 * p.l):
+        raise ValueError(
+            f"blind-rotation key {tuple(bk_prep.shape)} {bk_prep.dtype} is "
+            "neither a tkey slab nor a prepared [n, 2l, 2, P, N] NTT key")
+    from ..ops.extprod import extprod1
+    from ..ops.tkey import _setup
+
+    rows, acc = _setup(tlwe0, testv, p)
+    for i in range(p.n):
+        rot = rot_poly(acc, rows[i][:, None], p.N)
+        d = decompose1(to_u64(rot) - to_u64(acc), p)
+        acc = from_u64(to_u64(acc)
+                       + to_u64(extprod1(d, bk_prep[i][None], None, p)))
+    return acc
 
 
 def gate_bootstrap_tlwe1(pre: torch.Tensor, bk_prep: torch.Tensor,
@@ -165,6 +299,117 @@ def gate_bootstrap_tlwe1(pre: torch.Tensor, bk_prep: torch.Tensor,
     testv = torch.full((p.N,), p.mu, dtype=torch.int32, device=pre.device)
     acc = blind_rotate(pre, bk_prep, testv, p)
     return sample_extract(acc, 0)
+
+
+# --------------------------------------------------------------------------- #
+# blind rotation lvl2 (circuit bootstrapping inner loop)
+# --------------------------------------------------------------------------- #
+
+
+def blind_rotate2(tlwe0: torch.Tensor, bk2_prep: torch.Tensor,
+                  testv: torch.Tensor, p: Params) -> torch.Tensor:
+    """Batched blind rotation lvl0 -> TRLWE lvl2 (64-bit torus).
+
+    tlwe0: i32 [G, n+1]; bk2_prep: polymul.prep2 of the plain key
+    [n, 2l2, 2, N2] or of the 2-bit-unrolled key [ceil(n/2), 3*2l2, 2, N2]
+    (host.genevalkey's bk2u: one fused 3-product step per key-bit pair,
+    half the sequential depth); testv: i64 [N2] or one per row [G, N2].
+    Returns i64 [G, 2, N2].  The external products are the CRT64 twin
+    (polymul.extprod2) on every device: the JAX package runs lvl2 on XLA,
+    with no Pallas kernel.
+    """
+    G = tlwe0.shape[0]
+    abar = _modswitch(tlwe0[:, : p.n], p.logN2).to(torch.int64)
+    bbar = _modswitch(tlwe0[:, p.n], p.logN2).to(torch.int64)
+    acc_b = rot_poly(testv.expand(G, p.N2),
+                     torch.remainder(-bbar, 2 * p.N2), p.N2)
+    acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1)
+
+    if bk2_prep.shape[-4] == 6 * p.l2:
+        nh = bk2_prep.shape[0]
+        pad = 2 * nh - p.n
+        if pad:
+            abar = torch.cat([abar, abar.new_zeros((G, pad))], dim=1)
+        a1s, a2s = abar[:, 0::2], abar[:, 1::2]
+        rs = torch.stack([a1s, a2s, (a1s + a2s) % (2 * p.N2)])  # [3, G, nh]
+        for i in range(nh):
+            rot = rot_poly(acc[None], rs[:, :, i, None], p.N2)  # [3,G,2,N2]
+            d = decompose2(rot - acc[None], p)                  # [3,G,2l2,N2]
+            d = d.transpose(0, 1).reshape(G, 6 * p.l2, p.N2)
+            acc = acc + polymul.extprod2(d, bk2_prep[i], p)
+        return acc
+
+    for i in range(p.n):
+        rot = rot_poly(acc, abar[:, i, None], p.N2)
+        acc = acc + polymul.extprod2(decompose2(rot - acc, p), bk2_prep[i], p)
+    return acc
+
+
+# --------------------------------------------------------------------------- #
+# private functional key switch lvl2 -> lvl1, circuit bootstrapping
+# --------------------------------------------------------------------------- #
+
+
+def _ks_digits64(a: torch.Tensor, t: int, basebit: int) -> torch.Tensor:
+    """Signed digits of each 64-bit torus coefficient, int64 [..., t]."""
+    base = 1 << basebit
+    prec = t * basebit
+    off = (1 << (64 - prec - 1)) + sum(
+        (base // 2) << (64 - (j + 1) * basebit) for j in range(t))
+    xp = a + _i64(off)
+    ds = [((xp >> (64 - (j + 1) * basebit)) & (base - 1)) - base // 2
+          for j in range(t)]
+    return torch.stack(ds, dim=-1)
+
+
+def privks(tlwe2: torch.Tensor, pksk_mat: torch.Tensor, part: int,
+           p: Params) -> torch.Tensor:
+    """TLWE lvl2 i64 [..., N2+1] -> TRLWE lvl1 i32 [..., 2, N] under
+    f0(x) = -s1*x (part=0) or f1(x) = x (part=1).
+
+    pksk_mat: [N2*t, 2N], the i32 key or its centred float64 copy
+    (DeviceKeys.pksk_f64).  One float64 product is exact, as in
+    keyswitch_10: |d| <= 4 over K = N2*t = 20480 rows and |key| <= 2^31
+    bound every partial sum by 2^47.3 < 2^53; the sum is reduced mod 2^32
+    after the product.
+    """
+    a = tlwe2[..., : p.N2]
+    b = tlwe2[..., p.N2]
+    d = _ks_digits64(a, p.pks_t, p.pks_basebit)
+    d = d.reshape(*d.shape[:-2], p.N2 * p.pks_t)
+    key = pksk_mat if pksk_mat.dtype == torch.float64 else pksk_mat.to(
+        torch.float64)
+    acc = torch.matmul(d.to(torch.float64), key).to(torch.int64)
+    out = (-acc).reshape(*acc.shape[:-1], 2, p.N)
+    # trivial realization of f(b): f1 -> b-part const, f0 -> a-part const
+    out[..., part, 0] += ((b + (1 << 31)) >> 32) & MASK32
+    return from_u64(out)
+
+
+def circuit_bootstrap(tlwe0: torch.Tensor, bk2_prep: torch.Tensor,
+                      pksk_mats, p: Params) -> torch.Tensor:
+    """Batched circuit bootstrapping: TLWE lvl0 bits i32 [G, n+1] -> TRGSW
+    lvl1 i32 [G, 2l, 2, N].
+
+    For digit j (1-based): one lvl2 blind rotation with test vector
+    mu_j = 2^(64-j*Bgbit-1) gives TLWE2(+-mu_j); adding the trivial mu_j
+    maps it to TLWE2(m * 2^(64-j*Bgbit)); the two private key switches
+    embed it as TRGSW rows (part 0: -s1*m*g_j, part 1: m*g_j).  All l
+    rotations share the phase, so they run as ONE batch of l*G rows (row
+    j*G + g) with per-row test vectors.
+    """
+    G = tlwe0.shape[0]
+    mus = torch.tensor([1 << (64 - j * p.Bgbit - 1)
+                        for j in range(1, p.l + 1)],
+                       dtype=torch.int64, device=tlwe0.device)
+    mus = mus.repeat_interleave(G)                       # [l*G]
+    acc2 = blind_rotate2(tlwe0.repeat(p.l, 1), bk2_prep,
+                         mus[:, None].expand(p.l * G, p.N2), p)
+    tl2 = sample_extract(acc2, 0)                        # [l*G, N2+1]
+    tl2[:, p.N2] += mus
+    parts = [privks(tl2, pksk_mats[part], part, p).reshape(p.l, G, 2, p.N)
+             for part in (0, 1)]
+    return torch.cat(parts).movedim(0, -3)               # [G, 2l, 2, N]
 
 
 # --------------------------------------------------------------------------- #
@@ -194,13 +439,28 @@ def check_device(device) -> torch.device:
     return device
 
 
+def ntt_route() -> bool:
+    """Gate blind rotations on the NTT route (extprod1 per step) instead of
+    the tkey kernel: the JAX package's own knobs, IYOKAN_EP=pallas with an
+    IYOKAN_BR_IMPL other than tkey (the default)."""
+    return (os.environ.get("IYOKAN_EP") == "pallas"
+            and os.environ.get("IYOKAN_BR_IMPL", "tkey") != "tkey")
+
+
 @dataclasses.dataclass
 class DeviceKeys:
     """Evaluation key prepared for the runtime ops on one device.
 
-    bk_tk    int8 [n, (l+lb)*N, 2*L*128]  fat Toeplitz slab (tkey_kernel_key)
-    ksk_mat  i32  [N*t, n+1]              identity key-switch key
-    ksk_f64  f64  [N*t, n+1]              ksk_mat as centred float64
+    bk_tk     int8 [n, (l+lb)*N, 2*L*128]  fat Toeplitz slab (tkey route;
+                                           None on the NTT route)
+    ksk_mat   i32  [N*t, n+1]              identity key-switch key
+    ksk_f64   f64  [N*t, n+1]              ksk_mat as centred float64
+    bk_ntt    i32  [n, 2l, 2, P, N]        CRT64-prepared bk (NTT route)
+    bk2       i64  [nh, 3*2l2, 2, 4, N2]   prepared 2-bit-unrolled CB key
+                                           (bk2u; [n, 2l2, ...] from bk2
+                                           when the key has no bk2u)
+    pksk_f64  2 x f64 [N2*t, 2N]           private key-switch keys, centred
+    The last two are None without circuit-bootstrapping material.
     """
 
     params: Params
@@ -208,32 +468,61 @@ class DeviceKeys:
     bk_tk: torch.Tensor
     ksk_mat: torch.Tensor
     ksk_f64: torch.Tensor
+    bk_ntt: torch.Tensor = None
+    bk2: torch.Tensor = None
+    pksk_f64: tuple = None
+
+    def bk_for(self) -> torch.Tensor:
+        """The gate blind-rotation key: the NTT-prepared bk on the NTT
+        route, else the tkey slab (blind_rotate routes on its layout)."""
+        return self.bk_ntt if self.bk_ntt is not None else self.bk_tk
 
     @staticmethod
-    def from_evalkey(ek: EvalKey, device) -> "DeviceKeys":
+    def from_evalkey(ek: EvalKey, device, with_cb: bool = True
+                     ) -> "DeviceKeys":
         """Carry the numpy EvalKey (the same object and file in both
-        packages) to `device` as the port's tensors.  Circuit-bootstrapping
-        material, if present, is not used: CMUX memories are not ported."""
+        packages) to `device` as the port's tensors.  The circuit-
+        bootstrapping material is carried when with_cb and the key has it
+        (ek.bk2 non-empty), as iyokan_tpu's DeviceKeys.from_evalkey does;
+        NTT preparation runs on `device`."""
         device = check_device(device)
         p = ek.params
-        L, lay, lb = tkey_default_config(p)
-        src = ek.bk
-        if L < 4 and np.any(src[:2, :, 0, :] & ((1 << (8 * (4 - L))) - 1)):
-            # host.genevalkey quantizes bk masks to the 256-grid so the
-            # truncated slab is exact on the mask component; a key with
-            # full-torus masks rides this kernel with ~2^-6 phase noise --
-            # enough to corrupt cascaded gates.
-            warnings.warn(
-                "eval key has unquantized bootstrapping-key masks: the "
-                f"{L}-limb Toeplitz-slab kernel adds ~2^-6 phase noise "
-                "on such keys. Regenerate the eval key (host.genevalkey "
-                "quantizes masks by default).")
-        slab = polymul.tkey_kernel_key(src, p, L, lay, lb=lb)
-        bk_tk = torch.from_numpy(slab).to(device)
-        del slab
+        bk_tk = bk_ntt = None
+        if ntt_route():
+            bk_ntt = polymul.prep1(u32_tensor(ek.bk, device), p)
+        else:
+            L, lay, lb = tkey_default_config(p)
+            src = ek.bk
+            if L < 4 and np.any(src[:2, :, 0, :] & ((1 << (8 * (4 - L))) - 1)):
+                # host.genevalkey quantizes bk masks to the 256-grid so the
+                # truncated slab is exact on the mask component; a key with
+                # full-torus masks rides this kernel with ~2^-6 phase noise
+                # -- enough to corrupt cascaded gates.
+                warnings.warn(
+                    "eval key has unquantized bootstrapping-key masks: the "
+                    f"{L}-limb Toeplitz-slab kernel adds ~2^-6 phase noise "
+                    "on such keys. Regenerate the eval key (host.genevalkey "
+                    "quantizes masks by default).")
+            slab = polymul.tkey_kernel_key(src, p, L, lay, lb=lb)
+            bk_tk = torch.from_numpy(slab).to(device)
+            del slab
         ksk_mat = u32_tensor(ek.ksk.reshape(p.N * p.ks_t, p.n + 1), device)
-        return DeviceKeys(p, device, bk_tk, ksk_mat,
-                          ksk_mat.to(torch.float64))
+        dk = DeviceKeys(p, device, bk_tk, ksk_mat, ksk_mat.to(torch.float64),
+                        bk_ntt)
+        if with_cb and ek.bk2.shape[0] != 0:
+            # the depth-halved unrolled key whenever present, as the JAX
+            # package's bk2_for (CB batches are small: l rows per address
+            # bit, so the rotation is latency-bound)
+            if ek.bk2u is not None and ek.bk2u.size:
+                src2 = ek.bk2u.reshape(ek.bk2u.shape[0], 6 * p.l2, 2, p.N2)
+            else:
+                src2 = ek.bk2
+            dk.bk2 = polymul.prep2(u64_tensor(src2, device), p)
+            dk.pksk_f64 = tuple(
+                u32_tensor(ek.pksk[i].reshape(p.N2 * p.pks_t, 2 * p.N),
+                           device).to(torch.float64)
+                for i in (0, 1))
+        return dk
 
 
 # --------------------------------------------------------------------------- #

@@ -1,10 +1,20 @@
-"""Toeplitz-slab key expansion (the "tkey" external product), host side.
+"""External-product keys and plain products (counterpart of
+iyokan_tpu/crypto/polymul.py).
 
-Numpy slab constructors copied verbatim from iyokan_tpu/crypto/polymul.py
-(the NTT backends of that module are not ported): the negacyclic convolution of the
-per-gate digit polynomials against the *shared* per-step TRGSW rows becomes
-a plain int8 matrix product against a precomputed Toeplitz window of the
-key, exact mod 2^32 -- no primes, no Barrett, no CRT.
+Two forms of the same exact product `digits (x) TRGSW rows`:
+
+* the CRT64 NTT backend (`prep1`/`extprod1` at lvl1, `prep2`/`extprod2` at
+  lvl2; iyokan_tpu's CRT64Backend): two 31-bit primes, crypto/ntt.py, exact
+  over the integers and then reduced mod 2^32 (mod 2^64 at lvl2).  lvl2
+  (circuit bootstrapping) runs it on every device; at lvl1 it is the plain
+  twin of the extprod1_ntt kernel (ops/extprod.py), whose key layout it
+  defines.  (The TPU's MXU backend -- four 16-bit primes, int8-limb twiddle
+  matmuls -- is TPU-shaped and not ported.)
+* the Toeplitz-slab ("tkey") key, host side, numpy constructors copied
+  verbatim from iyokan_tpu/crypto/polymul.py: the negacyclic convolution of
+  the per-gate digit polynomials against the *shared* per-step TRGSW rows
+  becomes a plain int8 matrix product against a precomputed Toeplitz window
+  of the key, exact mod 2^32 -- no primes, no Barrett, no CRT.
 
   out[g, u, 128K + b] = sum_{j,t} ext[g, j, 128(K+1) + t] * slab[j,u][t, b]
 
@@ -21,8 +31,76 @@ truncation remains (see iyokan_tpu/crypto/polymul.py for the noise budget).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..params import Params
+from . import ntt
+
+MASK32 = 0xFFFFFFFF
+
+
+# --------------------------------------------------------------------------- #
+# the CRT64 NTT backend
+# --------------------------------------------------------------------------- #
+
+
+def prep1(rows: torch.Tensor, p: Params) -> torch.Tensor:
+    """TRGSW rows i32 [..., RR, 2, N] (u32 bit patterns) -> NTT residues
+    int32 [..., RR, 2, P=2, N] (bit-reversed order, each below 2^31)."""
+    v = rows.to(torch.int64) & MASK32
+    outs = [ntt.ntt_fwd(v % prime, p.N, pi)
+            for pi, prime in enumerate(ntt.PRIMES)]
+    return torch.stack(outs, dim=-2).to(torch.int32)
+
+
+def extprod1(digits: torch.Tensor, prep: torch.Tensor,
+             p: Params) -> torch.Tensor:
+    """digits int [..., RR, N]; prep int32 [..., RR, 2, P, N] (leading dims
+    broadcastable against the digits') -> i32 [..., 2, N], the negacyclic
+    sum_r digits[r] * rows[r, u] mod 2^32."""
+    from .ops import from_u64
+
+    outs = []
+    for pi, prime in enumerate(ntt.PRIMES):
+        dn = ntt.ntt_fwd(digits.to(torch.int64) % prime, p.N, pi)
+        g = prep[..., pi, :].to(torch.int64)
+        s = ((dn[..., :, None, :] * g) % prime).sum(dim=-3) % prime
+        outs.append(ntt.ntt_inv(s, p.N, pi))
+    return from_u64(ntt.crt_center(outs[0], outs[1]))
+
+
+def prep2(rows: torch.Tensor, p: Params) -> torch.Tensor:
+    """TRGSW lvl2 rows int64 [..., RR, 2, N2] (u64 bit patterns) -> NTT
+    residues of their 32-bit halves, int64 [..., RR, 2, P*2, N2] (index
+    2*prime + half)."""
+    lo = rows & MASK32
+    hi = (rows >> 32) & MASK32           # arithmetic shift, then mask
+    halves = torch.stack([lo, hi], dim=-2)
+    outs = [ntt.ntt_fwd(halves % prime, p.N2, pi)
+            for pi, prime in enumerate(ntt.PRIMES)]
+    st = torch.stack(outs, dim=-3)       # [..., RR, 2, P, 2, N2]
+    return st.reshape(*st.shape[:-3], 4, st.shape[-1])
+
+
+def extprod2(digits: torch.Tensor, prep: torch.Tensor,
+             p: Params) -> torch.Tensor:
+    """digits int [..., RR, N2]; prep int64 [..., RR, 2, 4, N2] -> int64
+    [..., 2, N2], u64 bit patterns of the product mod 2^64: each 32-bit
+    half of the key is an exact product (|conv| < 2^55), recombined as
+    lo + (hi << 32) with two's-complement wrap."""
+    outs = []
+    for pi, prime in enumerate(ntt.PRIMES):
+        dn = ntt.ntt_fwd(digits.to(torch.int64) % prime, p.N2, pi)
+        g = prep[..., 2 * pi: 2 * pi + 2, :]               # both halves
+        s = ((dn[..., :, None, None, :] * g) % prime).sum(dim=-4) % prime
+        outs.append(ntt.ntt_inv(s, p.N2, pi))              # [..., 2, 2, N2]
+    c = ntt.crt_center(outs[0], outs[1])
+    return c[..., 0, :] + (c[..., 1, :] << 32)
+
+
+# --------------------------------------------------------------------------- #
+# the Toeplitz-slab key (host numpy)
+# --------------------------------------------------------------------------- #
 
 
 def tkey_prep1(bk_u32: np.ndarray, p: Params, limbs: int = 3) -> np.ndarray:

@@ -1,0 +1,219 @@
+// Lvl1 external product for Hopper (sm_90a): digits (x) prepared TRGSW,
+// exact over the integers through a two-prime negacyclic NTT, then mod 2^32.
+//
+// Replaces iyokan_tpu/ops/pallas_ep.py::_ep_kernel (extprod1_fused, "K6"):
+//   out[g, u] = sum_r digits[g, r] * key[idx[g], r, u]   (negacyclic, mod 2^32)
+// for digits int32 [G, RR, N] (|d| <= Bg/2 = 32 at cggi128), a stack of K
+// prepared TRGSWs int32 [K, RR, 2, P=2, N] and a per-row key index int32 [G]
+// (or none: every row takes key 0).  The key layout is the port's CRT64
+// prep1 (crypto/polymul.py): residues mod P1 = 2013265921 and
+// P2 = 1811939329 in the bit-reversed order of the merged-psi Cooley-Tukey
+// transform (crypto/ntt.py), so the plain twin is polymul.extprod1.
+// Exact: |conv| <= RR*N*32*2^32 = 2^49.6 < P1*P2/2 = 2^60.7, so the centred
+// CRT (Garner) recovers the integer, and its low 32 bits are the result.
+//
+// What it does not copy: K6's four 16-bit primes, R x C four-step split and
+// int8-limb twiddle matmuls serve the TPU's matrix unit, which has no wide
+// integer multiply.  Hopper multiplies 32 x 32 -> 64 bits natively, so the
+// plain design is two 31-bit primes and a radix-2 NTT in shared memory.
+//
+// Design: one block per row g, N/2 threads (one butterfly each per stage).
+// Per prime: the RR digit polynomials are reduced into shared memory and
+// transformed together (one barrier per stage for all RR), multiplied
+// pointwise against key[idx[g]] and summed over r (RR products below 2^62
+// each reduced mod p, the sum below 2^36), and the two sums run through the
+// Gentleman-Sande inverse.  The first prime's result waits in shared memory
+// for the second's; then the CRT writes the row.  Shared memory:
+// (RR + 4) * N * 4 bytes = 40 KB at RR = 6, N = 1024.
+//
+// What bounds it on the H100: integer multiply-modulo throughput.  Each row
+// costs 2 primes x ((RR + 2) * N/2 * log2 N butterflies + 2*RR*N pointwise
+// products + 2N scalings) = 110,592 mulmods at cggi128, each a 64-bit
+// product and a reduction by a compile-time prime (the compiler's
+// multiply-high sequence).
+// The key (RR*2*2*N*4 = 96 KB per TRGSW) is read from L2 by every row.
+// Speed work (Shoup/Montgomery products, warp-shuffle butterflies for the
+// last stages, several rows per block, the decomposition fused in) is later.
+//
+// Built by iyokan_tpu_torch/ops/nvcc.py:
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libextprod1_ntt-<hash>.so extprod1_ntt.cu
+// and called through ctypes (plain C interface below).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr uint32_t P1 = 2013265921u;            // 15 * 2^27 + 1
+constexpr uint32_t P2 = 1811939329u;            // 27 * 2^26 + 1
+constexpr uint64_t P1P2 = (uint64_t)P1 * P2;
+constexpr uint32_t INV_P1_MOD_P2 = 1811939320u;  // P1^-1 mod P2
+
+template <uint32_t P>
+__device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) % P);
+}
+
+template <uint32_t P>
+__device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b) {
+  const uint32_t s = a + b;  // a, b < P < 2^31: no wrap
+  return s >= P ? s - P : s;
+}
+
+template <uint32_t P>
+__device__ __forceinline__ uint32_t submod(uint32_t a, uint32_t b) {
+  return a >= b ? a - b : a + (P - b);
+}
+
+// Forward negacyclic NTT of npoly polynomials x[r*N ..] in shared memory,
+// natural order in, bit-reversed out (crypto/ntt.py:ntt_fwd).  Called by
+// all N/2 threads of the block.
+template <uint32_t P>
+__device__ void ntt_fwd(uint32_t* x, int npoly,
+                        const uint32_t* __restrict__ psirev, int N,
+                        int logN) {
+  const int k = threadIdx.x;
+  for (int lm = 0; lm < logN; ++lm) {
+    const int lt = logN - 1 - lm;  // t = N / (2m), m = 2^lm
+    const int t = 1 << lt;
+    const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
+    const uint32_t s = psirev[(1 << lm) + (k >> lt)];
+    for (int r = 0; r < npoly; ++r) {
+      uint32_t* y = x + r * N;
+      const uint32_t u = y[i0];
+      const uint32_t v = mulmod<P>(y[i0 + t], s);
+      y[i0] = addmod<P>(u, v);
+      y[i0 + t] = submod<P>(u, v);
+    }
+    __syncthreads();
+  }
+}
+
+// Inverse (Gentleman-Sande), bit-reversed in, natural out, times N^-1
+// (crypto/ntt.py:ntt_inv).
+template <uint32_t P>
+__device__ void ntt_inv(uint32_t* x, int npoly,
+                        const uint32_t* __restrict__ psiinvrev, uint32_t ninv,
+                        int N, int logN) {
+  const int k = threadIdx.x;
+  for (int lh = logN - 1; lh >= 0; --lh) {
+    const int lt = logN - 1 - lh;  // t = N / m, h = m / 2 = 2^lh
+    const int t = 1 << lt;
+    const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
+    const uint32_t s = psiinvrev[(1 << lh) + (k >> lt)];
+    for (int r = 0; r < npoly; ++r) {
+      uint32_t* y = x + r * N;
+      const uint32_t u = y[i0];
+      const uint32_t v = y[i0 + t];
+      y[i0] = addmod<P>(u, v);
+      y[i0 + t] = mulmod<P>(submod<P>(u, v), s);
+    }
+    __syncthreads();
+  }
+  const int H = N >> 1;
+  for (int r = 0; r < npoly; ++r) {
+    x[r * N + k] = mulmod<P>(x[r * N + k], ninv);
+    x[r * N + k + H] = mulmod<P>(x[r * N + k + H], ninv);
+  }
+  __syncthreads();
+}
+
+// One prime's product of a row: acc[u*N + c] = sum_r d_r * key_{r,u} mod P,
+// in natural order.
+template <uint32_t P>
+__device__ void one_prime(const int32_t* __restrict__ dg,
+                          const int32_t* __restrict__ key, int pi,
+                          uint32_t* dig, uint32_t* acc,
+                          const uint32_t* __restrict__ psirev,
+                          const uint32_t* __restrict__ psiinvrev,
+                          uint32_t ninv, int RR, int N, int logN) {
+  const int k = threadIdx.x;
+  const int H = N >> 1;
+  for (int r = 0; r < RR; ++r)
+    for (int c = k; c < N; c += H) {
+      const int64_t v = (int64_t)dg[r * N + c] % (int64_t)P;  // toward 0
+      dig[r * N + c] = (uint32_t)(v < 0 ? v + P : v);
+    }
+  __syncthreads();
+  ntt_fwd<P>(dig, RR, psirev, N, logN);
+  for (int u = 0; u < 2; ++u)
+    for (int c = k; c < N; c += H) {
+      uint64_t s = 0;
+      for (int r = 0; r < RR; ++r)
+        s += mulmod<P>(dig[r * N + c],
+                       (uint32_t)key[((r * 2 + u) * 2 + pi) * N + c]);
+      acc[u * N + c] = (uint32_t)(s % P);
+    }
+  __syncthreads();
+  ntt_inv<P>(acc, 2, psiinvrev, ninv, N, logN);
+}
+
+__global__ void __launch_bounds__(1024)
+extprod1_kernel(const int32_t* __restrict__ digits,  // [G, RR, N]
+                const int32_t* __restrict__ keys,    // [K, RR, 2, 2, N]
+                const int32_t* __restrict__ idx,     // [G] or null
+                const uint32_t* __restrict__ tab,    // [4, N]
+                int32_t* __restrict__ out,           // [G, 2, N]
+                int RR, int N, int logN, uint32_t ninv1, uint32_t ninv2) {
+  extern __shared__ uint32_t sm[];
+  uint32_t* dig = sm;              // [RR, N]
+  uint32_t* acc = sm + RR * N;     // [2, N]
+  uint32_t* res1 = acc + 2 * N;    // [2, N]: the first prime's result
+  const int g = blockIdx.x;
+  const int k = threadIdx.x;
+  const int H = N >> 1;
+  const int32_t* dg = digits + (size_t)g * RR * N;
+  const int32_t* key = keys + (size_t)(idx ? idx[g] : 0) * RR * 2 * 2 * N;
+
+  one_prime<P1>(dg, key, 0, dig, acc, tab, tab + 2 * N, ninv1, RR, N, logN);
+  for (int c = k; c < 2 * N; c += H) res1[c] = acc[c];
+  __syncthreads();
+  one_prime<P2>(dg, key, 1, dig, acc, tab + N, tab + 3 * N, ninv2, RR, N,
+                logN);
+
+  // Garner: x = r1 + P1 * ((r2 - r1) * P1^-1 mod P2) in [0, P1*P2),
+  // centred, mod 2^32
+  int32_t* o = out + (size_t)g * 2 * N;
+  for (int c = k; c < 2 * N; c += H) {
+    const uint32_t r1 = res1[c];
+    const uint32_t diff = submod<P2>(acc[c], r1 >= P2 ? r1 - P2 : r1);
+    const uint64_t x =
+        r1 + (uint64_t)P1 * mulmod<P2>(diff, INV_P1_MOD_P2);
+    o[c] = (int32_t)(uint32_t)(x >= P1P2 / 2 ? x - P1P2 : x);
+  }
+}
+
+}  // namespace
+
+// One external product per row, launched on `stream`.
+//   digits int32 [G, RR, N]; keys int32 [K, RR, 2, 2, N]; idx int32 [G] with
+//   values in [0, K), or null for key 0; tab uint32 [4, N] = psirev (P1, P2),
+//   psiinvrev (P1, P2); out int32 [G, 2, N].  N a power of two in
+//   [64, 2048].  Returns 0 or the first CUDA error.
+extern "C" int extprod1_ntt(const void* digits, const void* keys,
+                            const void* idx, const void* tab, void* out,
+                            int G, int RR, int N, int K, uint32_t ninv1,
+                            uint32_t ninv2, int device, void* stream) {
+  int logN = 0;
+  while ((1 << logN) < N) ++logN;
+  const size_t smem = (size_t)(RR + 4) * N * sizeof(uint32_t);
+  if (G <= 0 || RR <= 0 || K <= 0 || N < 64 || N > 2048 ||
+      (1 << logN) != N || smem > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(extprod1_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  extprod1_kernel<<<G, N / 2, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(digits), static_cast<const int32_t*>(keys),
+      static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(tab),
+      static_cast<int32_t*>(out), RR, N, logN, ninv1, ninv2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* extprod1_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}

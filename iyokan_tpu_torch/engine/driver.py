@@ -14,15 +14,21 @@ Implements the reference's per-cycle protocol exactly
 
 One frontend runs both engines; only the value domain differs (bits vs
 TLWE ciphertexts).  Counterpart of iyokan_tpu/engine/driver.py: engine state
-is torch tensors on the frontend's device, converted to numpy at the packet
-and snapshot boundaries.  The JAX package's multi-cycle scan and periodic
-CMUX-RAM refresh have no counterpart here (the port runs gate-only designs
-level by level).
+(node values and CMUX ROM/RAM stores) is torch tensors on the frontend's
+device, converted to numpy at the packet and snapshot boundaries, so
+--snapshot/--resume and --dump-prefix carry the RAM stores too.  tfhe mode
+runs the JAX package's periodic CMUX-RAM refresh schedule
+(IYOKAN_RAM_REFRESH_PERIOD, default 16); with DEBUG logging (--verbose) it
+also logs each cycle's seconds per stage (gates / simple / cb / rom_read /
+ram_read / ram_write), syncing the device at each stage.  The JAX
+package's multi-cycle scan has no counterpart (the port runs level by
+level).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, Optional
 
@@ -264,6 +270,25 @@ class Frontend:
             self.vals, self.rams = eng.settle(self.vals, self.rams, self.roms)
             should_negate = True
 
+        # Periodic RAM refresh (tfhe CMUX RAM only): the full-store refresh
+        # bootstrap runs every P-th cycle instead of every cycle; skipped
+        # cycles keep the CMUX tree output as the store and refresh only
+        # the freshly written rows (engine._ram_write_all).  The schedule
+        # keys off the ABSOLUTE cycle number, so snapshot/resume reproduces
+        # it exactly.
+        period = 1
+        if self.mode == "tfhe" and self.bp.builtin_rams:
+            raw = os.environ.get("IYOKAN_RAM_REFRESH_PERIOD", "16")
+            try:
+                period = max(1, int(raw))
+            except ValueError:
+                log.warning("invalid IYOKAN_RAM_REFRESH_PERIOD=%r (want a "
+                            "positive int); using 16", raw)
+                period = 16
+
+        def refresh_at(cycle_idx: int) -> bool:
+            return period == 1 or (cycle_idx + 1) % period == 0
+
         finflag_port = self.bp.at("finflag")
         log.info("execution mode: %s, level by level on %s", self.mode,
                  self.device)
@@ -304,14 +329,22 @@ class Frontend:
                                  cyc, state["done"], total)
                         state["next"] = state["done"] + 1000
 
+            settle_kw = {}
+            if self.mode == "tfhe":
+                settle_kw["ram_refresh"] = refresh_at(self.current_cycle)
+                if log.isEnabledFor(logging.DEBUG):
+                    settle_kw["stages"] = {}
             self.vals, self.rams = eng.settle(
                 self.vals, self.rams, self.roms,
-                timer=level_times, progress=progress_cb,
+                timer=level_times, progress=progress_cb, **settle_kw,
             )
             eng.block_until_ready(self.vals)
 
             dt = time.time() - t0
             log.info("\tdone. (%d us)", int(dt * 1e6))
+            if "stages" in settle_kw:
+                log.debug("\tstages: %s", " ".join(
+                    f"{k}={v:.6f}" for k, v in settle_kw["stages"].items()))
             if dump_time_csv_prefix:
                 from . import progress
 

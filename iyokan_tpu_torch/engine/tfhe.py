@@ -1,4 +1,4 @@
-"""TFHE levelized executor (torch), gate path.
+"""TFHE levelized executor (torch).
 
 Encrypted counterpart of engine.plain: node values are TLWE lvl0 samples
 (i32 bit patterns [num_nodes + 1, n+1]; the extra row keeps snapshots
@@ -11,10 +11,27 @@ interchangeable with the JAX package), and each level becomes
 as in iyokan_tpu/engine/tfhe.py.  NOT gates are free torus negations;
 copies are gathers.  The value array is updated in place.
 
-Not ported yet: the CMUX ROM/RAM memories (circuit bootstrapping, private
-key switch, CMUX trees) -- a design that has them raises
-NotImplementedError -- and level fusion into one dispatch per group or
-cycle (results are the same either way; the port runs level by level).
+Built-in CMUX memories follow the reference dataflow as the JAX engine
+does (reference src/iyokan_tfhepp.hpp:675-889), bit for bit:
+  CB:        one circuit-bootstrap batch over every address bit a level
+             reads (ops.circuit_bootstrap, the lvl2 CRT64 product) ->
+             normal + inverted TRGSW selectors, NTT-prepared;
+  ROM read:  inter-word CMUX tree (inverted selectors) -> intra-word
+             rotate ladder (normal selectors) -> per-bit sample extract ->
+             KS;
+  RAM read:  CMUX tree over 2^a words per bit -> SEI(0) -> KS;
+  RAM write: MUXwoSE(wren ? wdata : rdata) (gate blind rotation) -> per-
+             address CMUX chain (a K=2 key stack: each address row picks
+             the normal or inverted selector of its bit) -> SEI(0) + KS +
+             refresh blind rotation of all words (ram_refresh=True), or of
+             the W written rows only (periodic-refresh cycles).
+Every lvl1 external product runs ops/extprod.extprod1 (the extprod1_ntt
+kernel on the card, its CRT64 twin on the CPU).  On the CPU the memory
+tests (tests/test_torch_memory.py) hold all of it against the JAX engine
+at toy parameters; on the card chip_smoke.py's memory phase runs
+tests/data/memmac.toml at cggi128.  Level fusion into one dispatch per
+group or cycle and the multi-cycle scan are not ported (results are the
+same either way; the port runs level by level).
 """
 
 from __future__ import annotations
@@ -39,16 +56,17 @@ class TFHEEngine:
         self.c = compiled
         self.d = compiled.design
         self.p = eval_key.params
-        if self.d.rom_insts or self.d.ram_insts:
-            raise NotImplementedError(
-                "iyokan_tpu_torch runs gate-only circuits: CMUX ROM/RAM "
-                f"builtins ({sorted(self.d.rom_insts)} ROM, "
-                f"{sorted(self.d.ram_insts)} RAM) need circuit "
-                "bootstrapping, the private key switch and the CMUX trees, "
-                "which are not ported yet (ROADMAP.md, Queue 1). Use the "
-                "JAX package (iyokan_tpu) or mux-rom/mux-ram builtins.")
+        needs_cb = bool(self.d.rom_insts or self.d.ram_insts)
+        if needs_cb and eval_key.bk2.shape[0] == 0:
+            # reference: CMUX memories require the circuit(-bootstrapping)
+            # key (needsCircuitKey, src/iyokan.hpp:1897-1906)
+            raise ValueError(
+                "blueprint uses CMUX ROM/RAM but the eval key has no "
+                "circuit-bootstrapping material (generate with with_cb=True)"
+            )
         self.device = ops.check_device(device)
-        self.keys = ops.DeviceKeys.from_evalkey(eval_key, self.device)
+        self.keys = ops.DeviceKeys.from_evalkey(eval_key, self.device,
+                                                with_cb=needs_cb)
         self._plans = [self._pad_plan(pl_) for pl_ in compiled.levels]
         self._tick_dst = self._idx(compiled.tick_dst)
         self._tick_src = self._idx(compiled.tick_src)
@@ -75,13 +93,21 @@ class TFHEEngine:
             "copy_src": t(plan.copy_src), "copy_out": t(plan.copy_out),
         }
 
-    def _chunked_bootstrap(self, keys, batch):
-        """Bootstrap a level batch in chunks of at most BOOT_CHUNK rows."""
-        p = self.p
-        outs = [ops.gate_bootstrap_tlwe1(batch[i: i + BOOT_CHUNK],
-                                         keys.bk_tk, p)
+    def _blind_rotate(self, keys, batch, testv):
+        """Blind-rotate a batch in chunks of at most BOOT_CHUNK rows."""
+        outs = [ops.blind_rotate(batch[i: i + BOOT_CHUNK], keys.bk_for(),
+                                 testv, self.p)
                 for i in range(0, batch.shape[0], BOOT_CHUNK)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def _testv(self):
+        return torch.full((self.p.N,), self.p.mu, dtype=torch.int32,
+                          device=self.device)
+
+    def _chunked_bootstrap(self, keys, batch):
+        """Gate-bootstrap a level batch (lvl0 -> TLWE lvl1 +-mu)."""
+        return ops.sample_extract(
+            self._blind_rotate(keys, batch, self._testv()), 0)
 
     def _level_body(self, keys, vals, pp):
         """One level's gather -> batched bootstrap -> scatter."""
@@ -159,6 +185,41 @@ class TFHEEngine:
             out[missing] = host.trivial_tlwe0(self.p, np.zeros(1, np.uint8))[0]
         return out
 
+    def make_rom_store(self, name, addr_width, data_width, data):
+        """TRLWE words i32 [ceil(2^a * w / N), 2, N]: the ROM's bits packed
+        coefficient-wise (host.encrypt_rom); all bits 0 when absent."""
+        p = self.p
+        if data_width & (data_width - 1):
+            raise ValueError("CMUX ROM data width must be a power of two")
+        n_tr = max(1, -(-((1 << addr_width) * data_width) // p.N))
+        if data is None:
+            store = np.zeros((n_tr, 2, p.N), np.uint32)
+            store[:, 1, :] = (~(np.uint32(p.mu)) + np.uint32(1))
+        else:
+            store = np.asarray(data, np.uint32)
+            if store.shape[0] != n_tr:
+                raise ValueError("invalid request packet: wrong length of ROM")
+        return ops.u32_tensor(store, self.device)
+
+    def make_ram_store(self, name, addr_width, data_width, data):
+        """One TRLWE per bit, i32 [2^a, w, 2, N], value in coefficient 0
+        (host.encrypt_ram); all bits 0 when absent."""
+        p = self.p
+        if data is None:
+            store = np.zeros(((1 << addr_width), data_width, 2, p.N),
+                             np.uint32)
+            store[..., 1, 0] = (~(np.uint32(p.mu)) + np.uint32(1))
+        else:
+            data = np.asarray(data, np.uint32)
+            if data.shape[0] != (1 << addr_width) * data_width:
+                raise ValueError("invalid request packet: wrong length of RAM")
+            store = data.reshape((1 << addr_width), data_width, 2, p.N)
+        return ops.u32_tensor(store, self.device)
+
+    def read_ram_store(self, store) -> np.ndarray:
+        a, w = store.shape[0], store.shape[1]
+        return ops.u32_numpy(store).reshape(a * w, 2, store.shape[-1])
+
     def block_until_ready(self, vals):
         if vals.is_cuda:
             torch.cuda.synchronize(vals.device)
@@ -169,23 +230,207 @@ class TFHEEngine:
         return vals
 
     # ------------------------------------------------------------------ #
-    def settle(self, vals, rams, roms, timer=None, progress=None):
-        """The per-cycle combinational sweep, one level at a time.
+    # CMUX memories
+    # ------------------------------------------------------------------ #
+    def _cb_pairs(self, keys, vals, addr_nodes):
+        """CBWithInv of address wires -> prepared TRGSW selectors
+        int32 [a, 2 (normal/inverted), 2l, 2, P, N]."""
+        p = self.p
+        trgsw = ops.circuit_bootstrap(vals[self._idx(addr_nodes)],
+                                      keys.bk2, keys.pksk_f64, p)
+        both = torch.stack([trgsw, ops.trgsw_invert(trgsw, p)], dim=1)
+        return ops.prep_trgsw(both, p)
 
-        timer: optional list collecting per-level wall-clock seconds (forces
-        a device sync per level).  progress: optional callable(n_gates_done).
-        rams/roms are always empty here (no CMUX memories); the same
-        signature as the JAX engine keeps the frontend shared.
+    def _mem_level(self, keys, vals, rams, roms, plan, ram_sel, mark):
+        """All ROM/RAM reads of one level: ONE circuit-bootstrap batch over
+        every instance's address bits (the n-step lvl2 rotation is
+        latency-bound at these widths), then the per-instance trees.
+        Returns (vals, seconds marked)."""
+        mems = ([("rom", nm) for nm in plan.rom_reads]
+                + [("ram", nm) for nm in plan.ram_reads])
+        nodes, spans = [], []
+        for kind, nm in mems:
+            inst = (self.d.rom_insts if kind == "rom"
+                    else self.d.ram_insts)[nm]
+            spans.append((kind, nm, len(nodes),
+                          len(nodes) + len(inst.addr_nodes)))
+            nodes.extend(inst.addr_nodes)
+        gn_all = self._cb_pairs(keys, vals, nodes)
+        t = mark("cb")
+        for kind, nm, lo, hi in spans:
+            gn = gn_all[lo:hi]
+            if kind == "rom":
+                vals = self._rom_read(keys, vals, roms[nm], gn, nm)
+                t += mark("rom_read")
+            else:
+                vals = self._ram_read(keys, vals, rams[nm], gn, nm)
+                ram_sel[nm] = gn
+                t += mark("ram_read")
+        return vals, t
+
+    def _rom_read(self, keys, vals, rom_store, gn, name):
+        """Reference TaskTFHEppROMUX: UROMUX inter-word CMUX tree then LROMUX
+        intra-word rotate ladder (src/iyokan_tfhepp.hpp:238-338)."""
+        p = self.p
+        inst = self.d.rom_insts[name]
+        a, w = inst.addr_width, inst.data_width
+        log2wpt = p.logN - (w.bit_length() - 1)      # words per TRLWE
+        n_inter = max(0, a - log2wpt)
+
+        words = rom_store                            # [2^n_inter, 2, N]
+        for b in range(n_inter):
+            g = gn[log2wpt + b, 1]                   # inverted: bit==0 -> even
+            words = ops.cmux(g, words[0::2], words[1::2], p)
+        acc = ops.to_u64(words[0])                   # [2, N]
+
+        for bit in range(1, log2wpt + 1):
+            if log2wpt - bit >= a:
+                continue
+            shift = torch.full((2,), (2 * p.N) - (p.N >> bit),
+                               device=self.device)
+            rot = ops.to_u64(ops.rot_poly(ops.from_u64(acc), shift, p.N))
+            g = gn[log2wpt - bit, 0]                 # normal
+            acc = acc + ops.to_u64(ops.extprod_term(g, rot - acc, p))
+        acc = ops.from_u64(acc)
+
+        lvl1 = torch.stack([ops.sample_extract(acc, b) for b in range(w)])
+        vals[self._idx(inst.read_nodes)] = ops.keyswitch_10(
+            lvl1, keys.ksk_f64, p)
+        return vals
+
+    def _ram_read(self, keys, vals, ram_store, gn, name):
+        """Reference TaskTFHEppRAMUX (src/iyokan_tfhepp.hpp:409-498): CMUX
+        tree over 2^a words per data bit, inverted selectors."""
+        p = self.p
+        inst = self.d.ram_insts[name]
+        words = ram_store                            # [2^a, w, 2, N]
+        for b in range(inst.addr_width):
+            words = ops.cmux(gn[b, 1], words[0::2], words[1::2], p)
+        lvl1 = ops.sample_extract(words[0], 0)       # [w, N+1]
+        vals[self._idx(inst.read_nodes)] = ops.keyswitch_10(
+            lvl1, keys.ksk_f64, p)
+        return vals
+
+    def _refresh(self, keys, lvl1, testv):
+        """Key-switch + blind-rotate TLWE lvl1 rows, BOOT_CHUNK at a time."""
+        outs = [self._blind_rotate(
+                    keys, ops.keyswitch_10(lvl1[i: i + BOOT_CHUNK],
+                                           keys.ksk_f64, self.p), testv)
+                for i in range(0, lvl1.shape[0], BOOT_CHUNK)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def _ram_write_all(self, names, keys, vals, stores, gns, refresh=True):
+        """All RAM instances' write paths: one MUXwoSE blind rotation,
+        per-instance CMUX chains, then (refresh=True) one SEI -> KS ->
+        refresh blind rotation over the concatenated 2^a * w words of
+        every instance.
+
+        refresh=False (periodic-refresh cycles, IYOKAN_RAM_REFRESH_PERIOD):
+        the CMUX-tree output is kept as the store and only the W freshly
+        written rows are refreshed (their noise is the sum of two rotation
+        outputs); per skipped cycle a word gains only the write tree's
+        a * var_extprod ~= 2^-24.2 (iyokan_tpu/engine/tfhe.py has the
+        budget)."""
+        p = self.p
+        testv = self._testv()
+        insts = [self.d.ram_insts[nm] for nm in names]
+        pres1, pres2 = [], []
+        for inst in insts:
+            wren = ops.to_u64(vals[inst.wren_node])[None]     # [1, n+1]
+            pre1 = wren + ops.to_u64(vals[self._idx(inst.wdata_nodes)])
+            pre2 = ops.to_u64(vals[self._idx(inst.rdata_out_nodes)]) - wren
+            pre1[:, p.n] -= p.mu
+            pre2[:, p.n] -= p.mu
+            pres1.append(ops.from_u64(pre1))
+            pres2.append(ops.from_u64(pre2))
+        W = sum(inst.data_width for inst in insts)
+        tr = ops.to_u64(self._blind_rotate(keys, torch.cat(pres1 + pres2),
+                                           testv))
+        written_all = tr[:W] + tr[W:]
+        written_all[:, 1, 0] += p.mu
+        written_all = ops.from_u64(written_all)              # [W, 2, N]
+        if not refresh:
+            written_all = self._refresh(
+                keys, ops.sample_extract(written_all, 0), testv)
+
+        outs, off = [], 0
+        for inst, store, gn in zip(insts, stores, gns):
+            A, w = 1 << inst.addr_width, inst.data_width
+            acc = written_all[off:off + w][None].expand(A, w, 2, p.N)
+            off += w
+            addrs = np.arange(A)
+            for j in range(inst.addr_width):
+                # address bit 1 -> the normal selector (key 0), else the
+                # inverted one (key 1), for all w bits of the word
+                pol = np.where((addrs >> j) & 1 == 1, 0, 1)
+                idx = torch.as_tensor(pol, dtype=torch.int32,
+                                      device=self.device)[:, None]
+                acc = ops.cmux(gn[j], acc, store, p, idx=idx)
+            outs.append(acc)
+        if not refresh:
+            return tuple(outs)
+        flat = torch.cat([ops.sample_extract(acc, 0).reshape(-1, p.N + 1)
+                          for acc in outs])
+        fresh = self._refresh(keys, flat, testv)
+        res, off = [], 0
+        for acc in outs:
+            n_rows = acc.shape[0] * acc.shape[1]
+            res.append(fresh[off:off + n_rows].reshape(acc.shape))
+            off += n_rows
+        return tuple(res)
+
+    # ------------------------------------------------------------------ #
+    def settle(self, vals, rams, roms, timer=None, progress=None,
+               stages=None, ram_refresh=True):
+        """The per-cycle combinational sweep, one level at a time: each
+        level's gates, NOT/copies, then its memory reads; the RAM writes
+        after the last level.
+
+        timer: optional list collecting per-level wall-clock seconds.
+        progress: optional callable(n_gates_done).  stages: optional dict
+        accumulating wall-clock seconds per stage category (gates / simple
+        / cb / rom_read / ram_read / ram_write).  timer and stages force a
+        device sync per stage.  ram_refresh=False keeps the CMUX-tree
+        output as the RAM stores (periodic refresh, see driver.py).
         """
         keys = self.keys
+        sync = timer is not None or stages is not None
+        last = [time.time()]
+
+        def mark(cat):
+            if not sync:
+                return 0.0
+            self.block_until_ready(vals)
+            now = time.time()
+            dt, last[0] = now - last[0], now
+            if stages is not None:
+                stages[cat] = stages.get(cat, 0.0) + dt
+            return dt
+
+        ram_sel = {}
         for plan, pp in zip(self.c.levels, self._plans):
-            t0 = time.time()
+            lv_t = 0.0
             if pp["nb"] or pp["nm"]:
                 vals = self._level_body(keys, vals, pp)
-            vals = self._simple(vals, pp)
+                lv_t += mark("gates")
+            if len(pp["not_out"]) or len(pp["copy_out"]):
+                vals = self._simple(vals, pp)
+                lv_t += mark("simple")
+            if plan.rom_reads or plan.ram_reads:
+                vals, t = self._mem_level(keys, vals, rams, roms, plan,
+                                          ram_sel, mark)
+                lv_t += t
             if timer is not None:
-                self.block_until_ready(vals)
-                timer.append(time.time() - t0)
+                timer.append(lv_t)
             if progress is not None:
                 progress(plan.n_gates)
-        return vals, {}
+
+        new_rams = {}
+        if rams:
+            names = tuple(sorted(rams))
+            outs = self._ram_write_all(
+                names, keys, vals, [rams[n] for n in names],
+                [ram_sel[n] for n in names], refresh=bool(ram_refresh))
+            new_rams = dict(zip(names, outs))
+            mark("ram_write")
+        return vals, new_rams

@@ -1,0 +1,139 @@
+"""Lvl1 external product: the CUDA kernel's wrapper and its plain twin.
+
+Counterpart of iyokan_tpu/ops/pallas_ep.py (`extprod1_fused`, kernel
+`_ep_kernel`, "K6"): digits int32 [G, RR, N] x one prepared TRGSW -> the
+negacyclic products i32 [G, 2, N], exact mod 2^32.  The key is the port's
+CRT64 prep1 layout (crypto/polymul.prep1 = ops.prep_trgsw):
+
+  keys  int32 [K, RR, 2, P=2, N]   residues mod the two NTT primes of
+                                   crypto/ntt.py, bit-reversed order
+
+with a per-row key index idx int32 [G] in [0, K) (None: every row takes
+key 0).  K = 1 is K6's shared key step (the ROM and RAM-read CMUX trees,
+the NTT blind rotation); K = 2 serves the RAM write tree, where each
+address row picks the normal or the inverted selector of one address bit.
+
+`extprod1` runs the hand-written Hopper kernel (csrc/extprod1_ntt.cu) for a
+CUDA tensor and the plain torch twin (`extprod1_ref` = the CRT64 backend's
+polymul.extprod1) for a CPU tensor; nothing else selects between them.
+LAUNCHES counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..crypto import ntt, polymul
+from ..params import Params
+from . import nvcc
+
+LAUNCHES = 0          # external-product kernels launched on the card
+SOURCE = "extprod1_ntt.cu"
+_TABLES = {}
+
+
+def _check(digits: torch.Tensor, keys: torch.Tensor, idx, p: Params):
+    if digits.dtype != torch.int32 or keys.dtype != torch.int32:
+        raise ValueError("digits and keys must be int32")
+    if digits.dim() != 3 or digits.shape[-1] != p.N:
+        raise ValueError(f"digits must be [G, RR, N={p.N}], got "
+                         f"{tuple(digits.shape)}")
+    RR = digits.shape[1]
+    if keys.dim() != 5 or tuple(keys.shape[1:]) != (
+            RR, 2, len(ntt.PRIMES), p.N):
+        raise ValueError(f"keys must be [K, RR={RR}, 2, "
+                         f"{len(ntt.PRIMES)}, N={p.N}], got "
+                         f"{tuple(keys.shape)}")
+    if keys.device != digits.device:
+        raise ValueError(f"device mismatch: digits {digits.device}, keys "
+                         f"{keys.device}")
+    if idx is not None:
+        if idx.shape != digits.shape[:1] or idx.device != digits.device:
+            raise ValueError(f"idx must be [G={digits.shape[0]}] on "
+                             f"{digits.device}")
+        if idx.numel() and not (0 <= int(idx.min())
+                                and int(idx.max()) < keys.shape[0]):
+            raise ValueError(f"idx out of range [0, {keys.shape[0]})")
+    elif keys.shape[0] != 1:
+        raise ValueError("a stack of K > 1 keys needs idx")
+
+
+def extprod1_ref(digits: torch.Tensor, keys: torch.Tensor, idx,
+                 p: Params) -> torch.Tensor:
+    """The plain torch twin of the kernel, on any device: i32 [G, 2, N]."""
+    _check(digits, keys, idx, p)
+    if idx is None:
+        return polymul.extprod1(digits, keys[0], p)
+    out = torch.empty((digits.shape[0], 2, p.N), dtype=torch.int32,
+                      device=digits.device)
+    for k in range(keys.shape[0]):
+        rows = (idx == k).nonzero().flatten()
+        if rows.numel():
+            out[rows] = polymul.extprod1(digits[rows], keys[k], p)
+    return out
+
+
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.extprod1_ntt.restype = ci
+    lib.extprod1_ntt.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                 ctypes.c_uint32, ctypes.c_uint32, ci, vp]
+    lib.extprod1_error_string.restype = ctypes.c_char_p
+    lib.extprod1_error_string.argtypes = [ci]
+
+
+def _tables(N: int, device) -> torch.Tensor:
+    """psirev (P1, P2) and psiinvrev (P1, P2) as int32 [4, N] on `device`
+    (every entry is below 2^31)."""
+    key = (N, str(device))
+    if key not in _TABLES:
+        t = ntt.tables(N)
+        _TABLES[key] = torch.cat([torch.from_numpy(t["psirev"]),
+                                  torch.from_numpy(t["psiinvrev"])]).to(
+            torch.int32).to(device).contiguous()
+    return _TABLES[key]
+
+
+def _launch(digits, keys, idx, p: Params) -> torch.Tensor:
+    global LAUNCHES
+    lib = nvcc.load(SOURCE, _bind)
+    digits = digits.contiguous()
+    keys = keys.contiguous()
+    if idx is not None:
+        idx = idx.to(torch.int32).contiguous()
+    G, RR, N = digits.shape
+    out = torch.empty((G, 2, N), dtype=torch.int32, device=digits.device)
+    ninv = ntt.tables(N)["ninv"]
+    dev = digits.device.index if digits.device.index is not None else \
+        torch.cuda.current_device()
+    rc = lib.extprod1_ntt(
+        digits.data_ptr(), keys.data_ptr(),
+        None if idx is None else idx.data_ptr(),
+        _tables(N, digits.device).data_ptr(), out.data_ptr(),
+        G, RR, N, keys.shape[0], int(ninv[0]), int(ninv[1]), dev,
+        torch.cuda.current_stream(digits.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("extprod1_ntt kernel launch failed: "
+                           f"{lib.extprod1_error_string(rc)}")
+    LAUNCHES += 1
+    return out
+
+
+def extprod1(digits: torch.Tensor, keys: torch.Tensor, idx,
+             p: Params) -> torch.Tensor:
+    """sum_r digits[g, r] (x) keys[idx[g], r, u] -> i32 [G, 2, N].
+
+    digits: int32 [G, RR, N]; keys: int32 [K, RR, 2, P, N] from
+    polymul.prep1; idx: int [G] in [0, K) or None (key 0).  A CUDA input
+    runs the Hopper kernel, a CPU input the plain twin; there is no
+    fallback between them."""
+    _check(digits, keys, idx, p)
+    if digits.shape[0] == 0:
+        return digits.new_zeros((0, 2, p.N))
+    if digits.is_cuda:
+        return _launch(digits, keys, idx, p)
+    if digits.device.type != "cpu":
+        raise ValueError(f"unsupported device {digits.device}")
+    return extprod1_ref(digits, keys, idx, p)

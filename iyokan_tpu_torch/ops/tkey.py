@@ -23,27 +23,16 @@ card).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from ..crypto import ops as cops
 from ..params import Params
+from . import nvcc
 
 LAUNCHES = 0          # blind rotations launched on the card
 BLOCK_G = 16          # gate tile of the kernel; batches are padded to it
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                     "tkey_blind_rotate.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "kernels")
-_lib = None
-_lib_lock = threading.Lock()
-BUILD_LOG = {}        # "log": nvcc/ptxas output of this process's build
+SOURCE = "tkey_blind_rotate.cu"
 
 
 # --------------------------------------------------------------------------- #
@@ -174,52 +163,14 @@ def blind_rotate_tkey_ref(tlwe0: torch.Tensor, bk_tk: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
-def _nvcc() -> str:
-    cand = [shutil.which("nvcc"),
-            os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                         "bin", "nvcc")]
-    for c in cand:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (needed to build the tkey kernel)")
-
-
-def build() -> str:
-    """Compile csrc/tkey_blind_rotate.cu for sm_90a into a shared library
-    under build/kernels/, keyed by the source hash; returns its path."""
-    with open(_CSRC, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    out = os.path.join(_BUILD_DIR, f"libtkey-{tag}.so")
-    if os.path.exists(out):
-        BUILD_LOG["log"] = "cached"
-        return out
-    tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, _CSRC]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG["log"] = r.stdout + r.stderr
-    return out
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.tkey_blind_rotate.restype = ci
-            lib.tkey_blind_rotate.argtypes = [
-                vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                ctypes.c_uint32, ctypes.c_uint32, ci, vp]
-            lib.tkey_error_string.restype = ctypes.c_char_p
-            lib.tkey_error_string.argtypes = [ci]
-            _lib = lib
-        return _lib
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tkey_blind_rotate.restype = ci
+    lib.tkey_blind_rotate.argtypes = [
+        vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+        ctypes.c_uint32, ctypes.c_uint32, ci, vp]
+    lib.tkey_error_string.restype = ctypes.c_char_p
+    lib.tkey_error_string.argtypes = [ci]
 
 
 SPLIT_GRID = 2 * 132  # tiles the contraction split aims for: two per SM
@@ -244,7 +195,7 @@ def _steps_kernel(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
                   p: Params, L: int, lb: int) -> torch.Tensor:
     """All n CMUX steps on the card; returns the new accumulator."""
     global LAUNCHES
-    lib = _load()
+    lib = nvcc.load(SOURCE, _bind)
     G = acc.shape[0]
     pad = (-G) % BLOCK_G
     if pad:

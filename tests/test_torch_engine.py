@@ -8,7 +8,7 @@
   tfhe runs, the JAX packet tool decrypts; plain modes agree.
 * Snapshot/resume (plain and tfhe) and per-cycle decrypted dumps work
   through the port's CLI.
-* A CMUX RAM design raises NotImplementedError in the port's tfhe mode.
+(CMUX ROM/RAM designs: tests/test_torch_memory.py.)
 """
 
 import os
@@ -226,11 +226,3 @@ def test_port_tfhe_on_card_equals_cpu(toy_sk, toy_ek):
     assert _acc(res["cuda"].decrypt(toy_sk).bits["acc"]) == \
         gen_mac.expected(W, av, bv, cycles)
 
-
-def test_cmux_ram_raises_not_implemented(toy_sk, toy_ek):
-    req = jpacket.PlainPacket(bits={
-        "addr": np.zeros(2, np.uint8), "wren": np.zeros(1, np.uint8),
-        "wdata": np.zeros(4, np.uint8)}).encrypt(toy_sk, seed=1)
-    with pytest.raises(NotImplementedError, match="CMUX"):
-        TFrontend("tfhe", TBlueprint(os.path.join(DATA, "tiny-ram.toml")),
-                  req, eval_key=toy_ek, device="cpu")
