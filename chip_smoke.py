@@ -4,9 +4,10 @@
 
 Phases, one line each or more:
   1. device     -- nvidia-smi name + power limit, torch.cuda device name;
-  2. build      -- both kernels, csrc/tkey_blind_rotate.cu and
-                   csrc/extprod1_ntt.cu, one nvcc each, started together
-                   (sm_90a), with ptxas's register lines;
+  2. build      -- the four kernel sources, csrc/tkey_blind_rotate.cu,
+                   extprod1_ntt.cu, br_ntt.cu and br3_ntt.cu, one nvcc each,
+                   started together (sm_90a), with ptxas's register lines
+                   and each kernel's dynamic shared memory;
   3. kernel     -- blind_rotate_tkey against its plain torch twin on the card
                    at cggi128 with the real [635, 5120, 768] slab, G = 1, 5,
                    64, 2048: bit-identical, kernel ms vs twin ms;
@@ -33,10 +34,32 @@ Phases, one line each or more:
                    equal the plain-mode run and the Python-integer model
                    (tests/data/gen_mac.py); both kernels' launch counts grew
                    during the encrypted run; s/cycle and one synced cycle's
-                   seconds per stage.
-The line before the last is the kernels' JSON record, the last line the
-device record.  Any failure raises (non-zero exit, no result line).  Needs no
-JAX: the expected values come from the port's plain engine and Python
+                   seconds per stage;
+  9. br-kernels -- the NTT blind-rotation kernels against their plain twins
+                   at cggi128 on the CRT64 keys of phase 3's eval key: K5
+                   (br_ntt_step, n launches a rotation), K4 (br_ntt_loop), K3
+                   (br3_ntt) at M = 1 on the plain key and M = 3 on the
+                   2-bit-unrolled key (one launch each), max |diff| 0 at
+                   G = 1, 64, 256; kernel ms at G = 1, 64, 256, 2048, twin
+                   ms at the compared sizes; and the exact unrolled route
+                   (one extprod1_ntt launch at 3*2l rows per key-bit pair,
+                   318 in all) at G = 64 against its twin;
+ 10. br-gates   -- 2048 NANDs through the pallas (K5), pallas2 (K4) and v3
+                   (K3, M = 1) routes of DeviceKeys.bk_for, each kernel's
+                   launches counted from 0 over the run, 0 wrong, the max
+                   phase error of the 2048 outputs in units of 1/16 of the
+                   torus, ms per batch and gate_bootstraps_per_sec beside
+                   the tkey route's;
+ 11. br-slice   -- phase 6's MAC-16 run again with IYOKAN_BR_IMPL=v3 (every
+                   level takes the unrolled key: K3 at M = 3); the result
+                   equals plain mode and the integers, and K3's launch count
+                   grew from 0 during the encrypted run.
+The line before the last is the kernels' JSON record (each kernel's launches
+on its path, max |diff| against its twin, ms, twin ms, the bound of the
+same work on the card and what sets it; no PyTorch call computes a blind
+rotation or an external product, so library_ms is null), the last line the
+device record.  Any failure raises (non-zero exit, no result line).  Needs
+no JAX: the expected values come from the port's plain engine and Python
 integers.
 """
 
@@ -68,11 +91,41 @@ from iyokan_tpu_torch.circuit.blueprint import Blueprint  # noqa: E402
 from iyokan_tpu_torch.cli import iyokan_cli, packet_cli  # noqa: E402
 from iyokan_tpu_torch.crypto import host, ops  # noqa: E402
 from iyokan_tpu_torch.engine.driver import build_design  # noqa: E402
-from iyokan_tpu_torch.ops import extprod, nvcc, tkey  # noqa: E402
+from iyokan_tpu_torch.ops import br, br3, extprod, nvcc, tkey  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 20261016
 MEM_CYCLES = 3
+SLICE_CYCLES = 3
+BR_SIZES = (1, 64, 256, 2048)
+
+# The card's peaks for the bounds (H100 SXM, NVIDIA's data sheet at the
+# 700 W limit): int8 tensor-core operations, device-memory bytes, and 32-bit
+# integer multiplies (64 INT32 lanes a SM a clock x 132 SMs x the 1.98 GHz
+# boost clock).  A mulmod of two residues needs at least two of the latter
+# (both halves of the 64-bit product), so the NTT kernels' bound counts
+# 2 multiplies a mulmod and none for the reduction: a lower bound.
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
+INT32_MULS_PER_S = 132 * 64 * 1.98e9
+
+
+def bound(n_ops, ops_per_s, nbytes):
+    """(bound ms, "operations" or "bytes"): the larger of the two times."""
+    t_ops, t_bytes = n_ops / ops_per_s, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ntt_mulmods(p, rr, m=0):
+    """Mulmods a row of an NTT kernel costs: per prime, the forward NTTs of
+    rr digit rows and the inverse NTTs of the 2 sums (N/2 log2 N butterflies
+    each), 2*rr*N pointwise products (m > 0: m*(2*rr + 2)*N products with
+    the K3 twiddles instead) and 2N scalings; then 2N Garner products.  One
+    extprod1_ntt row, one K5/K4 step (rr = 2l, m = 0), one K3 step (m = M)."""
+    t = p.N // 2 * p.logN
+    point = m * (2 * rr + 2) * p.N if m else 2 * rr * p.N
+    return 2 * ((rr + 2) * t + point + 2 * p.N) + 2 * p.N
 
 
 def say(phase, msg):
@@ -106,32 +159,48 @@ def phase_device():
     return smi, name
 
 
-def phase_build():
+def phase_build(p):
+    sources = (tkey.SOURCE, extprod.SOURCE, br.SOURCE, br3.SOURCE)
+    # dynamic shared memory per block at p (the sources' launch code)
+    smem = {extprod.SOURCE: f"{(2 * p.l + 4) * p.N * 4} B at 2l rows, "
+                            f"{(6 * p.l + 4) * p.N * 4} B at 3*2l rows",
+            br.SOURCE: f"{(6 + 2 * p.l) * p.N * 4} B",
+            br3.SOURCE: f"{(10 + 2 * p.l) * p.N * 4} B"}
     t0 = time.time()
-    paths = nvcc.build(tkey.SOURCE, extprod.SOURCE)
+    paths = nvcc.build(*sources)
     dt = time.time() - t0
-    for src, path in zip((tkey.SOURCE, extprod.SOURCE), paths):
+    for src, path in zip(sources, paths):
         regs = [ln.split(":", 1)[1].strip()
                 for ln in nvcc.LOGS.get(src, "").splitlines()
                 if "Used" in ln and "registers" in ln]
-        say("build", f"{os.path.relpath(path, ROOT)} (both nvcc in parallel:"
-            f" {dt:.2f} s); ptxas per kernel: {regs}")
+        say("build", f"{os.path.relpath(path, ROOT)} (all {len(sources)} "
+            f"nvcc in parallel: {dt:.2f} s); ptxas per kernel: {regs}; "
+            f"dynamic shared memory: {smem.get(src, 'see the source')}")
 
 
 @contextlib.contextmanager
-def ntt_route():
-    """DeviceKeys on the NTT route (the JAX package's knobs): the gate key
-    is the CRT64-prepared bk instead of the 2.5 GB tkey slab."""
-    saved = {k: os.environ.get(k) for k in ("IYOKAN_EP", "IYOKAN_BR_IMPL")}
-    os.environ.update(IYOKAN_EP="pallas", IYOKAN_BR_IMPL="ntt")
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
+def knobs(**env):
+    """The JAX package's IYOKAN_* knobs, set (None: unset) for a block."""
+    saved = {k: os.environ.get(k) for k in env}
+
+    def put(values):
+        for k, v in values.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+    put(env)
+    try:
+        yield
+    finally:
+        put(saved)
+
+
+def ntt_route():
+    """DeviceKeys on the NTT route (the JAX package's knobs): the gate key
+    is the CRT64-prepared bk instead of the 2.5 GB tkey slab."""
+    return knobs(IYOKAN_EP="pallas", IYOKAN_BR_IMPL="ntt")
 
 
 def phase_kernel(p, sk, dk, rng):
@@ -205,14 +274,14 @@ def phase_ntt_gates(p, sk, ek, dk, rng, smi):
         return ops.keyswitch_10(lvl1, dk.ksk_f64, p)
 
     before = extprod.LAUNCHES
-    out = host.decrypt_bits(sk, ops.u32_numpy(nand(nk.bk_for())))
+    out = host.decrypt_bits(sk, ops.u32_numpy(nand(nk.bk_ntt)))
     if extprod.LAUNCHES - before != p.n:
         raise AssertionError(f"{extprod.LAUNCHES - before} extprod1_ntt "
                              f"launches for {p.n} CMUX steps")
     wrong = int((out != (1 - (a & b))).sum())
     if wrong:
         raise AssertionError(f"{wrong}/{G} wrong NANDs on the NTT route")
-    ntt_ms = cuda_ms(lambda: nand(nk.bk_for()), 2)
+    ntt_ms = cuda_ms(lambda: nand(nk.bk_ntt), 2)
     tk_ms = cuda_ms(lambda: nand(dk.bk_tk), 3)
     say("ntt-gates", f"{G} NANDs through the NTT route (bk_ntt "
         f"{tuple(nk.bk_ntt.shape)} int32, {p.n} extprod1_ntt launches), 0 "
@@ -221,9 +290,163 @@ def phase_ntt_gates(p, sk, ek, dk, rng, smi):
     return {"G": G, "ntt_ms": ntt_ms, "tkey_ms": tk_ms}
 
 
-def phase_slice(smi):
-    """MAC-16 through the CLIs at cggi128: encrypted == plain == integers."""
-    W, cycles = 16, 3
+def timed(fn):
+    """(fn(), device ms of that one call)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def max_diff(got, want):
+    return int((ops.to_u64(got) - ops.to_u64(want)).abs().max())
+
+
+def br_keys(ek):
+    """The run's eval key as the CRT64 plain and 2-bit-unrolled keys on the
+    card (DeviceKeys on the v3 route: no tkey slab)."""
+    with knobs(IYOKAN_BR_IMPL="v3", IYOKAN_EP=None):
+        dk = ops.DeviceKeys.from_evalkey(ek, "cuda", with_cb=False)
+    if dk.bk_tk is not None or dk.bk_ntt_u is None:
+        raise AssertionError("the v3 route did not build both NTT keys")
+    return dk
+
+
+def phase_br_kernels(p, sk, dk, rng, smi):
+    """K5, K4 and K3 (M = 1, 3) against their twins, bit for bit, and
+    timed; the exact unrolled route against its twin."""
+    testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
+    cases = [  # name, key, blind rotation, its twin from (rows, acc)
+        ("br_ntt_step", dk.bk_ntt, br.blind_rotate_pallas,
+         lambda r, a: br.cmux_steps_ref(r, a, dk.bk_ntt, p)),
+        ("br_ntt_loop", dk.bk_ntt, br.blind_rotate_pallas2,
+         lambda r, a: br.cmux_steps_ref(r, a, dk.bk_ntt, p)),
+        ("br3_ntt M=1", dk.bk_ntt, br3.blind_rotate_pallas3,
+         lambda r, a: br3.br3_ref(br3.rotation_steps(r, dk.bk_ntt, p), a,
+                                  dk.bk_ntt, p)),
+        ("br3_ntt M=3", dk.bk_ntt_u, br3.blind_rotate_pallas3,
+         lambda r, a: br3.br3_ref(br3.rotation_steps(r, dk.bk_ntt_u, p), a,
+                                  dk.bk_ntt_u, p)),
+    ]
+    per_rotation = {"br_ntt_step": p.n}
+    rows_out, worst = [], 0
+    for G in BR_SIZES:
+        bits = rng.integers(0, 2, G, dtype=np.uint8)
+        ct = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
+        for name, key, fn, twin in cases:
+            reset_launches()
+            got = fn(ct, key, testv, p)
+            torch.cuda.synchronize()
+            n_launch = (br.STEP_LAUNCHES + br.LOOP_LAUNCHES + br3.LAUNCHES)
+            if n_launch != per_rotation.get(name, 1):
+                raise AssertionError(f"{name}: {n_launch} launches for one "
+                                     "blind rotation")
+            rec = {"kernel": name, "G": G, "launches": n_launch}
+            if G <= 256:
+                rows, acc = tkey._setup(ct, testv, p)
+                want, rec["twin_ms"] = timed(lambda: twin(rows, acc))
+                err = max_diff(got, want)
+                worst = max(worst, err)
+                if err:
+                    raise AssertionError(
+                        f"{name} != twin at G={G}: max |diff| {err}")
+                rec["max_abs_diff"] = err
+            rec["kernel_ms"] = cuda_ms(lambda: fn(ct, key, testv, p),
+                                       2 if G == 2048 else 3)
+            rows_out.append(rec)
+            say("br-kernels", json.dumps(rec) + f" on {smi}")
+
+    # the exact unrolled route: one extprod1_ntt launch per key-bit pair
+    G = 64
+    bits = rng.integers(0, 2, G, dtype=np.uint8)
+    ct = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
+    with knobs(IYOKAN_BR_IMPL="pallas2", IYOKAN_EP=None):
+        key = dk.bk_for(G)
+        if ops.gate_route(key, p) != "ntt-unrolled":
+            raise AssertionError("a 64-row batch missed the unrolled route")
+        reset_launches()
+        got, k_ms = timed(lambda: ops.blind_rotate(ct, key, testv, p))
+        n_launch = extprod.LAUNCHES
+    rows, acc = tkey._setup(ct, testv, p)
+    want, t_ms = timed(lambda: ops.ntt_route_steps(
+        rows, acc, key, p, extprod.extprod1_ref))
+    err = max_diff(got, want)
+    if err or n_launch != key.shape[0]:
+        raise AssertionError(f"ntt-unrolled route: max |diff| {err}, "
+                             f"{n_launch} extprod1_ntt launches")
+    unrolled = {"G": G, "launches": n_launch, "max_abs_diff": err,
+                "route_ms": k_ms, "twin_ms": t_ms}
+    say("br-kernels", f"ntt-unrolled route (IYOKAN_BR_IMPL=pallas2, 64 "
+        f"rows <= IYOKAN_UNROLL_MAX): {json.dumps(unrolled)} on {smi}")
+    return rows_out, worst, unrolled
+
+
+def phase_br_gates(p, sk, dk, rng, smi, tkey_rate):
+    """2048 NANDs through each NTT blind-rotation route of bk_for."""
+    G = 2048
+    a = rng.integers(0, 2, G, dtype=np.uint8)
+    b = rng.integers(0, 2, G, dtype=np.uint8)
+    A = ops.u32_tensor(host.encrypt_bits(sk, a, rng), "cuda")
+    B = ops.u32_tensor(host.encrypt_bits(sk, b, rng), "cuda")
+    ca, cb, kk = (torch.full((G,), c, dtype=torch.int32, device="cuda")
+                  for c in gates.GATE_LIN[gates.NAND])
+    pre = ops.gate_linear(A, B, ca, cb, kk, p)
+    want = 1 - (a & b)
+    ideal = np.where(want == 1, p.mu, (1 << 32) - p.mu).astype(np.int64)
+
+    def nand():
+        lvl1 = ops.gate_bootstrap_tlwe1(pre, dk.bk_for(G), p)
+        return ops.keyswitch_10(lvl1, dk.ksk_f64, p)
+
+    out = {}
+    for impl, name, expect in (("pallas", "br_ntt_step", p.n),
+                               ("pallas2", "br_ntt_loop", 1),
+                               ("v3", "br3_ntt", 1)):
+        with knobs(IYOKAN_BR_IMPL=impl, IYOKAN_EP=None):
+            if ops.gate_route(dk.bk_for(G), p) != impl:
+                raise AssertionError(f"{G} rows missed the {impl} route")
+            reset_launches()
+            res = nand()
+            torch.cuda.synchronize()
+            counts = {"br_ntt_step": br.STEP_LAUNCHES,
+                      "br_ntt_loop": br.LOOP_LAUNCHES,
+                      "br3_ntt": br3.LAUNCHES}
+            if counts[name] != expect or sum(counts.values()) != expect:
+                raise AssertionError(f"{impl}: launches {counts}")
+            ph = host.tlwe0_phase(sk, ops.u32_numpy(res)).astype(np.int64)
+            err = np.abs(((ph - ideal + (1 << 31)) % (1 << 32)) - (1 << 31))
+            wrong = int((host.decrypt_bits(sk, ops.u32_numpy(res))
+                         != want).sum())
+            if wrong:
+                raise AssertionError(f"{wrong}/{G} wrong NANDs on {impl}")
+            ms = cuda_ms(nand, 2)
+        out[name] = {"route": impl, "launches": counts[name], "ms": ms,
+                     "gate_bootstraps_per_sec": G / (ms / 1e3),
+                     "max_phase_err_16ths": float(err.max()) / (1 << 28)}
+        say("br-gates", f"{G} NANDs, IYOKAN_BR_IMPL={impl} ({name}, "
+            f"{counts[name]} launches), 0 wrong; max phase error "
+            f"{out[name]['max_phase_err_16ths']:.4f}/16 of the torus; "
+            f"{ms:.1f} ms per batch -> gate_bootstraps_per_sec="
+            f"{out[name]['gate_bootstraps_per_sec']:.1f} vs tkey route "
+            f"{tkey_rate:.1f} (phase 4) on {smi}")
+    return out
+
+
+def reset_launches():
+    tkey.LAUNCHES = extprod.LAUNCHES = br3.LAUNCHES = 0
+    br.STEP_LAUNCHES = br.LOOP_LAUNCHES = 0
+
+
+def phase_slice(smi, impl=None):
+    """MAC-16 through the CLIs at cggi128: encrypted == plain == integers.
+    impl None: the default (tkey) route, with fresh keys and request; "v3":
+    IYOKAN_BR_IMPL=v3 on the first call's files (phase "br-slice").
+    Returns (launches of the route's kernel, s/cycle)."""
+    W, cycles = 16, SLICE_CYCLES
+    phase = "slice" if impl is None else "br-slice"
     bp_path = os.path.join(ROOT, "tests", "data", f"mac{W}.toml")
     rng = np.random.default_rng(SEED)
     av = [int(x) for x in rng.integers(0, 1 << W, cycles)]
@@ -240,19 +463,21 @@ def phase_slice(smi):
     f = {k: os.path.join(WORK, k) for k in (
         "sk", "ek", "req.toml", "req.plain", "req.enc", "res.enc",
         "res.plain", "res.ref")}
-    with open(f["req.toml"], "w") as fh:
-        fh.write("[[bits]]\n" + stream(av).format("a")
-                 + "\n[[bits]]\n" + stream(bv).format("b"))
-
     t0 = time.time()
-    packet_cli.main(["genkey", "--out", f["sk"], "--params", "cggi128",
-                     "--seed", str(SEED)])
-    packet_cli.main(["genevalkey", "--in", f["sk"], "--out", f["ek"],
-                     "--seed", str(SEED + 1)])
-    packet_cli.main(["toml2packet", "--in", f["req.toml"],
-                     "--out", f["req.plain"]])
-    packet_cli.main(["enc", "--key", f["sk"], "--in", f["req.plain"],
-                     "--out", f["req.enc"]])
+    if impl is None:
+        with open(f["req.toml"], "w") as fh:
+            fh.write("[[bits]]\n" + stream(av).format("a")
+                     + "\n[[bits]]\n" + stream(bv).format("b"))
+        packet_cli.main(["genkey", "--out", f["sk"], "--params", "cggi128",
+                         "--seed", str(SEED)])
+        packet_cli.main(["genevalkey", "--in", f["sk"], "--out", f["ek"],
+                         "--seed", str(SEED + 1)])
+        packet_cli.main(["toml2packet", "--in", f["req.toml"],
+                         "--out", f["req.plain"]])
+        packet_cli.main(["enc", "--key", f["sk"], "--in", f["req.plain"],
+                         "--out", f["req.enc"]])
+    elif not os.path.exists(f["req.enc"]):
+        raise RuntimeError("br-slice reuses the slice phase's files")
     t_keys = time.time() - t0
 
     cycle_us = []
@@ -267,18 +492,24 @@ def phase_slice(smi):
     lg.setLevel(logging.INFO)
     handler = CycleTimes()
     lg.addHandler(handler)
-    tkey.LAUNCHES = extprod.LAUNCHES = 0
+    reset_launches()
     t0 = time.time()
     try:
-        iyokan_cli.main(["tfhe", "--blueprint", bp_path, "-i", f["req.enc"],
-                         "-o", f["res.enc"], "--evalkey", f["ek"],
-                         "-c", str(cycles), "--quiet"])
+        with knobs(IYOKAN_BR_IMPL=impl):
+            iyokan_cli.main(["tfhe", "--blueprint", bp_path, "-i",
+                             f["req.enc"], "-o", f["res.enc"], "--evalkey",
+                             f["ek"], "-c", str(cycles), "--quiet"])
     finally:
         lg.removeHandler(handler)
     t_run = time.time() - t0
-    launches = tkey.LAUNCHES
-    if launches == 0:
-        raise AssertionError("the encrypted run launched no tkey kernel")
+    launches = tkey.LAUNCHES if impl is None else br3.LAUNCHES
+    others = (br3.LAUNCHES if impl is None else tkey.LAUNCHES,
+              br.STEP_LAUNCHES, br.LOOP_LAUNCHES)
+    if launches == 0 or any(others):
+        raise AssertionError(
+            f"the encrypted run launched {launches} "
+            f"{'tkey' if impl is None else 'br3_ntt'} kernels and {others} "
+            "of the other routes'")
 
     packet_cli.main(["dec", "--key", f["sk"], "--in", f["res.enc"],
                      "--out", f["res.plain"]])
@@ -308,12 +539,12 @@ def phase_slice(smi):
     if len(cycle_us) != cycles:
         raise AssertionError(f"expected {cycles} cycle times, got {cycle_us}")
     s_cycle = sum(cycle_us) / len(cycle_us) / 1e6
-    say("slice", f"MAC-{W} x {cycles} cycles at cggi128: decrypted acc "
-        f"{got} == plain == a.b; census {comp.gate_census()}; "
-        f"{len(comp.levels)} levels, {boots} bootstraps/cycle; "
-        f"{s_cycle:.3f} s/cycle (cycles {cycle_us} us), tfhe CLI "
-        f"{t_run:.1f} s incl. key load + reset, keys+enc {t_keys:.1f} s; "
-        f"{launches} kernel launches; {smi}")
+    say(phase, f"MAC-{W} x {cycles} cycles at cggi128 (IYOKAN_BR_IMPL="
+        f"{impl or 'tkey'}): decrypted acc {got} == plain == a.b; census "
+        f"{comp.gate_census()}; {len(comp.levels)} levels, {boots} "
+        f"bootstraps/cycle; {s_cycle:.3f} s/cycle (cycles {cycle_us} us), "
+        f"tfhe CLI {t_run:.1f} s incl. key load + reset, keys+enc "
+        f"{t_keys:.1f} s; {launches} kernel launches; {smi}")
     return launches, s_cycle
 
 
@@ -479,13 +710,68 @@ def phase_memory(files, data, smi):
     return launches, s_cycle, stages
 
 
+def kernel_records(p, times, worst, launches, ep_rows, ep_worst, br_rows,
+                   br_gates, k3_launches):
+    """The kernels' JSON records: launches on each kernel's path (the
+    memmac run for tkey_blind_rotate and extprod1_ntt, the br-gates runs
+    for K5 and K4, the br-slice run for K3), max |diff| against the twin
+    over every compared shape, ms and twin ms at one shape (the largest
+    compared one), and the bound of that shape's work."""
+    i32 = 4
+    G = 2048
+    L, _, lb = ops.tkey_default_config(p)
+    RT, C = (p.l + lb) * p.N, 2 * L * 128
+    io = G * (p.n + 1) * i32 + p.N * i32 + G * 2 * p.N * i32
+    recs = [("tkey_blind_rotate", "tkey_blind_rotate.cu",
+             "iyokan_tpu/ops/pallas_tk.py:219", launches["tkey_blind_rotate"],
+             worst, next(r for r in times if r["G"] == G),
+             bound(2 * p.n * G * (p.N // 128) * RT * C, INT8_OPS_PER_S,
+                   p.n * RT * C + io))]
+    K, RR = 2, 2 * p.l
+    recs.append(("extprod1_ntt", "extprod1_ntt.cu",
+                 "iyokan_tpu/ops/pallas_ep.py:91", launches["extprod1_ntt"],
+                 ep_worst, next(r for r in ep_rows
+                                if r["G"] == G and r["K"] == K),
+                 bound(2 * G * ntt_mulmods(p, RR), INT32_MULS_PER_S,
+                       G * RR * p.N * i32 + K * RR * 4 * p.N * i32
+                       + G * i32 + G * 2 * p.N * i32)))
+    G = 256
+    io = G * (p.n + 1) * i32 + p.N * i32 + G * 2 * p.N * i32
+    nh = (p.n + 1) // 2
+    for name, src, rep, n_launch, case, steps, m in (
+            ("br_ntt_step", "br_ntt.cu", "iyokan_tpu/ops/pallas_br.py:109",
+             br_gates["br_ntt_step"]["launches"], "br_ntt_step", p.n, 0),
+            ("br_ntt_loop", "br_ntt.cu", "iyokan_tpu/ops/pallas_br2.py:35",
+             br_gates["br_ntt_loop"]["launches"], "br_ntt_loop", p.n, 0),
+            ("br3_ntt", "br3_ntt.cu", "iyokan_tpu/ops/pallas_br3.py:168",
+             k3_launches, "br3_ntt M=3", nh, 3)):
+        errs = [r["max_abs_diff"] for r in br_rows
+                if r["kernel"].split()[0] == name and "max_abs_diff" in r]
+        key_bytes = steps * RR * max(m, 1) * 2 * 2 * p.N * i32
+        recs.append((name, src, rep, n_launch, max(errs),
+                     next(r for r in br_rows
+                          if r["kernel"] == case and r["G"] == G),
+                     bound(2 * steps * G * ntt_mulmods(p, RR, m),
+                           INT32_MULS_PER_S, key_bytes + io)))
+    out = []
+    for name, src, rep, n_launch, err, row, (b_ms, b_by) in recs:
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"iyokan_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": n_launch, "max_abs_err": err,
+            "ms": row["kernel_ms"], "plain_ms": row["twin_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "at_G": row["G"]})
+    return out
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi, name = phase_device()
-    phase_build()
-
     p = params.CGGI128
+    phase_build(p)
+
     rng = np.random.default_rng(SEED)
     sk = host.keygen(p, seed=SEED)
     ek = host.genevalkey(sk, seed=SEED + 1, with_cb=False)
@@ -505,34 +791,25 @@ def main() -> int:
     ep_rows, ep_worst, t_cb = phase_extprod(p, files, smi)
     launches, mem_s_cycle, stages = phase_memory(files, data, smi)
 
+    bdk = br_keys(ek)
+    br_rows, _, unrolled = phase_br_kernels(p, sk, bdk, rng, smi)
+    br_gates = phase_br_gates(p, sk, bdk, rng, smi, rate)
+    del bdk
+    torch.cuda.empty_cache()
+    k3_launches, v3_s_cycle = phase_slice(smi, impl="v3")
+
     say("summary", json.dumps({
         "card": smi, "blind_rotate_ms": times,
         "gate_bootstraps_per_sec": rate, "ntt_gates": ntt,
         "mac16_s_per_cycle": s_cycle, "extprod_ms": ep_rows,
         "cb_8bits_s": t_cb, "memmac_s_per_cycle": mem_s_cycle,
-        "memmac_stage_s": stages}))
-    big = next(r for r in times if r["G"] == 2048)
-    ep = next(r for r in ep_rows if r["G"] == 2048 and r["K"] == 2)
+        "memmac_stage_s": stages, "br_kernels": br_rows,
+        "ntt_unrolled_route": unrolled, "br_gates": br_gates,
+        "mac16_v3_s_per_cycle": v3_s_cycle}))
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "tkey_blind_rotate",
-        "route": "cuda",
-        "source": "iyokan_tpu_torch/csrc/tkey_blind_rotate.cu",
-        "replaces": "iyokan_tpu/ops/pallas_tk.py:219",
-        "launches": launches["tkey_blind_rotate"],
-        "max_abs_err": worst,
-        "ms": big["kernel_ms"],
-        "plain_ms": big["twin_ms"],
-    }, {
-        "name": "extprod1_ntt",
-        "route": "cuda",
-        "source": "iyokan_tpu_torch/csrc/extprod1_ntt.cu",
-        "replaces": "iyokan_tpu/ops/pallas_ep.py:91",
-        "launches": launches["extprod1_ntt"],
-        "max_abs_err": ep_worst,
-        "ms": ep["kernel_ms"],
-        "plain_ms": ep["twin_ms"],
-    }]}))
+    print(json.dumps({"kernels": kernel_records(
+        p, times, worst, launches, ep_rows, ep_worst, br_rows, br_gates,
+        k3_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -75,6 +75,35 @@ def device_tables(N: int, device) -> dict:
     return _DEV_TABLES[key]
 
 
+@functools.lru_cache(maxsize=None)
+def psi_powers(N: int) -> np.ndarray:
+    """psi^e mod p for e in [0, 2N), both primes: int64 [2, 2N].  Slot pos
+    of ntt_fwd's output holds the value at psi^(2k+1), k = bit-reverse(pos),
+    so X^a multiplies that slot by psi^(a(2k+1) mod 2N)."""
+    out = []
+    for p in PRIMES:
+        psi = pow(_GENERATORS[p], (p - 1) // (2 * N), p)
+        out.append([pow(psi, e, p) for e in range(2 * N)])
+    return np.array(out, np.int64)
+
+
+_KERNEL_TABLES = {}
+
+
+def kernel_tables(N: int, device) -> tuple:
+    """The NTT kernels' (csrc/ntt.cuh) tables on `device`, cached: int32
+    [4, N] = psirev (P1, P2), psiinvrev (P1, P2), and int32 [2, 2N] =
+    psi_powers (every entry is below 2^31)."""
+    key = (N, str(device))
+    if key not in _KERNEL_TABLES:
+        t = tables(N)
+        tab = np.concatenate([t["psirev"], t["psiinvrev"]])
+        _KERNEL_TABLES[key] = tuple(
+            torch.from_numpy(a.astype(np.int32)).to(device).contiguous()
+            for a in (tab, psi_powers(N)))
+    return _KERNEL_TABLES[key]
+
+
 def ntt_fwd(x: torch.Tensor, N: int, pi: int) -> torch.Tensor:
     """Forward negacyclic NTT; x int64 [..., N] in [0, p); bit-reversed
     output."""

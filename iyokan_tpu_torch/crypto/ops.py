@@ -82,16 +82,20 @@ def _i64(v: int) -> int:
 # --------------------------------------------------------------------------- #
 
 
+def decompose1_offset(p: Params) -> int:
+    """decompose1's offset, below 2^32: Bg/2 per level centres the digits,
+    half the last level's unit rounds the truncated tail to nearest."""
+    offset = sum((p.Bg // 2) << (32 - (j + 1) * p.Bgbit) for j in range(p.l))
+    return (offset + (1 << (31 - p.l * p.Bgbit))) & MASK32
+
+
 def decompose1(x: torch.Tensor, p: Params) -> torch.Tensor:
     """Signed gadget decomposition, 32-bit torus.
 
     x: [..., 2, N], i32 bit patterns or any int64 (taken mod 2^32) ->
-    int32 [..., 2l, N], digit (i*l+j) for part i.  The offset centres the
-    digits (Bg/2 per level) and rounds the truncated tail to nearest.
+    int32 [..., 2l, N], digit (i*l+j) for part i (decompose1_offset).
     """
-    offset = sum((p.Bg // 2) << (32 - (j + 1) * p.Bgbit) for j in range(p.l))
-    offset += 1 << (31 - p.l * p.Bgbit)
-    xp = (x.to(torch.int64) + offset) & MASK32
+    xp = (x.to(torch.int64) + decompose1_offset(p)) & MASK32
     outs = [((xp >> (32 - (j + 1) * p.Bgbit)) & (p.Bg - 1)) - p.Bg // 2
             for j in range(p.l)]
     dig = torch.stack(outs, dim=-2).to(torch.int32)     # [..., 2, l, N]
@@ -262,34 +266,98 @@ def _modswitch(x: torch.Tensor, log2n: int) -> torch.Tensor:
     return (v & ((1 << (log2n + 1)) - 1)).to(torch.int32)
 
 
+def gate_route(bk_prep: torch.Tensor, p: Params) -> str:
+    """The route a gate blind rotation takes on this key, as iyokan_tpu's
+    blind_rotate dispatches on its key's layout and IYOKAN_BR_IMPL (see
+    DeviceKeys for the table):
+
+    "tkey"         int8 fat slab: ops/tkey.py (K1);
+    "pallas"       plain key, IYOKAN_BR_IMPL=pallas: ops/br.py, K5 per step;
+    "pallas2"      plain key, IYOKAN_BR_IMPL=pallas2: ops/br.py, K4;
+    "v3"           plain key, IYOKAN_BR_IMPL=v3: ops/br3.py, K3 at M = 1;
+    "v3-unrolled"  unrolled key, IYOKAN_BR_IMPL=v3: K3 at M = 3;
+    "ntt-step"     plain key otherwise (and always under IYOKAN_EP=pallas,
+                   where the JAX package holds a K6 kernel-layout key):
+                   rotate -> decompose1 -> extprod1 per step;
+    "ntt-unrolled" unrolled key otherwise: 3 rotated differences, one
+                   3*2l-row extprod1 per key-bit pair.
+    The plain key is int32 [n, 2l, 2, P, N], the unrolled one int32
+    [ceil(n/2), 3*2l, 2, P, N] (polymul.prep1)."""
+    if bk_prep.dtype == torch.int8:
+        return "tkey"
+    impl = os.environ.get("IYOKAN_BR_IMPL")
+    lead = tuple(bk_prep.shape[:2]) if bk_prep.dim() == 5 else ()
+    if lead == ((p.n + 1) // 2, 6 * p.l):
+        return "v3-unrolled" if impl == "v3" else "ntt-unrolled"
+    if lead != (p.n, 2 * p.l):
+        raise ValueError(
+            f"blind-rotation key {tuple(bk_prep.shape)} {bk_prep.dtype} is "
+            "neither a tkey slab nor a prepared [n, 2l, 2, P, N] NTT key "
+            "(plain or 2-bit unrolled)")
+    if os.environ.get("IYOKAN_EP") != "pallas" and impl in (
+            "pallas", "pallas2", "v3"):
+        return impl
+    return "ntt-step"
+
+
 def blind_rotate(tlwe0: torch.Tensor, bk_prep: torch.Tensor,
                  testv: torch.Tensor, p: Params) -> torch.Tensor:
     """Batched blind rotation lvl0 -> TRLWE lvl1: i32 [G, 2, N] with phase
-    testv * X^{-phase_2N}, routed by the key's layout:
-
-    * int8 fat Toeplitz slab [n, (l+lb)*N, 2L*128]: the tkey kernel
-      (ops/tkey.py), the default;
-    * int32 CRT64-prepared bk [n, 2l, 2, P, N] (DeviceKeys on the NTT
-      route): n steps of rotate -> decompose1 -> extprod1 against the
-      step's key, the counterpart of iyokan_tpu's IYOKAN_EP=pallas loop
-      (K6 per step; here the extprod1_ntt kernel)."""
-    if bk_prep.dtype == torch.int8:
+    testv * X^{-phase_2N}, on the route gate_route gives: a kernel of
+    ops/tkey.py, ops/br.py or ops/br3.py, or a loop of extprod1 launches
+    (ops/extprod.py, the extprod1_ntt kernel on the card) over the plain
+    key (one per step) or the unrolled key (one per key-bit pair; the 2-bit
+    unrolling X^(a1 s1 + a2 s2) = 1 + s1(1-s2)(X^a1 - 1) + s2(1-s1)(X^a2 - 1)
+    + s1 s2 (X^(a1+a2) - 1) halves the sequential depth)."""
+    route = gate_route(bk_prep, p)
+    if route == "tkey":
         from ..ops.tkey import blind_rotate_tkey
 
         return blind_rotate_tkey(tlwe0, bk_prep, testv, p)
-    if bk_prep.dim() != 5 or tuple(bk_prep.shape[:2]) != (p.n, 2 * p.l):
-        raise ValueError(
-            f"blind-rotation key {tuple(bk_prep.shape)} {bk_prep.dtype} is "
-            "neither a tkey slab nor a prepared [n, 2l, 2, P, N] NTT key")
+    if route in ("pallas", "pallas2"):
+        from ..ops import br
+
+        fn = br.blind_rotate_pallas if route == "pallas" else \
+            br.blind_rotate_pallas2
+        return fn(tlwe0, bk_prep, testv, p)
+    if route.startswith("v3"):
+        from ..ops.br3 import blind_rotate_pallas3
+
+        return blind_rotate_pallas3(tlwe0, bk_prep, testv, p)
     from ..ops.extprod import extprod1
     from ..ops.tkey import _setup
 
     rows, acc = _setup(tlwe0, testv, p)
-    for i in range(p.n):
-        rot = rot_poly(acc, rows[i][:, None], p.N)
-        d = decompose1(to_u64(rot) - to_u64(acc), p)
-        acc = from_u64(to_u64(acc)
-                       + to_u64(extprod1(d, bk_prep[i][None], None, p)))
+    return ntt_route_steps(rows, acc, bk_prep, p, extprod1)
+
+
+def ntt_route_steps(rows: torch.Tensor, acc: torch.Tensor,
+                    bk_prep: torch.Tensor, p: Params,
+                    product) -> torch.Tensor:
+    """The ntt-step / ntt-unrolled loop of blind_rotate from its set-up
+    (rows int32 [n, G], acc i32 [G, 2, N]; ops/tkey._setup), with
+    `product` as the lvl1 external product: ops/extprod.extprod1 on the
+    route, its twin extprod1_ref where chip_smoke.py holds the route on the
+    card against it.  The key's row count picks the loop: 3*2l rows a
+    step is the unrolled key."""
+    unrolled = bk_prep.shape[1] == 6 * p.l
+    if unrolled:
+        nh = bk_prep.shape[0]
+        if 2 * nh > p.n:
+            rows = torch.cat([rows, rows.new_zeros((2 * nh - p.n,
+                                                    rows.shape[1]))])
+        a1, a2 = rows[0::2], rows[1::2]
+        amounts = (a1, a2, (a1 + a2) % (2 * p.N))
+    for i in range(bk_prep.shape[0]):
+        u = to_u64(acc)
+        if unrolled:
+            d = torch.cat([decompose1(to_u64(rot_poly(acc, a[i][:, None],
+                                                      p.N)) - u, p)
+                           for a in amounts], dim=-2)         # [G, 3*2l, N]
+        else:
+            d = decompose1(to_u64(rot_poly(acc, rows[i][:, None], p.N)) - u,
+                           p)
+        acc = from_u64(u + to_u64(product(d, bk_prep[i][None], None, p)))
     return acc
 
 
@@ -439,12 +507,10 @@ def check_device(device) -> torch.device:
     return device
 
 
-def ntt_route() -> bool:
-    """Gate blind rotations on the NTT route (extprod1 per step) instead of
-    the tkey kernel: the JAX package's own knobs, IYOKAN_EP=pallas with an
-    IYOKAN_BR_IMPL other than tkey (the default)."""
-    return (os.environ.get("IYOKAN_EP") == "pallas"
-            and os.environ.get("IYOKAN_BR_IMPL", "tkey") != "tkey")
+def unroll_max(tkey: bool) -> int:
+    """IYOKAN_UNROLL_MAX: the largest batch that takes the unrolled key,
+    by default 0 on the tkey route and 256 on the others (JAX bk_for)."""
+    return int(os.environ.get("IYOKAN_UNROLL_MAX", "0" if tkey else "256"))
 
 
 @dataclasses.dataclass
@@ -452,15 +518,41 @@ class DeviceKeys:
     """Evaluation key prepared for the runtime ops on one device.
 
     bk_tk     int8 [n, (l+lb)*N, 2*L*128]  fat Toeplitz slab (tkey route;
-                                           None on the NTT route)
+                                           None on the others)
     ksk_mat   i32  [N*t, n+1]              identity key-switch key
     ksk_f64   f64  [N*t, n+1]              ksk_mat as centred float64
-    bk_ntt    i32  [n, 2l, 2, P, N]        CRT64-prepared bk (NTT route)
+    bk_ntt    i32  [n, 2l, 2, P, N]        CRT64-prepared bk (non-tkey
+                                           routes; None on tkey)
+    bk_ntt_u  i32  [nh, 3*2l, 2, P, N]     CRT64-prepared 2-bit-unrolled bk
+                                           (bku, nh = ceil(n/2)), or None
     bk2       i64  [nh, 3*2l2, 2, 4, N2]   prepared 2-bit-unrolled CB key
                                            (bk2u; [n, 2l2, ...] from bk2
-                                           when the key has no bk2u)
+                                           when the key has no bk2u or
+                                           IYOKAN_NO_UNROLL is set)
     pksk_f64  2 x f64 [N2*t, 2N]           private key-switch keys, centred
     The last two are None without circuit-bootstrapping material.
+
+    Gate keys and routes follow iyokan_tpu's from_evalkey, bk_for and
+    blind_rotate on the TPU (MXU backend) row for row; the port's plain
+    key is always the CRT64 prep1 key.  bk_for(batch) gives the unrolled
+    key to batches of at most thr = unroll_max() rows when it exists,
+    and blind_rotate routes on the key (gate_route):
+
+    IYOKAN_BR_IMPL  IYOKAN_EP=pallas  plain key (batch > thr)  unrolled key
+    unset / tkey    any               tkey slab (K1), thr = 0  (thr > 0:
+                                                               ntt-unrolled)
+    pallas          no                K5                       ntt-unrolled
+    pallas2         no                K4                       ntt-unrolled
+    v3              no                K3, M = 1                K3, M = 3
+    any non-tkey    yes               ntt-step (K6 per step)   v3: K3, M = 3;
+                                                               else
+                                                               ntt-unrolled
+    other (ntt, .)  no                ntt-step                 ntt-unrolled
+
+    thr is IYOKAN_UNROLL_MAX (default 256, and 0 on tkey, where the
+    unrolled key is built only for a positive value); IYOKAN_NO_UNROLL
+    set means no unrolled key (and the plain CB key bk2).  ntt-unrolled
+    runs extprod1 at 3*2l rows, one launch per key-bit pair.
     """
 
     params: Params
@@ -469,13 +561,19 @@ class DeviceKeys:
     ksk_mat: torch.Tensor
     ksk_f64: torch.Tensor
     bk_ntt: torch.Tensor = None
+    bk_ntt_u: torch.Tensor = None
     bk2: torch.Tensor = None
     pksk_f64: tuple = None
 
-    def bk_for(self) -> torch.Tensor:
-        """The gate blind-rotation key: the NTT-prepared bk on the NTT
-        route, else the tkey slab (blind_rotate routes on its layout)."""
-        return self.bk_ntt if self.bk_ntt is not None else self.bk_tk
+    def bk_for(self, batch: int) -> torch.Tensor:
+        """The gate blind-rotation key for a batch of `batch` rows (the
+        size of the JAX call this one mirrors, not the rows it runs): the
+        unrolled key up to unroll_max() rows when it exists, else the
+        route's plain key (blind_rotate routes on its layout)."""
+        tkey = self.bk_tk is not None
+        if self.bk_ntt_u is not None and batch <= unroll_max(tkey):
+            return self.bk_ntt_u
+        return self.bk_tk if tkey else self.bk_ntt
 
     @staticmethod
     def from_evalkey(ek: EvalKey, device, with_cb: bool = True
@@ -487,8 +585,12 @@ class DeviceKeys:
         NTT preparation runs on `device`."""
         device = check_device(device)
         p = ek.params
-        bk_tk = bk_ntt = None
-        if ntt_route():
+        # the tkey slab unless IYOKAN_BR_IMPL names another route (the
+        # port's default, as the JAX package's on the TPU)
+        tkey = os.environ.get("IYOKAN_BR_IMPL", "tkey") == "tkey"
+        no_unroll = bool(os.environ.get("IYOKAN_NO_UNROLL"))
+        bk_tk = bk_ntt = bk_ntt_u = None
+        if not tkey:
             bk_ntt = polymul.prep1(u32_tensor(ek.bk, device), p)
         else:
             L, lay, lb = tkey_default_config(p)
@@ -506,14 +608,18 @@ class DeviceKeys:
             slab = polymul.tkey_kernel_key(src, p, L, lay, lb=lb)
             bk_tk = torch.from_numpy(slab).to(device)
             del slab
+        if (ek.bku is not None and not no_unroll
+                and (not tkey or unroll_max(True) > 0)):
+            bku = ek.bku.reshape(ek.bku.shape[0], 6 * p.l, 2, p.N)
+            bk_ntt_u = polymul.prep1(u32_tensor(bku, device), p)
         ksk_mat = u32_tensor(ek.ksk.reshape(p.N * p.ks_t, p.n + 1), device)
         dk = DeviceKeys(p, device, bk_tk, ksk_mat, ksk_mat.to(torch.float64),
-                        bk_ntt)
+                        bk_ntt, bk_ntt_u)
         if with_cb and ek.bk2.shape[0] != 0:
             # the depth-halved unrolled key whenever present, as the JAX
             # package's bk2_for (CB batches are small: l rows per address
             # bit, so the rotation is latency-bound)
-            if ek.bk2u is not None and ek.bk2u.size:
+            if ek.bk2u is not None and ek.bk2u.size and not no_unroll:
                 src2 = ek.bk2u.reshape(ek.bk2u.shape[0], 6 * p.l2, 2, p.N2)
             else:
                 src2 = ek.bk2

@@ -38,86 +38,15 @@
 // Built by iyokan_tpu_torch/ops/nvcc.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libextprod1_ntt-<hash>.so extprod1_ntt.cu
+// (the hash covers this file and ntt.cuh, which holds the NTT itself)
 // and called through ctypes (plain C interface below).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ntt.cuh"
+
 namespace {
-
-constexpr uint32_t P1 = 2013265921u;            // 15 * 2^27 + 1
-constexpr uint32_t P2 = 1811939329u;            // 27 * 2^26 + 1
-constexpr uint64_t P1P2 = (uint64_t)P1 * P2;
-constexpr uint32_t INV_P1_MOD_P2 = 1811939320u;  // P1^-1 mod P2
-
-template <uint32_t P>
-__device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b) {
-  return (uint32_t)(((uint64_t)a * b) % P);
-}
-
-template <uint32_t P>
-__device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;  // a, b < P < 2^31: no wrap
-  return s >= P ? s - P : s;
-}
-
-template <uint32_t P>
-__device__ __forceinline__ uint32_t submod(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + (P - b);
-}
-
-// Forward negacyclic NTT of npoly polynomials x[r*N ..] in shared memory,
-// natural order in, bit-reversed out (crypto/ntt.py:ntt_fwd).  Called by
-// all N/2 threads of the block.
-template <uint32_t P>
-__device__ void ntt_fwd(uint32_t* x, int npoly,
-                        const uint32_t* __restrict__ psirev, int N,
-                        int logN) {
-  const int k = threadIdx.x;
-  for (int lm = 0; lm < logN; ++lm) {
-    const int lt = logN - 1 - lm;  // t = N / (2m), m = 2^lm
-    const int t = 1 << lt;
-    const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
-    const uint32_t s = psirev[(1 << lm) + (k >> lt)];
-    for (int r = 0; r < npoly; ++r) {
-      uint32_t* y = x + r * N;
-      const uint32_t u = y[i0];
-      const uint32_t v = mulmod<P>(y[i0 + t], s);
-      y[i0] = addmod<P>(u, v);
-      y[i0 + t] = submod<P>(u, v);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse (Gentleman-Sande), bit-reversed in, natural out, times N^-1
-// (crypto/ntt.py:ntt_inv).
-template <uint32_t P>
-__device__ void ntt_inv(uint32_t* x, int npoly,
-                        const uint32_t* __restrict__ psiinvrev, uint32_t ninv,
-                        int N, int logN) {
-  const int k = threadIdx.x;
-  for (int lh = logN - 1; lh >= 0; --lh) {
-    const int lt = logN - 1 - lh;  // t = N / m, h = m / 2 = 2^lh
-    const int t = 1 << lt;
-    const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
-    const uint32_t s = psiinvrev[(1 << lh) + (k >> lt)];
-    for (int r = 0; r < npoly; ++r) {
-      uint32_t* y = x + r * N;
-      const uint32_t u = y[i0];
-      const uint32_t v = y[i0 + t];
-      y[i0] = addmod<P>(u, v);
-      y[i0 + t] = mulmod<P>(submod<P>(u, v), s);
-    }
-    __syncthreads();
-  }
-  const int H = N >> 1;
-  for (int r = 0; r < npoly; ++r) {
-    x[r * N + k] = mulmod<P>(x[r * N + k], ninv);
-    x[r * N + k + H] = mulmod<P>(x[r * N + k + H], ninv);
-  }
-  __syncthreads();
-}
 
 // One prime's product of a row: acc[u*N + c] = sum_r d_r * key_{r,u} mod P,
 // in natural order.
@@ -172,16 +101,10 @@ extprod1_kernel(const int32_t* __restrict__ digits,  // [G, RR, N]
   one_prime<P2>(dg, key, 1, dig, acc, tab + N, tab + 3 * N, ninv2, RR, N,
                 logN);
 
-  // Garner: x = r1 + P1 * ((r2 - r1) * P1^-1 mod P2) in [0, P1*P2),
-  // centred, mod 2^32
+  // Garner (ntt.cuh: crt_mod32): the centred integer, mod 2^32
   int32_t* o = out + (size_t)g * 2 * N;
-  for (int c = k; c < 2 * N; c += H) {
-    const uint32_t r1 = res1[c];
-    const uint32_t diff = submod<P2>(acc[c], r1 >= P2 ? r1 - P2 : r1);
-    const uint64_t x =
-        r1 + (uint64_t)P1 * mulmod<P2>(diff, INV_P1_MOD_P2);
-    o[c] = (int32_t)(uint32_t)(x >= P1P2 / 2 ? x - P1P2 : x);
-  }
+  for (int c = k; c < 2 * N; c += H)
+    o[c] = (int32_t)crt_mod32(res1[c], acc[c]);
 }
 
 }  // namespace

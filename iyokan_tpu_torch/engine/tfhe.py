@@ -36,6 +36,7 @@ same either way; the port runs level by level).
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -49,6 +50,40 @@ from ..crypto import host, ops
 # kernel's digit scratch (rows x (l+lb)*N int8) and the twin's float64
 # temporaries on very wide levels.
 BOOT_CHUNK = 2048
+
+
+def _bucket(n: int) -> int:
+    """The JAX engine's batch bucket: 0, or the power of two >= max(n, 16)."""
+    if n == 0:
+        return 0
+    b = 16
+    while b < n:
+        b *= 2
+    return b
+
+
+def jax_chunk_sizes(nb: int, nm: int, cap: int) -> np.ndarray:
+    """For each row of a level's unpadded batch (nb gate rows, then the nm
+    first and the nm second MUX half-gate rows), the size of the chunk the
+    JAX engine bootstraps it in, int64 [nb + 2*nm].
+
+    The JAX engine pads the level to _bucket(nb) + 2*_bucket(nm) rows and
+    splits that into power-of-two chunks of at most cap rows (cap <= 0 or a
+    batch of at most 16 rows: one chunk), each asking bk_for(chunk size)
+    for its key (iyokan_tpu/engine/tfhe.py:_pad_plan, _chunked_bootstrap).
+    Rows of one level can thus take different keys."""
+    nbb, nmb = _bucket(nb), _bucket(nm)
+    total = nbb + 2 * nmb
+    size = np.full(total, total, np.int64)
+    if cap > 0 and total > 16:
+        i = 0
+        while i < total:
+            c = 1 << (min(cap, total - i).bit_length() - 1)
+            size[i: i + c] = c
+            i += c
+    pos = np.concatenate([np.arange(nb), nbb + np.arange(nm),
+                          nbb + nmb + np.arange(nm)])
+    return size[pos]
 
 
 class TFHEEngine:
@@ -93,10 +128,11 @@ class TFHEEngine:
             "copy_src": t(plan.copy_src), "copy_out": t(plan.copy_out),
         }
 
-    def _blind_rotate(self, keys, batch, testv):
-        """Blind-rotate a batch in chunks of at most BOOT_CHUNK rows."""
-        outs = [ops.blind_rotate(batch[i: i + BOOT_CHUNK], keys.bk_for(),
-                                 testv, self.p)
+    def _blind_rotate(self, bk, batch, testv):
+        """Blind-rotate a batch against one key in slices of at most
+        BOOT_CHUNK rows (rows are independent: the slicing changes no
+        result)."""
+        outs = [ops.blind_rotate(batch[i: i + BOOT_CHUNK], bk, testv, self.p)
                 for i in range(0, batch.shape[0], BOOT_CHUNK)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -104,10 +140,27 @@ class TFHEEngine:
         return torch.full((self.p.N,), self.p.mu, dtype=torch.int32,
                           device=self.device)
 
-    def _chunked_bootstrap(self, keys, batch):
-        """Gate-bootstrap a level batch (lvl0 -> TLWE lvl1 +-mu)."""
-        return ops.sample_extract(
-            self._blind_rotate(keys, batch, self._testv()), 0)
+    def _chunked_bootstrap(self, keys, batch, nb, nm):
+        """Gate-bootstrap a level batch (lvl0 -> TLWE lvl1 +-mu), each row
+        against the key the JAX engine's chunk of that row takes
+        (jax_chunk_sizes; IYOKAN_BOOT_CHUNK as there, default 2048)."""
+        cap = int(os.environ.get("IYOKAN_BOOT_CHUNK", "2048"))
+        sizes = jax_chunk_sizes(nb, nm, cap)
+        groups = {}                             # id(key) -> (key, sizes)
+        for s in np.unique(sizes):
+            bk = keys.bk_for(int(s))
+            groups.setdefault(id(bk), (bk, []))[1].append(s)
+        testv = self._testv()
+        if len(groups) == 1:
+            acc = self._blind_rotate(next(iter(groups.values()))[0], batch,
+                                     testv)
+        else:
+            acc = torch.empty((batch.shape[0], 2, self.p.N),
+                              dtype=torch.int32, device=batch.device)
+            for bk, ss in groups.values():
+                rows = self._idx(np.flatnonzero(np.isin(sizes, ss)))
+                acc[rows] = self._blind_rotate(bk, batch[rows], testv)
+        return ops.sample_extract(acc, 0)
 
     def _level_body(self, keys, vals, pp):
         """One level's gather -> batched bootstrap -> scatter."""
@@ -125,7 +178,7 @@ class TFHEEngine:
             pre1[:, p.n] -= p.mu
             pre2[:, p.n] -= p.mu
             pres.extend([ops.from_u64(pre1), ops.from_u64(pre2)])
-        t1 = self._chunked_bootstrap(keys, torch.cat(pres))
+        t1 = self._chunked_bootstrap(keys, torch.cat(pres), nb, nm)
         rows = []
         if nb:
             rows.append(t1[:nb])
@@ -312,10 +365,13 @@ class TFHEEngine:
         return vals
 
     def _refresh(self, keys, lvl1, testv):
-        """Key-switch + blind-rotate TLWE lvl1 rows, BOOT_CHUNK at a time."""
+        """Key-switch + blind-rotate TLWE lvl1 rows, BOOT_CHUNK at a time,
+        all against the key of one JAX call over every row
+        (bk_for(lvl1.shape[0]))."""
+        bk = keys.bk_for(lvl1.shape[0])
         outs = [self._blind_rotate(
-                    keys, ops.keyswitch_10(lvl1[i: i + BOOT_CHUNK],
-                                           keys.ksk_f64, self.p), testv)
+                    bk, ops.keyswitch_10(lvl1[i: i + BOOT_CHUNK],
+                                         keys.ksk_f64, self.p), testv)
                 for i in range(0, lvl1.shape[0], BOOT_CHUNK)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -344,8 +400,8 @@ class TFHEEngine:
             pres1.append(ops.from_u64(pre1))
             pres2.append(ops.from_u64(pre2))
         W = sum(inst.data_width for inst in insts)
-        tr = ops.to_u64(self._blind_rotate(keys, torch.cat(pres1 + pres2),
-                                           testv))
+        tr = ops.to_u64(self._blind_rotate(keys.bk_for(2 * W),
+                                           torch.cat(pres1 + pres2), testv))
         written_all = tr[:W] + tr[W:]
         written_all[:, 1, 0] += p.mu
         written_all = ops.from_u64(written_all)              # [W, 2, N]

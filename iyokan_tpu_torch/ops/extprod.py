@@ -31,7 +31,6 @@ from . import nvcc
 
 LAUNCHES = 0          # external-product kernels launched on the card
 SOURCE = "extprod1_ntt.cu"
-_TABLES = {}
 
 
 def _check(digits: torch.Tensor, keys: torch.Tensor, idx, p: Params):
@@ -84,18 +83,6 @@ def _bind(lib):
     lib.extprod1_error_string.argtypes = [ci]
 
 
-def _tables(N: int, device) -> torch.Tensor:
-    """psirev (P1, P2) and psiinvrev (P1, P2) as int32 [4, N] on `device`
-    (every entry is below 2^31)."""
-    key = (N, str(device))
-    if key not in _TABLES:
-        t = ntt.tables(N)
-        _TABLES[key] = torch.cat([torch.from_numpy(t["psirev"]),
-                                  torch.from_numpy(t["psiinvrev"])]).to(
-            torch.int32).to(device).contiguous()
-    return _TABLES[key]
-
-
 def _launch(digits, keys, idx, p: Params) -> torch.Tensor:
     global LAUNCHES
     lib = nvcc.load(SOURCE, _bind)
@@ -111,7 +98,7 @@ def _launch(digits, keys, idx, p: Params) -> torch.Tensor:
     rc = lib.extprod1_ntt(
         digits.data_ptr(), keys.data_ptr(),
         None if idx is None else idx.data_ptr(),
-        _tables(N, digits.device).data_ptr(), out.data_ptr(),
+        ntt.kernel_tables(N, digits.device)[0].data_ptr(), out.data_ptr(),
         G, RR, N, keys.shape[0], int(ninv[0]), int(ninv[1]), dev,
         torch.cuda.current_stream(digits.device).cuda_stream)
     if rc != 0:

@@ -2,10 +2,11 @@
 
 Every source under csrc/ has a plain C interface.  It is compiled for
 sm_90a by nvcc into a shared library under build/kernels/ (named by the
-source's hash, so an edited source builds anew and an unchanged one is
-reused) and loaded with ctypes at first use -- never at import, so the
-CPU tests import every module without nvcc.  `build` starts one nvcc per
-source that is not built yet, all at once, and waits for them.
+hash of the source and the csrc/ headers it includes, so an edited source
+or header builds anew and an unchanged one is reused) and loaded with
+ctypes at first use -- never at import, so the CPU tests import every
+module without nvcc.  `build` starts one nvcc per source that is not built
+yet, all at once, and waits for them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,12 +38,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (needed to build the CUDA kernels)")
 
 
+def sources(name: str) -> list:
+    """csrc/<name> and every csrc/ header it includes ("x.cuh"), directly
+    or through another header, in first-seen order."""
+    seen, todo = [], [name]
+    while todo:
+        cur = todo.pop(0)
+        if cur in seen:
+            continue
+        seen.append(cur)
+        with open(os.path.join(CSRC, cur)) as f:
+            todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(),
+                               re.M)
+    return seen
+
+
 def lib_path(name: str) -> str:
-    """build/kernels/lib<stem>-<hash>.so of the source csrc/<name>."""
-    with open(os.path.join(CSRC, name), "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR,
-                        f"lib{os.path.splitext(name)[0]}-{tag}.so")
+    """build/kernels/lib<stem>-<hash>.so of the source csrc/<name>; the
+    hash covers the source and the headers it includes."""
+    h = hashlib.sha256()
+    for src in sources(name):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{os.path.splitext(name)[0]}-"
+                        f"{h.hexdigest()[:16]}.so")
 
 
 def build(*names: str) -> list:

@@ -82,7 +82,10 @@ def _setup(tlwe0: torch.Tensor, testv: torch.Tensor, p: Params):
     return abar.t().contiguous(), acc.contiguous()
 
 
-def _check_inputs(tlwe0, bk_tk, testv, p):
+def check_inputs(tlwe0, key, testv, p: Params, steps: int):
+    """A blind rotation's inputs (every kernel route's): tlwe0 i32
+    [G, n+1], testv i32 [N] and a contiguous key of `steps` steps, on one
+    device."""
     if tlwe0.dtype != torch.int32 or testv.dtype != torch.int32:
         raise ValueError("tlwe0 and testv must be int32 (u32 bit patterns)")
     if tlwe0.dim() != 2 or tlwe0.shape[1] != p.n + 1:
@@ -90,14 +93,15 @@ def _check_inputs(tlwe0, bk_tk, testv, p):
                          f"{tuple(tlwe0.shape)}")
     if tuple(testv.shape) != (p.N,):
         raise ValueError(f"testv must be [N={p.N}]")
-    if bk_tk.shape[0] != p.n:
-        raise ValueError(f"slab has {bk_tk.shape[0]} steps, need n={p.n}")
-    if not (tlwe0.device == bk_tk.device == testv.device):
+    if key.shape[0] != steps:
+        raise ValueError(f"key has {key.shape[0]} steps, need {steps} "
+                         f"(n={p.n})")
+    if not (tlwe0.device == key.device == testv.device):
         raise ValueError(
-            f"device mismatch: tlwe0 {tlwe0.device}, slab {bk_tk.device}, "
+            f"device mismatch: tlwe0 {tlwe0.device}, key {key.device}, "
             f"testv {testv.device}")
-    if not bk_tk.is_contiguous():
-        raise ValueError("tkey slab must be contiguous")
+    if not key.is_contiguous():
+        raise ValueError("the key must be contiguous")
 
 
 # --------------------------------------------------------------------------- #
@@ -153,7 +157,7 @@ def blind_rotate_tkey_ref(tlwe0: torch.Tensor, bk_tk: torch.Tensor,
                           testv: torch.Tensor, p: Params) -> torch.Tensor:
     """The plain torch twin of the kernel, on any device: i32 [G, 2, N]."""
     L, lb = slab_config(bk_tk, p)
-    _check_inputs(tlwe0, bk_tk, testv, p)
+    check_inputs(tlwe0, bk_tk, testv, p, p.n)
     rows, acc = _setup(tlwe0, testv, p)
     return _steps_ref(rows, acc, bk_tk, p, L, lb)
 
@@ -230,7 +234,7 @@ def blind_rotate_tkey(tlwe0: torch.Tensor, bk_tk: torch.Tensor,
     Returns i32 [G, 2, N].  A CUDA input runs the Hopper kernel, a CPU
     input the plain twin; there is no fallback between them."""
     L, lb = slab_config(bk_tk, p)
-    _check_inputs(tlwe0, bk_tk, testv, p)
+    check_inputs(tlwe0, bk_tk, testv, p, p.n)
     rows, acc = _setup(tlwe0, testv, p)
     if acc.is_cuda:
         return _steps_kernel(rows, acc, bk_tk, p, L, lb)

@@ -71,12 +71,13 @@ def mxu_int8(monkeypatch):
 
 @pytest.fixture()
 def ntt_route(monkeypatch):
-    """Gate blind rotations on the NTT route, in both packages; the JAX
-    engine's 2-bit-unrolled small-batch key is turned off so that it runs
-    the same plain key."""
+    """Gate blind rotations on the NTT route, in both packages, with the
+    2-bit-unrolled small-batch key on, as by default (batches of at most
+    256 rows take it in both)."""
     monkeypatch.setenv("IYOKAN_EP", "pallas")
     monkeypatch.setenv("IYOKAN_BR_IMPL", "ntt")
-    monkeypatch.setenv("IYOKAN_NO_UNROLL", "1")
+    monkeypatch.delenv("IYOKAN_NO_UNROLL", raising=False)
+    monkeypatch.delenv("IYOKAN_UNROLL_MAX", raising=False)
     monkeypatch.setenv("IYOKAN_FUSE_LEVELS", "1")
 
 
@@ -186,8 +187,12 @@ def test_cmux_ops_match_jax(toy_sk):
 
 
 def test_ntt_route_blind_rotate_matches_jax(toy_sk, toy_ek, ntt_route):
+    """Both keys of the route: the plain key (batches over 256 rows, one
+    extprod1 per step) and the 2-bit-unrolled key (up to 256 rows, one
+    3*2l-row extprod1 per key-bit pair)."""
     dk = tops.DeviceKeys.from_evalkey(toy_ek, "cpu", with_cb=False)
-    assert dk.bk_tk is None and dk.bk_for() is dk.bk_ntt
+    assert dk.bk_tk is None and dk.bk_for(257) is dk.bk_ntt
+    assert dk.bk_for(256) is dk.bk_ntt_u
     rng = np.random.default_rng(12)
     a = np.array([0, 0, 1, 1, 1], np.uint8)
     b = np.array([0, 1, 0, 1, 1], np.uint8)
@@ -197,15 +202,17 @@ def test_ntt_route_blind_rotate_matches_jax(toy_sk, toy_ek, ntt_route):
                  for c in gates.GATE_LIN[gates.NAND])
     pre = tops.gate_linear(A, B, ca, cb, k, TP)
     testv = np.full(JP.N, JP.mu, np.uint32)
-    want = jcall(
-        lambda t, bk, tv: jops.blind_rotate(t, CRT64.prep1(bk, JP), tv, JP,
-                                            CRT64),
-        _u32(pre), toy_ek.bk, testv)
-    got = tops.blind_rotate(pre, dk.bk_for(), _t32(testv), TP)
-    np.testing.assert_array_equal(_u32(got), want)
-    out = tops.keyswitch_10(tops.sample_extract(got, 0), dk.ksk_f64, TP)
-    np.testing.assert_array_equal(jhost.decrypt_bits(toy_sk, _u32(out)),
-                                  1 - (a & b))
+    bku = toy_ek.bku.reshape(toy_ek.bku.shape[0], 6 * JP.l, 2, JP.N)
+    for jkey, batch in ((toy_ek.bk, 257), (bku, 5)):
+        want = jcall(
+            lambda t, bk, tv: jops.blind_rotate(t, CRT64.prep1(bk, JP), tv,
+                                                JP, CRT64),
+            _u32(pre), jkey, testv)
+        got = tops.blind_rotate(pre, dk.bk_for(batch), _t32(testv), TP)
+        np.testing.assert_array_equal(_u32(got), want)
+        out = tops.keyswitch_10(tops.sample_extract(got, 0), dk.ksk_f64, TP)
+        np.testing.assert_array_equal(jhost.decrypt_bits(toy_sk, _u32(out)),
+                                      1 - (a & b))
 
 
 def test_ntt_route_engine_matches_jax(toy_sk, toy_ek, ntt_route):
