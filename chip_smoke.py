@@ -39,9 +39,9 @@ Phases, one line each or more:
                    at cggi128 on the CRT64 keys of phase 3's eval key: K5
                    (br_ntt_step, n launches a rotation), K4 (br_ntt_loop), K3
                    (br3_ntt) at M = 1 on the plain key and M = 3 on the
-                   2-bit-unrolled key (one launch each), max |diff| 0 at
-                   G = 1, 64, 256; kernel ms at G = 1, 64, 256, 2048, twin
-                   ms at the compared sizes; and the exact unrolled route
+                   2-bit-unrolled key (one launch each), max |diff| 0 and
+                   kernel ms vs twin ms at G = 1, 64, 256 and 2048 (the
+                   br-gates phase's batch); and the exact unrolled route
                    (one extprod1_ntt launch at 3*2l rows per key-bit pair,
                    318 in all) at G = 64 against its twin;
  10. br-gates   -- 2048 NANDs through the pallas (K5), pallas2 (K4) and v3
@@ -161,14 +161,16 @@ def phase_device():
 
 def phase_build(p):
     sources = (tkey.SOURCE, extprod.SOURCE, br.SOURCE, br3.SOURCE)
-    # dynamic shared memory per block at p (the sources' launch code)
-    smem = {extprod.SOURCE: f"{(2 * p.l + 4) * p.N * 4} B at 2l rows, "
-                            f"{(6 * p.l + 4) * p.N * 4} B at 3*2l rows",
-            br.SOURCE: f"{(6 + 2 * p.l) * p.N * 4} B",
-            br3.SOURCE: f"{(10 + 2 * p.l) * p.N * 4} B"}
     t0 = time.time()
     paths = nvcc.build(*sources)
     dt = time.time() - t0
+    # dynamic shared memory per block at p, as each library's launcher
+    # sizes it
+    smem = {extprod.SOURCE: f"{extprod.smem_bytes(p, 2 * p.l)} B at 2l "
+                            f"rows, {extprod.smem_bytes(p, 6 * p.l)} B at "
+                            "3*2l rows",
+            br.SOURCE: f"{br.smem_bytes(p)} B",
+            br3.SOURCE: f"{br3.smem_bytes(p)} B"}
     for src, path in zip(sources, paths):
         regs = [ln.split(":", 1)[1].strip()
                 for ln in nvcc.LOGS.get(src, "").splitlines()
@@ -345,15 +347,15 @@ def phase_br_kernels(p, sk, dk, rng, smi):
                 raise AssertionError(f"{name}: {n_launch} launches for one "
                                      "blind rotation")
             rec = {"kernel": name, "G": G, "launches": n_launch}
-            if G <= 256:
-                rows, acc = tkey._setup(ct, testv, p)
-                want, rec["twin_ms"] = timed(lambda: twin(rows, acc))
-                err = max_diff(got, want)
-                worst = max(worst, err)
-                if err:
-                    raise AssertionError(
-                        f"{name} != twin at G={G}: max |diff| {err}")
-                rec["max_abs_diff"] = err
+            rows, acc = tkey._setup(ct, testv, p)
+            want, rec["twin_ms"] = timed(lambda: twin(rows, acc))
+            err = max_diff(got, want)
+            worst = max(worst, err)
+            if err:
+                raise AssertionError(
+                    f"{name} != twin at G={G}: max |diff| {err}")
+            rec["max_abs_diff"] = err
+            del want, rows, acc
             rec["kernel_ms"] = cuda_ms(lambda: fn(ct, key, testv, p),
                                        2 if G == 2048 else 3)
             rows_out.append(rec)
@@ -715,8 +717,9 @@ def kernel_records(p, times, worst, launches, ep_rows, ep_worst, br_rows,
     """The kernels' JSON records: launches on each kernel's path (the
     memmac run for tkey_blind_rotate and extprod1_ntt, the br-gates runs
     for K5 and K4, the br-slice run for K3), max |diff| against the twin
-    over every compared shape, ms and twin ms at one shape (the largest
-    compared one), and the bound of that shape's work."""
+    over every compared shape, ms and twin ms at one shape of that path
+    (G = 2048; K3 at M = 3 and G = 256, MAC-16's widest level), and the
+    bound of that shape's work."""
     i32 = 4
     G = 2048
     L, _, lb = ops.tkey_default_config(p)
@@ -735,18 +738,19 @@ def kernel_records(p, times, worst, launches, ep_rows, ep_worst, br_rows,
                  bound(2 * G * ntt_mulmods(p, RR), INT32_MULS_PER_S,
                        G * RR * p.N * i32 + K * RR * 4 * p.N * i32
                        + G * i32 + G * 2 * p.N * i32)))
-    G = 256
-    io = G * (p.n + 1) * i32 + p.N * i32 + G * 2 * p.N * i32
     nh = (p.n + 1) // 2
-    for name, src, rep, n_launch, case, steps, m in (
+    for name, src, rep, n_launch, case, G, steps, m in (
             ("br_ntt_step", "br_ntt.cu", "iyokan_tpu/ops/pallas_br.py:109",
-             br_gates["br_ntt_step"]["launches"], "br_ntt_step", p.n, 0),
+             br_gates["br_ntt_step"]["launches"], "br_ntt_step", 2048, p.n,
+             0),
             ("br_ntt_loop", "br_ntt.cu", "iyokan_tpu/ops/pallas_br2.py:35",
-             br_gates["br_ntt_loop"]["launches"], "br_ntt_loop", p.n, 0),
+             br_gates["br_ntt_loop"]["launches"], "br_ntt_loop", 2048, p.n,
+             0),
             ("br3_ntt", "br3_ntt.cu", "iyokan_tpu/ops/pallas_br3.py:168",
-             k3_launches, "br3_ntt M=3", nh, 3)):
+             k3_launches, "br3_ntt M=3", 256, nh, 3)):
+        io = G * (p.n + 1) * i32 + p.N * i32 + G * 2 * p.N * i32
         errs = [r["max_abs_diff"] for r in br_rows
-                if r["kernel"].split()[0] == name and "max_abs_diff" in r]
+                if r["kernel"].split()[0] == name]
         key_bytes = steps * RR * max(m, 1) * 2 * 2 * p.N * i32
         recs.append((name, src, rep, n_launch, max(errs),
                      next(r for r in br_rows

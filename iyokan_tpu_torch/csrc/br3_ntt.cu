@@ -37,8 +37,9 @@
 // key[m, j, u] and only the two sums S_0, S_1 run through the inverse
 // transform, whatever M.  The Garner CRT of both primes is added into acc.
 // The 2N powers of psi per prime stay in shared memory for the launch.
-// Shared memory (6 + 2l) * N * 4 + 2 * 2N * 4 bytes = 64 KB at cggi128, set
-// through cudaFuncAttributeMaxDynamicSharedMemorySize.
+// Shared memory (6 + 2l) * N * 4 + 2 * 2N * 4 bytes = 64 KB at cggi128
+// (br3_ntt_smem), above the default 48 KB: the first launch on a card raises
+// the kernel's cudaFuncAttributeMaxDynamicSharedMemorySize (ntt.cuh).
 //
 // What bounds it on the H100: integer multiply-modulo throughput.  Per row
 // and step, 2 primes x ((2l + 2) * N/2 * log2 N butterflies + M * 2 * (2l + 1)
@@ -63,13 +64,6 @@
 namespace {
 
 constexpr int MAX_M = 3;
-
-struct Ring {
-  const uint32_t* tab;  // [4, N]: psirev P1, psirev P2, psiinvrev P1, P2
-  uint32_t ninv1, ninv2;
-  int N, logN, l, Bgbit;
-  uint32_t offset;      // decompose1's centring + rounding offset
-};
 
 // One prime's sum_m (X^{a_m} - 1) * (decompose1(acc) (x) key_m), natural
 // order, in out [2, N].  pw: the 2N powers of this prime's psi.
@@ -142,7 +136,15 @@ br3_kernel(int32_t* acc_g, const int32_t* __restrict__ steps,  // [n, M, G]
   for (int c = threadIdx.x; c < 2 * N; c += H) row[c] = acc[c];
 }
 
+SmemLimit limit;
+
 }  // namespace
+
+// Dynamic shared memory of a block: acc, both primes' sums, both primes'
+// 2N psi powers and the 2l digit rows, (10 + 2l) * N * 4 bytes.
+extern "C" size_t br3_ntt_smem(int N, int l) {
+  return (size_t)(10 + 2 * l) * N * sizeof(uint32_t);
+}
 
 // K3: all n_steps decompose-first CMUX steps of every row in one launch.
 //   acc int32 [G, 2, N] (updated in place); steps int32 [n_steps, M, G],
@@ -156,21 +158,12 @@ extern "C" int br3_ntt(void* acc, const void* steps, const void* bk,
                        int n_steps, int M, int N, int l, int Bgbit,
                        uint32_t offset, uint32_t ninv1, uint32_t ninv2,
                        int device, void* stream) {
-  int logN = 0;
-  while ((1 << logN) < N) ++logN;
-  const size_t smem = (size_t)(10 + 2 * l) * N * sizeof(uint32_t);
-  if (G <= 0 || n_steps <= 0 || M < 1 || M > MAX_M || N < 64 || N > 2048 ||
-      (1 << logN) != N || l < 1 || l > 4 || Bgbit < 1 || l * Bgbit > 31 ||
-      smem > 227 * 1024)
+  const Ring r = ring(tab, N, l, Bgbit, offset, ninv1, ninv2);
+  const size_t smem = br3_ntt_smem(N, l);
+  if (G <= 0 || n_steps <= 0 || M < 1 || M > MAX_M || r.logN < 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(br3_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const Ring r{static_cast<const uint32_t*>(tab), ninv1, ninv2, N, logN, l,
-               Bgbit, offset};
+  const int e = limit.prepare(br3_kernel, device, smem);
+  if (e) return e;
   br3_kernel<<<G, N / 2, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(acc), static_cast<const int32_t*>(steps),
       static_cast<const int32_t*>(bk), static_cast<const uint32_t*>(psipow),

@@ -32,7 +32,8 @@
 // torch glue between steps (PERF.md: the torch rotate/decompose/add around
 // each extprod1_ntt launch was most of the per-step route's time).  Shared
 // memory (6 + 2l) * N * 4 bytes = 48 KB at cggi128 (acc, both primes' sums,
-// the digit rows), set through cudaFuncAttributeMaxDynamicSharedMemorySize.
+// the digit rows; br_ntt_smem); a larger size raises the kernel's
+// cudaFuncAttributeMaxDynamicSharedMemorySize once per card (ntt.cuh).
 //
 // What bounds it on the H100: integer multiply-modulo throughput.  Per row
 // and step 2 primes x ((2l + 2) * N/2 * log2 N butterflies + 2 * 2l * N
@@ -55,13 +56,6 @@
 #include "ntt.cuh"
 
 namespace {
-
-struct Ring {
-  const uint32_t* tab;  // [4, N]: psirev P1, psirev P2, psiinvrev P1, P2
-  uint32_t ninv1, ninv2;
-  int N, logN, l, Bgbit;
-  uint32_t offset;      // decompose1's centring + rounding offset
-};
 
 // dig[(u*l + j)*N + c] = digit j of part u of X^a * acc - acc, mod P.
 template <uint32_t P>
@@ -161,30 +155,15 @@ br_loop_kernel(int32_t* acc_g, const int32_t* __restrict__ abar_t,  // [n,G]
   for (int c = threadIdx.x; c < 2 * N; c += N >> 1) row[c] = acc[c];
 }
 
-// Validates the shapes, selects the device and raises the kernel's shared
-// memory limit; returns 0 or a CUDA error.
-template <typename K>
-int prepare(K kernel, const Ring& r, int G, int device, size_t* smem) {
-  *smem = (size_t)(6 + 2 * r.l) * r.N * sizeof(uint32_t);
-  if (G <= 0 || r.N < 64 || r.N > 2048 || (1 << r.logN) != r.N ||
-      r.l < 1 || r.l > 4 || r.Bgbit < 1 || r.l * r.Bgbit > 31 ||
-      *smem > 227 * 1024)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-}
-
-Ring ring(const void* tab, int N, int l, int Bgbit, uint32_t offset,
-          uint32_t ninv1, uint32_t ninv2) {
-  int logN = 0;
-  while ((1 << logN) < N) ++logN;
-  return Ring{static_cast<const uint32_t*>(tab), ninv1, ninv2, N, logN, l,
-              Bgbit, offset};
-}
+SmemLimit step_limit, loop_limit;
 
 }  // namespace
+
+// Dynamic shared memory of either kernel's block: acc, both primes' sums
+// and the 2l digit rows, (6 + 2l) * N * 4 bytes.
+extern "C" size_t br_ntt_smem(int N, int l) {
+  return (size_t)(6 + 2 * l) * N * sizeof(uint32_t);
+}
 
 // K5: one CMUX step of every row, launched on `stream`.
 //   acc int32 [G, 2, N] (updated in place); a_row int32 [G], the step's
@@ -197,8 +176,9 @@ extern "C" int br_ntt_step(void* acc, const void* a_row, const void* key,
                            uint32_t offset, uint32_t ninv1, uint32_t ninv2,
                            int device, void* stream) {
   const Ring r = ring(tab, N, l, Bgbit, offset, ninv1, ninv2);
-  size_t smem;
-  int e = prepare(br_step_kernel, r, G, device, &smem);
+  const size_t smem = br_ntt_smem(N, l);
+  if (G <= 0 || r.logN < 0) return (int)cudaErrorInvalidValue;
+  const int e = step_limit.prepare(br_step_kernel, device, smem);
   if (e) return e;
   br_step_kernel<<<G, N / 2, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(acc), static_cast<const int32_t*>(a_row),
@@ -214,9 +194,9 @@ extern "C" int br_ntt_loop(void* acc, const void* abar_t, const void* bk,
                            int Bgbit, uint32_t offset, uint32_t ninv1,
                            uint32_t ninv2, int device, void* stream) {
   const Ring r = ring(tab, N, l, Bgbit, offset, ninv1, ninv2);
-  size_t smem;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  int e = prepare(br_loop_kernel, r, G, device, &smem);
+  const size_t smem = br_ntt_smem(N, l);
+  if (G <= 0 || n <= 0 || r.logN < 0) return (int)cudaErrorInvalidValue;
+  const int e = loop_limit.prepare(br_loop_kernel, device, smem);
   if (e) return e;
   br_loop_kernel<<<G, N / 2, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(acc), static_cast<const int32_t*>(abar_t),

@@ -23,8 +23,10 @@
 // pointwise against key[idx[g]] and summed over r (RR products below 2^62
 // each reduced mod p, the sum below 2^36), and the two sums run through the
 // Gentleman-Sande inverse.  The first prime's result waits in shared memory
-// for the second's; then the CRT writes the row.  Shared memory:
-// (RR + 4) * N * 4 bytes = 40 KB at RR = 6, N = 1024.
+// for the second's; then the CRT writes the row.  Shared memory
+// (extprod1_ntt_smem): (RR + 4) * N * 4 bytes = 40 KB at RR = 6, N = 1024,
+// 88 KB at the unrolled key's RR = 18, which raises the kernel's limit once
+// per card (ntt.cuh).
 //
 // What bounds it on the H100: integer multiply-modulo throughput.  Each row
 // costs 2 primes x ((RR + 2) * N/2 * log2 N butterflies + 2*RR*N pointwise
@@ -107,7 +109,15 @@ extprod1_kernel(const int32_t* __restrict__ digits,  // [G, RR, N]
     o[c] = (int32_t)crt_mod32(res1[c], acc[c]);
 }
 
+SmemLimit limit;
+
 }  // namespace
+
+// Dynamic shared memory of a block: the RR digit rows, the sums and the
+// first prime's result, (RR + 4) * N * 4 bytes.
+extern "C" size_t extprod1_ntt_smem(int N, int RR) {
+  return (size_t)(RR + 4) * N * sizeof(uint32_t);
+}
 
 // One external product per row, launched on `stream`.
 //   digits int32 [G, RR, N]; keys int32 [K, RR, 2, 2, N]; idx int32 [G] with
@@ -118,18 +128,12 @@ extern "C" int extprod1_ntt(const void* digits, const void* keys,
                             const void* idx, const void* tab, void* out,
                             int G, int RR, int N, int K, uint32_t ninv1,
                             uint32_t ninv2, int device, void* stream) {
-  int logN = 0;
-  while ((1 << logN) < N) ++logN;
-  const size_t smem = (size_t)(RR + 4) * N * sizeof(uint32_t);
-  if (G <= 0 || RR <= 0 || K <= 0 || N < 64 || N > 2048 ||
-      (1 << logN) != N || smem > 227 * 1024)
+  const int logN = log2_ring(N);
+  const size_t smem = extprod1_ntt_smem(N, RR);
+  if (G <= 0 || RR <= 0 || K <= 0 || logN < 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(extprod1_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const int e = limit.prepare(extprod1_kernel, device, smem);
+  if (e) return e;
   extprod1_kernel<<<G, N / 2, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(digits), static_cast<const int32_t*>(keys),
       static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(tab),

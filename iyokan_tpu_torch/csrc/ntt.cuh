@@ -10,12 +10,17 @@
 // reduction by a compile-time prime.
 //
 // The transforms are called by all N/2 threads of a block, one butterfly per
-// thread per stage, on polynomials in shared memory.  A library that includes
-// this header is rebuilt when it changes (ops/nvcc.py hashes both).
+// thread per stage, on polynomials in shared memory.  The host side holds
+// what every launch of these kernels checks and sets up: the ring's
+// arguments (Ring) and the kernel's shared-memory limit (SmemLimit).  A
+// library that includes this header is rebuilt when it changes (ops/nvcc.py
+// hashes both).
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
+#include <cuda_runtime.h>
 
 namespace {
 
@@ -116,5 +121,55 @@ __device__ __forceinline__ uint32_t crt_mod32(uint32_t r1, uint32_t r2) {
   const uint64_t x = r1 + (uint64_t)P1 * mulmod<P2>(diff, INV_P1_MOD_P2);
   return (uint32_t)(x >= P1P2 / 2 ? x - P1P2 : x);
 }
+
+// log2 N for N a power of two in [64, 2048], else -1.
+inline int log2_ring(int N) {
+  int logN = 0;
+  while ((1 << logN) < N) ++logN;
+  return (N >= 64 && N <= 2048 && (1 << logN) == N) ? logN : -1;
+}
+
+// The lvl1 ring and gadget of a blind-rotation launch (the arguments
+// ops/br.py:ring_args passes): tables, N, l, Bgbit, decompose1's offset.
+struct Ring {
+  const uint32_t* tab;  // [4, N]: psirev P1, psirev P2, psiinvrev P1, P2
+  uint32_t ninv1, ninv2;
+  int N, logN, l, Bgbit;
+  uint32_t offset;      // decompose1's centring + rounding offset
+};
+
+// The Ring of the arguments, or one with logN = -1 if they are out of range.
+inline Ring ring(const void* tab, int N, int l, int Bgbit, uint32_t offset,
+                 uint32_t ninv1, uint32_t ninv2) {
+  const bool ok = l >= 1 && l <= 4 && Bgbit >= 1 && l * Bgbit <= 31;
+  return Ring{static_cast<const uint32_t*>(tab), ninv1, ninv2, N,
+              ok ? log2_ring(N) : -1, l, Bgbit, offset};
+}
+
+// A kernel's dynamic shared-memory limit per card, raised with
+// cudaFuncSetAttribute the first time a launch needs more than the
+// default 48 KB, and not again for that size or less.
+constexpr int MAX_DEVICES = 64;
+constexpr size_t MAX_SMEM = 227 * 1024;  // per block on sm_90
+
+struct SmemLimit {
+  size_t granted[MAX_DEVICES] = {};
+
+  // Makes `device` current and lets `kernel` take smem bytes; returns 0 or
+  // a CUDA error.
+  template <typename K>
+  int prepare(K kernel, int device, size_t smem) {
+    if (device < 0 || device >= MAX_DEVICES || smem > MAX_SMEM)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+    if (smem <= 48 * 1024 || smem <= granted[device]) return 0;
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    granted[device] = smem;
+    return 0;
+  }
+};
 
 }  // namespace

@@ -112,6 +112,14 @@ def _bind(lib):
                                 u32, ci, vp]
     lib.br_ntt_error_string.restype = ctypes.c_char_p
     lib.br_ntt_error_string.argtypes = [ci]
+    lib.br_ntt_smem.restype = ctypes.c_size_t
+    lib.br_ntt_smem.argtypes = [ci, ci]
+
+
+def smem_bytes(p: Params) -> int:
+    """Dynamic shared memory of a K5 or K4 block at p, as the launcher
+    sizes it (builds and loads the library)."""
+    return nvcc.load(SOURCE, _bind).br_ntt_smem(p.N, p.l)
 
 
 def _launch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:

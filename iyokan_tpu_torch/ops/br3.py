@@ -103,6 +103,14 @@ def _bind(lib):
                             u32, u32, ci, vp]
     lib.br3_error_string.restype = ctypes.c_char_p
     lib.br3_error_string.argtypes = [ci]
+    lib.br3_ntt_smem.restype = ctypes.c_size_t
+    lib.br3_ntt_smem.argtypes = [ci, ci]
+
+
+def smem_bytes(p: Params) -> int:
+    """Dynamic shared memory of a K3 block at p, as the launcher sizes it
+    (builds and loads the library)."""
+    return nvcc.load(SOURCE, _bind).br3_ntt_smem(p.N, p.l)
 
 
 def _launch(steps, acc, bk, M: int, p: Params) -> torch.Tensor:

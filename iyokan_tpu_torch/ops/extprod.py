@@ -81,6 +81,14 @@ def _bind(lib):
                                  ctypes.c_uint32, ctypes.c_uint32, ci, vp]
     lib.extprod1_error_string.restype = ctypes.c_char_p
     lib.extprod1_error_string.argtypes = [ci]
+    lib.extprod1_ntt_smem.restype = ctypes.c_size_t
+    lib.extprod1_ntt_smem.argtypes = [ci, ci]
+
+
+def smem_bytes(p: Params, RR: int) -> int:
+    """Dynamic shared memory of a block at p and RR digit rows, as the
+    launcher sizes it (builds and loads the library)."""
+    return nvcc.load(SOURCE, _bind).extprod1_ntt_smem(p.N, RR)
 
 
 def _launch(digits, keys, idx, p: Params) -> torch.Tensor:

@@ -74,7 +74,7 @@ def build(*names: str) -> list:
     procs = []
     for name, out in zip(names, outs):
         if os.path.exists(out):
-            LOGS[name] = "cached"
+            LOGS.setdefault(name, "cached")   # keep this process's build log
             continue
         tmp = f"{out}.tmp{os.getpid()}"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",

@@ -12,8 +12,10 @@
 * MAC-2 (tests/data/mac2.toml) through the JAX and the port Frontends,
   ciphertexts identical after each cycle: (a) IYOKAN_EP=pallas
   IYOKAN_BR_IMPL=ntt with the unrolled key on and IYOKAN_UNROLL_MAX=16, so
-  that one level's rows take both keys; (b) IYOKAN_BR_IMPL=v3, the JAX side
-  on the MXU backend with its Pallas kernel in interpret mode.
+  that one level's rows take both keys, and the same with
+  IYOKAN_BOOT_CHUNK=16, which the port reads as the JAX engine does; (b)
+  IYOKAN_BR_IMPL=v3, the JAX side on the MXU backend with its Pallas kernel
+  in interpret mode.
 """
 
 import os
@@ -202,22 +204,41 @@ def _mac2_cycles(toy_sk, toy_ek, cycles):
     return tfe
 
 
-def test_mac2_unrolled_threshold_matches_jax(toy_sk, toy_ek, monkeypatch):
-    """(a) the NTT route with the unrolled key at IYOKAN_UNROLL_MAX=16:
-    MAC-2's levels bucket to 16 or 48 rows, and a 48-row level is a 32-row
-    chunk on the plain key and a 16-row chunk on the unrolled one."""
+def _ntt_unrolled_16(monkeypatch):
+    """The NTT route with the unrolled key on, IYOKAN_UNROLL_MAX=16."""
     for k, v in (("IYOKAN_EP", "pallas"), ("IYOKAN_BR_IMPL", "ntt"),
                  ("IYOKAN_UNROLL_MAX", "16"), ("IYOKAN_FUSE_LEVELS", "1")):
         monkeypatch.setenv(k, v)
     monkeypatch.delenv("IYOKAN_NO_UNROLL", raising=False)
-    tfe = _mac2_cycles(toy_sk, toy_ek, 2)
+
+
+def _routes_taken(tfe, cap):
     keys = tfe.engine.keys
     assert keys.bk_ntt is not None and keys.bk_ntt_u is not None
-    kinds = {tops.gate_route(keys.bk_for(int(s)), TP)
-             for pl_ in tfe.engine.c.levels
-             for s in ttfhe.jax_chunk_sizes(len(pl_.bin_out),
-                                            len(pl_.mux_out), 2048)}
-    assert kinds == {"ntt-step", "ntt-unrolled"}
+    return {tops.gate_route(keys.bk_for(int(s)), TP)
+            for pl_ in tfe.engine.c.levels
+            for s in ttfhe.jax_chunk_sizes(len(pl_.bin_out),
+                                           len(pl_.mux_out), cap)}
+
+
+def test_mac2_unrolled_threshold_matches_jax(toy_sk, toy_ek, monkeypatch):
+    """(a) the NTT route with the unrolled key at IYOKAN_UNROLL_MAX=16:
+    MAC-2's levels bucket to 16 or 48 rows, and a 48-row level is a 32-row
+    chunk on the plain key and a 16-row chunk on the unrolled one."""
+    _ntt_unrolled_16(monkeypatch)
+    monkeypatch.delenv("IYOKAN_BOOT_CHUNK", raising=False)
+    tfe = _mac2_cycles(toy_sk, toy_ek, 2)
+    assert _routes_taken(tfe, 2048) == {"ntt-step", "ntt-unrolled"}
+
+
+def test_mac2_boot_chunk_matches_jax(toy_sk, toy_ek, monkeypatch):
+    """(a) with IYOKAN_BOOT_CHUNK=16 on both engines: the JAX engine splits
+    a 48-row level into three 16-row chunks, so every row takes the
+    unrolled key, the rows of (a)'s 32-row chunk too."""
+    _ntt_unrolled_16(monkeypatch)
+    monkeypatch.setenv("IYOKAN_BOOT_CHUNK", "16")
+    tfe = _mac2_cycles(toy_sk, toy_ek, 1)
+    assert _routes_taken(tfe, 16) == {"ntt-unrolled"}
 
 
 def test_mac2_v3_matches_jax(toy_sk, toy_ek, monkeypatch):
