@@ -16,16 +16,32 @@ Phases, one line each or more:
   5. ntt-gates  -- 256 NANDs through the NTT blind-rotation route
                    (IYOKAN_EP=pallas, IYOKAN_BR_IMPL=ntt: 635 extprod1_ntt
                    launches), 0 wrong, ms per batch beside the tkey route's;
-  6. slice      -- MAC-16 (tests/data/mac16.toml) at cggi128 through the CLIs
+  6. tk-layouts -- K2's other slab layouts, one slab at a time on phase 3's
+                   eval key, each built by DeviceKeys.from_evalkey under the
+                   JAX package's knobs: thin (IYOKAN_TK_LAYOUT=thin), fat2
+                   (=fat2), the 2-bit-unrolled main slab (IYOKAN_TK_UNROLL=1)
+                   and the fat slab at L=4, lb=3 (IYOKAN_TKEY_LIMBS=4
+                   IYOKAN_TK_LB=3): the kernel == its twin (max |diff| 0) at
+                   G = 1, 64, 2048 (and 256 unrolled), kernel ms vs twin ms;
+                   then 2048 NANDs through bk_for on that slab (one launch
+                   under its layout), 0 wrong, max phase error, gate
+                   bootstraps/s beside phase 4's;
+  7. slice      -- MAC-16 (tests/data/mac16.toml) at cggi128 through the CLIs
                    in-process: genkey, genevalkey, toml2packet, enc,
                    iyokan tfhe -c 3, dec, packet2toml; the result equals the
                    plain-mode run and the integer arithmetic, and the tkey
-                   kernel's launch count grew during the encrypted run;
-  7. extprod    -- extprod1_ntt against its plain twin on the card at cggi128,
+                   kernel's launch count (fat layout) grew during the
+                   encrypted run;
+  8. tk-slice   -- the same run with IYOKAN_TK_SMALL=1: every level has at
+                   most 256 rows, so every rotation takes the unrolled
+                   small-batch slab (only unrolled-layout launches); the
+                   result equals plain mode and the integers, s/cycle beside
+                   phase 7's;
+  9. extprod    -- extprod1_ntt against its plain twin on the card at cggi128,
                    on TRGSWs made by the port's circuit bootstrapping (its
                    time is printed): G = 1, 8, 1024, 2048, K = 1 and K = 2
                    with mixed indices, max |diff| 0, kernel ms vs twin ms;
-  8. memory     -- tests/data/memmac.toml (MAC-4 between a 128 x 32 CMUX ROM
+ 10. memory     -- tests/data/memmac.toml (MAC-4 between a 128 x 32 CMUX ROM
                    and two 256 x 8 CMUX RAMs) at cggi128 through the CLIs
                    in-process: genkey, genevalkey (with circuit-bootstrapping
                    keys), toml2packet, enc, iyokan tfhe -c 3, dec; cycle 0
@@ -35,7 +51,7 @@ Phases, one line each or more:
                    (tests/data/gen_mac.py); both kernels' launch counts grew
                    during the encrypted run; s/cycle and one synced cycle's
                    seconds per stage;
-  9. br-kernels -- the NTT blind-rotation kernels against their plain twins
+ 11. br-kernels -- the NTT blind-rotation kernels against their plain twins
                    at cggi128 on the CRT64 keys of phase 3's eval key: K5
                    (br_ntt_step, n launches a rotation), K4 (br_ntt_loop), K3
                    (br3_ntt) at M = 1 on the plain key and M = 3 on the
@@ -44,19 +60,20 @@ Phases, one line each or more:
                    br-gates phase's batch); and the exact unrolled route
                    (one extprod1_ntt launch at 3*2l rows per key-bit pair,
                    318 in all) at G = 64 against its twin;
- 10. br-gates   -- 2048 NANDs through the pallas (K5), pallas2 (K4) and v3
+ 12. br-gates   -- 2048 NANDs through the pallas (K5), pallas2 (K4) and v3
                    (K3, M = 1) routes of DeviceKeys.bk_for, each kernel's
                    launches counted from 0 over the run, 0 wrong, the max
                    phase error of the 2048 outputs in units of 1/16 of the
                    torus, ms per batch and gate_bootstraps_per_sec beside
                    the tkey route's;
- 11. br-slice   -- phase 6's MAC-16 run again with IYOKAN_BR_IMPL=v3 (every
+ 13. br-slice   -- phase 7's MAC-16 run again with IYOKAN_BR_IMPL=v3 (every
                    level takes the unrolled key: K3 at M = 3); the result
                    equals plain mode and the integers, and K3's launch count
                    grew from 0 during the encrypted run.
 The line before the last is the kernels' JSON record (each kernel's launches
 on its path, max |diff| against its twin, ms, twin ms, the bound of the
-same work on the card and what sets it; no PyTorch call computes a blind
+same work on the card and what sets it; one record per K2 layout besides
+K1's; no PyTorch call computes a blind
 rotation or an external product, so library_ms is null), the last line the
 device record.  Any failure raises (non-zero exit, no result line).  Needs
 no JAX: the expected values come from the port's plain engine and Python
@@ -389,15 +406,7 @@ def phase_br_kernels(p, sk, dk, rng, smi):
 def phase_br_gates(p, sk, dk, rng, smi, tkey_rate):
     """2048 NANDs through each NTT blind-rotation route of bk_for."""
     G = 2048
-    a = rng.integers(0, 2, G, dtype=np.uint8)
-    b = rng.integers(0, 2, G, dtype=np.uint8)
-    A = ops.u32_tensor(host.encrypt_bits(sk, a, rng), "cuda")
-    B = ops.u32_tensor(host.encrypt_bits(sk, b, rng), "cuda")
-    ca, cb, kk = (torch.full((G,), c, dtype=torch.int32, device="cuda")
-                  for c in gates.GATE_LIN[gates.NAND])
-    pre = ops.gate_linear(A, B, ca, cb, kk, p)
-    want = 1 - (a & b)
-    ideal = np.where(want == 1, p.mu, (1 << 32) - p.mu).astype(np.int64)
+    pre, want = nand_inputs(p, sk, rng, G)
 
     def nand():
         lvl1 = ops.gate_bootstrap_tlwe1(pre, dk.bk_for(G), p)
@@ -418,8 +427,6 @@ def phase_br_gates(p, sk, dk, rng, smi, tkey_rate):
                       "br3_ntt": br3.LAUNCHES}
             if counts[name] != expect or sum(counts.values()) != expect:
                 raise AssertionError(f"{impl}: launches {counts}")
-            ph = host.tlwe0_phase(sk, ops.u32_numpy(res)).astype(np.int64)
-            err = np.abs(((ph - ideal + (1 << 31)) % (1 << 32)) - (1 << 31))
             wrong = int((host.decrypt_bits(sk, ops.u32_numpy(res))
                          != want).sum())
             if wrong:
@@ -427,7 +434,8 @@ def phase_br_gates(p, sk, dk, rng, smi, tkey_rate):
             ms = cuda_ms(nand, 2)
         out[name] = {"route": impl, "launches": counts[name], "ms": ms,
                      "gate_bootstraps_per_sec": G / (ms / 1e3),
-                     "max_phase_err_16ths": float(err.max()) / (1 << 28)}
+                     "max_phase_err_16ths": phase_err_16ths(p, sk, res,
+                                                            want)}
         say("br-gates", f"{G} NANDs, IYOKAN_BR_IMPL={impl} ({name}, "
             f"{counts[name]} launches), 0 wrong; max phase error "
             f"{out[name]['max_phase_err_16ths']:.4f}/16 of the torus; "
@@ -440,15 +448,136 @@ def phase_br_gates(p, sk, dk, rng, smi, tkey_rate):
 def reset_launches():
     tkey.LAUNCHES = extprod.LAUNCHES = br3.LAUNCHES = 0
     br.STEP_LAUNCHES = br.LOOP_LAUNCHES = 0
+    for layout in tkey.LAYOUT_LAUNCHES:
+        tkey.LAYOUT_LAUNCHES[layout] = 0
 
 
-def phase_slice(smi, impl=None):
+def all_launches():
+    return (tkey.LAUNCHES + extprod.LAUNCHES + br3.LAUNCHES
+            + br.STEP_LAUNCHES + br.LOOP_LAUNCHES)
+
+
+def nand_inputs(p, sk, rng, G):
+    """G NANDs' pre-bootstrap TLWEs on the card (gate_linear of two
+    encrypted random bit vectors) and the bits they must give."""
+    a = rng.integers(0, 2, G, dtype=np.uint8)
+    b = rng.integers(0, 2, G, dtype=np.uint8)
+    A = ops.u32_tensor(host.encrypt_bits(sk, a, rng), "cuda")
+    B = ops.u32_tensor(host.encrypt_bits(sk, b, rng), "cuda")
+    ca, cb, kk = (torch.full((G,), c, dtype=torch.int32, device="cuda")
+                  for c in gates.GATE_LIN[gates.NAND])
+    return ops.gate_linear(A, B, ca, cb, kk, p), 1 - (a & b)
+
+
+def phase_err_16ths(p, sk, res, want):
+    """The largest distance of the outputs' phases from +-mu, in units of
+    1/16 of the torus (a gate flips at 2/16)."""
+    ideal = np.where(want == 1, p.mu, (1 << 32) - p.mu).astype(np.int64)
+    ph = host.tlwe0_phase(sk, ops.u32_numpy(res)).astype(np.int64)
+    err = np.abs(((ph - ideal + (1 << 31)) % (1 << 32)) - (1 << 31))
+    return float(err.max()) / (1 << 28)
+
+
+# K2's layouts: record name, the knobs that build it, (layout, L, lb) the
+# slab must read as, and the batches of the kernel-vs-twin check
+TK_LAYOUTS = (
+    ("thin", {"IYOKAN_TK_LAYOUT": "thin"}, ("thin", 3, 2), (1, 64, 2048)),
+    ("fat2", {"IYOKAN_TK_LAYOUT": "fat2"}, ("fat2", 3, 2), (1, 64, 2048)),
+    ("unrolled", {"IYOKAN_TK_UNROLL": "1"}, ("unrolled", 3, 2),
+     (1, 64, 256, 2048)),
+    ("fat L=4 lb=3", {"IYOKAN_TKEY_LIMBS": "4", "IYOKAN_TK_LB": "3"},
+     ("fat", 4, 3), (1, 64, 2048)),
+)
+
+
+def phase_tk_layouts(p, sk, ek, rng, smi, tkey_rate):
+    """K2's layouts: kernel vs twin, bit for bit, and 2048 NANDs each."""
+    testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, env, want_cfg, sizes in TK_LAYOUTS:
+        t0 = time.time()
+        with knobs(IYOKAN_BR_IMPL=None, **env):
+            dk = ops.DeviceKeys.from_evalkey(ek, "cuda", with_cb=False)
+        torch.cuda.synchronize()
+        t_slab = time.time() - t0
+        key = dk.bk_tk
+        cfg = tkey.slab_config(key, p)
+        if cfg[:3] != want_cfg:
+            raise AssertionError(f"{name}: the knobs {env} built a slab "
+                                 f"read as {cfg}")
+        say("tk-layouts", f"{name}: slab {tuple(key.shape)} int8 "
+            f"({key.numel() / 1e9:.2f} GB) built + moved in {t_slab:.1f} s")
+        rows = []
+        for G in sizes:
+            bits = rng.integers(0, 2, G, dtype=np.uint8)
+            ct = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
+            got = tkey.blind_rotate_tkey(ct, key, testv, p)
+            want, t_ms = timed(
+                lambda: tkey.blind_rotate_tkey_ref(ct, key, testv, p))
+            err = max_diff(got, want)
+            if err:
+                raise AssertionError(
+                    f"{name} kernel != twin at G={G}: max |diff| {err}")
+            del got, want
+            k_ms = cuda_ms(lambda: tkey.blind_rotate_tkey(ct, key, testv, p),
+                           3)
+            rows.append({"G": G, "kernel_ms": k_ms, "twin_ms": t_ms,
+                         "max_abs_diff": err})
+            say("tk-layouts", f"{name} G={G}: bit-identical to twin; kernel "
+                f"{k_ms:.3f} ms, twin {t_ms:.3f} ms per blind rotation on "
+                f"{smi}")
+
+        G = 2048
+        pre, want = nand_inputs(p, sk, rng, G)
+
+        def nand():
+            lvl1 = ops.gate_bootstrap_tlwe1(pre, dk.bk_for(G), p)
+            return ops.keyswitch_10(lvl1, dk.ksk_f64, p)
+
+        reset_launches()
+        res = nand()
+        torch.cuda.synchronize()
+        launches = tkey.LAYOUT_LAUNCHES[cfg[0]]
+        if launches != 1 or all_launches() != 1:
+            raise AssertionError(f"{name}: {all_launches()} launches, "
+                                 f"{launches} of layout {cfg[0]}")
+        wrong = int((host.decrypt_bits(sk, ops.u32_numpy(res)) != want).sum())
+        if wrong:
+            raise AssertionError(f"{wrong}/{G} wrong NANDs on {name}")
+        err16 = phase_err_16ths(p, sk, res, want)
+        ms = cuda_ms(nand, 2)
+        out[name] = {"layout": cfg[0], "L": cfg[1], "lb": cfg[2],
+                     "slab_shape": list(key.shape), "slab_s": t_slab,
+                     "rotations": rows, "nand_launches": launches,
+                     "nand_ms": ms, "gate_bootstraps_per_sec": G / (ms / 1e3),
+                     "max_phase_err_16ths": err16}
+        say("tk-layouts", f"{G} NANDs on the {name} slab ({launches} "
+            f"launch), 0 wrong; max phase error {err16:.4f}/16 of the torus; "
+            f"{ms:.1f} ms per batch -> gate_bootstraps_per_sec="
+            f"{G / (ms / 1e3):.1f} vs fat L=3 lb=2 {tkey_rate:.1f} (phase 4) "
+            f"on {smi}")
+        del dk, key, pre, res
+        torch.cuda.empty_cache()
+    return out
+
+
+# MAC-16 runs: phase -> (the knobs of its route, the launches the route
+# must make; every other kernel launch must be 0)
+SLICE_ROUTES = {
+    "slice": ({}, lambda: tkey.LAYOUT_LAUNCHES["fat"]),
+    "tk-slice": ({"IYOKAN_TK_SMALL": "1"},
+                 lambda: tkey.LAYOUT_LAUNCHES["unrolled"]),
+    "br-slice": ({"IYOKAN_BR_IMPL": "v3"}, lambda: br3.LAUNCHES),
+}
+
+
+def phase_slice(smi, phase="slice"):
     """MAC-16 through the CLIs at cggi128: encrypted == plain == integers.
-    impl None: the default (tkey) route, with fresh keys and request; "v3":
-    IYOKAN_BR_IMPL=v3 on the first call's files (phase "br-slice").
-    Returns (launches of the route's kernel, s/cycle)."""
+    "slice" runs the default (tkey) route on fresh keys and request; the
+    others (SLICE_ROUTES) reuse its files.  Returns (launches of the
+    route's kernel, s/cycle)."""
+    env, route_launches = SLICE_ROUTES[phase]
     W, cycles = 16, SLICE_CYCLES
-    phase = "slice" if impl is None else "br-slice"
     bp_path = os.path.join(ROOT, "tests", "data", f"mac{W}.toml")
     rng = np.random.default_rng(SEED)
     av = [int(x) for x in rng.integers(0, 1 << W, cycles)]
@@ -466,7 +595,7 @@ def phase_slice(smi, impl=None):
         "sk", "ek", "req.toml", "req.plain", "req.enc", "res.enc",
         "res.plain", "res.ref")}
     t0 = time.time()
-    if impl is None:
+    if phase == "slice":
         with open(f["req.toml"], "w") as fh:
             fh.write("[[bits]]\n" + stream(av).format("a")
                      + "\n[[bits]]\n" + stream(bv).format("b"))
@@ -479,7 +608,7 @@ def phase_slice(smi, impl=None):
         packet_cli.main(["enc", "--key", f["sk"], "--in", f["req.plain"],
                          "--out", f["req.enc"]])
     elif not os.path.exists(f["req.enc"]):
-        raise RuntimeError("br-slice reuses the slice phase's files")
+        raise RuntimeError(f"{phase} reuses the slice phase's files")
     t_keys = time.time() - t0
 
     cycle_us = []
@@ -497,21 +626,18 @@ def phase_slice(smi, impl=None):
     reset_launches()
     t0 = time.time()
     try:
-        with knobs(IYOKAN_BR_IMPL=impl):
+        with knobs(**env):
             iyokan_cli.main(["tfhe", "--blueprint", bp_path, "-i",
                              f["req.enc"], "-o", f["res.enc"], "--evalkey",
                              f["ek"], "-c", str(cycles), "--quiet"])
     finally:
         lg.removeHandler(handler)
     t_run = time.time() - t0
-    launches = tkey.LAUNCHES if impl is None else br3.LAUNCHES
-    others = (br3.LAUNCHES if impl is None else tkey.LAUNCHES,
-              br.STEP_LAUNCHES, br.LOOP_LAUNCHES)
-    if launches == 0 or any(others):
+    launches, others = route_launches(), all_launches() - route_launches()
+    if launches == 0 or others:
         raise AssertionError(
-            f"the encrypted run launched {launches} "
-            f"{'tkey' if impl is None else 'br3_ntt'} kernels and {others} "
-            "of the other routes'")
+            f"the encrypted {phase} run launched {launches} of its route's "
+            f"kernel and {others} others")
 
     packet_cli.main(["dec", "--key", f["sk"], "--in", f["res.enc"],
                      "--out", f["res.plain"]])
@@ -541,8 +667,8 @@ def phase_slice(smi, impl=None):
     if len(cycle_us) != cycles:
         raise AssertionError(f"expected {cycles} cycle times, got {cycle_us}")
     s_cycle = sum(cycle_us) / len(cycle_us) / 1e6
-    say(phase, f"MAC-{W} x {cycles} cycles at cggi128 (IYOKAN_BR_IMPL="
-        f"{impl or 'tkey'}): decrypted acc {got} == plain == a.b; census "
+    say(phase, f"MAC-{W} x {cycles} cycles at cggi128 ({env or 'defaults'}"
+        f"): decrypted acc {got} == plain == a.b; census "
         f"{comp.gate_census()}; {len(comp.levels)} levels, {boots} "
         f"bootstraps/cycle; {s_cycle:.3f} s/cycle (cycles {cycle_us} us), "
         f"tfhe CLI {t_run:.1f} s incl. key load + reset, keys+enc "
@@ -659,7 +785,7 @@ def phase_memory(files, data, smi):
     lg.propagate = False
     handler = CycleLog()
     lg.addHandler(handler)
-    tkey.LAUNCHES = extprod.LAUNCHES = 0
+    reset_launches()
     t0 = time.time()
     try:
         iyokan_cli.main(["tfhe", "--blueprint", bp_path, "-i", f["req.enc"],
@@ -713,13 +839,14 @@ def phase_memory(files, data, smi):
 
 
 def kernel_records(p, times, worst, launches, ep_rows, ep_worst, br_rows,
-                   br_gates, k3_launches):
+                   br_gates, k3_launches, tk_layouts, tk_small_launches):
     """The kernels' JSON records: launches on each kernel's path (the
     memmac run for tkey_blind_rotate and extprod1_ntt, the br-gates runs
-    for K5 and K4, the br-slice run for K3), max |diff| against the twin
-    over every compared shape, ms and twin ms at one shape of that path
-    (G = 2048; K3 at M = 3 and G = 256, MAC-16's widest level), and the
-    bound of that shape's work."""
+    for K5 and K4, the br-slice run for K3, the tk-layouts NAND runs for
+    K2's thin, fat2 and L=4 slabs, the tk-slice run for its unrolled slab),
+    max |diff| against the twin over every compared shape, ms and twin ms
+    at one shape of that path (G = 2048; K3 at M = 3 and G = 256, MAC-16's
+    widest level), and the bound of that shape's work."""
     i32 = 4
     G = 2048
     L, _, lb = ops.tkey_default_config(p)
@@ -757,6 +884,20 @@ def kernel_records(p, times, worst, launches, ep_rows, ep_worst, br_rows,
                           if r["kernel"] == case and r["G"] == G),
                      bound(2 * steps * G * ntt_mulmods(p, RR, m),
                            INT32_MULS_PER_S, key_bytes + io)))
+    G = 2048
+    io = G * (p.n + 1) * i32 + p.N * i32 + G * 2 * p.N * i32
+    for name, r in tk_layouts.items():
+        M = 3 if r["layout"] == "unrolled" else 1
+        steps = nh if M == 3 else p.n
+        RT, C = M * (p.l + r["lb"]) * p.N, 2 * r["L"] * 128
+        # a fat2 step holds 2*RT rows, but the work needs only RT of them
+        recs.append((f"tkey_blind_rotate {name}", "tkey_blind_rotate.cu",
+                     "iyokan_tpu/ops/pallas_tk.py:62",
+                     tk_small_launches if M == 3 else r["nand_launches"],
+                     max(x["max_abs_diff"] for x in r["rotations"]),
+                     next(x for x in r["rotations"] if x["G"] == G),
+                     bound(2 * steps * G * (p.N // 128) * RT * C,
+                           INT8_OPS_PER_S, steps * RT * C + io)))
     out = []
     for name, src, rep, n_launch, err, row, (b_ms, b_by) in recs:
         out.append({
@@ -789,7 +930,12 @@ def main() -> int:
     del dk
     torch.cuda.empty_cache()
 
+    tk_layouts = phase_tk_layouts(p, sk, ek, rng, smi, rate)
+
     _, s_cycle = phase_slice(smi)
+    tk_small_launches, tk_s_cycle = phase_slice(smi, "tk-slice")
+    say("tk-slice", f"MAC-16 {tk_s_cycle:.3f} s/cycle with IYOKAN_TK_SMALL=1 "
+        f"(unrolled small-batch slab) vs {s_cycle:.3f} on the fat slab")
 
     files, data = memory_files()
     ep_rows, ep_worst, t_cb = phase_extprod(p, files, smi)
@@ -800,7 +946,7 @@ def main() -> int:
     br_gates = phase_br_gates(p, sk, bdk, rng, smi, rate)
     del bdk
     torch.cuda.empty_cache()
-    k3_launches, v3_s_cycle = phase_slice(smi, impl="v3")
+    k3_launches, v3_s_cycle = phase_slice(smi, "br-slice")
 
     say("summary", json.dumps({
         "card": smi, "blind_rotate_ms": times,
@@ -809,11 +955,12 @@ def main() -> int:
         "cb_8bits_s": t_cb, "memmac_s_per_cycle": mem_s_cycle,
         "memmac_stage_s": stages, "br_kernels": br_rows,
         "ntt_unrolled_route": unrolled, "br_gates": br_gates,
-        "mac16_v3_s_per_cycle": v3_s_cycle}))
+        "mac16_v3_s_per_cycle": v3_s_cycle, "tk_layouts": tk_layouts,
+        "mac16_tk_small_s_per_cycle": tk_s_cycle}))
     print(smi)
     print(json.dumps({"kernels": kernel_records(
         p, times, worst, launches, ep_rows, ep_worst, br_rows, br_gates,
-        k3_launches)}))
+        k3_launches, tk_layouts, tk_small_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -3,9 +3,10 @@
     python -m iyokan_tpu_torch.cli.iyokan_cli tfhe --blueprint B -i REQ \
         -o RES --evalkey EK -c N
 
-The engine runs on the card when one is present (torch.cuda), else on the
-CPU.  Counterpart of iyokan_tpu/cli/iyokan_cli.py with the same options;
-tfhe mode takes gate-only designs (CMUX ROM/RAM builtins are not ported).
+The engine runs on the card.  IYOKAN_TORCH_DEVICE=cpu runs it on the CPU
+(the kernels' plain twins), as JAX_PLATFORMS=cpu steers the JAX CLI; with
+no card and the variable unset the CLI raises.  Counterpart of
+iyokan_tpu/cli/iyokan_cli.py with the same options.
 
 Option surface mirrors the reference (reference src/main.cpp:41-277):
   --blueprint -i -o -c --evalkey --secret-key --dump-prefix --snapshot
@@ -149,7 +150,8 @@ def main(argv=None) -> int:
     g.add_argument("--secret-key", dest="secret_key")
     g.add_argument("--enable-gpu", action="store_true",
                    help="accepted for compatibility: the engine runs on "
-                        "the card whenever torch.cuda finds one")
+                        "the card unless IYOKAN_TORCH_DEVICE names another "
+                        "device")
     g.add_argument("--gpu", type=int, default=None,
                    help="accepted for compatibility (unused)")
     g.add_argument("--num-gpu", type=int, default=None,

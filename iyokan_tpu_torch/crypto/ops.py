@@ -271,7 +271,7 @@ def gate_route(bk_prep: torch.Tensor, p: Params) -> str:
     blind_rotate dispatches on its key's layout and IYOKAN_BR_IMPL (see
     DeviceKeys for the table):
 
-    "tkey"         int8 fat slab: ops/tkey.py (K1);
+    "tkey"         int8 slab, any layout: ops/tkey.py (K1, K2);
     "pallas"       plain key, IYOKAN_BR_IMPL=pallas: ops/br.py, K5 per step;
     "pallas2"      plain key, IYOKAN_BR_IMPL=pallas2: ops/br.py, K4;
     "v3"           plain key, IYOKAN_BR_IMPL=v3: ops/br3.py, K3 at M = 1;
@@ -331,6 +331,18 @@ def blind_rotate(tlwe0: torch.Tensor, bk_prep: torch.Tensor,
     return ntt_route_steps(rows, acc, bk_prep, p, extprod1)
 
 
+def pair_amounts(rows: torch.Tensor, steps: int, N: int):
+    """The rotation amounts of a 2-bit-unrolled key's steps from rows int
+    [n, G] (one per key bit): a1, a2 and (a1 + a2) mod 2N of each
+    key-bit pair, each [steps, G] for steps = ceil(n/2), an odd n padded
+    with a2 = 0."""
+    pad = 2 * steps - rows.shape[0]
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
+    a1, a2 = rows[0::2], rows[1::2]
+    return a1, a2, (a1 + a2) % (2 * N)
+
+
 def ntt_route_steps(rows: torch.Tensor, acc: torch.Tensor,
                     bk_prep: torch.Tensor, p: Params,
                     product) -> torch.Tensor:
@@ -342,12 +354,7 @@ def ntt_route_steps(rows: torch.Tensor, acc: torch.Tensor,
     step is the unrolled key."""
     unrolled = bk_prep.shape[1] == 6 * p.l
     if unrolled:
-        nh = bk_prep.shape[0]
-        if 2 * nh > p.n:
-            rows = torch.cat([rows, rows.new_zeros((2 * nh - p.n,
-                                                    rows.shape[1]))])
-        a1, a2 = rows[0::2], rows[1::2]
-        amounts = (a1, a2, (a1 + a2) % (2 * p.N))
+        amounts = pair_amounts(rows, bk_prep.shape[0], p.N)
     for i in range(bk_prep.shape[0]):
         u = to_u64(acc)
         if unrolled:
@@ -486,16 +493,40 @@ def circuit_bootstrap(tlwe0: torch.Tensor, bk2_prep: torch.Tensor,
 
 
 def tkey_default_config(p: Params):
-    """The tkey-kernel config: (limbs, layout, lb) -- L=3 key limbs, fat
-    layout, asymmetric gadget with lb = min(2, l) b-part digits (the JAX
-    package's TPU default, iyokan_tpu/crypto/ops.py:tkey_default_config,
-    whose noise budget tests/test_noise_and_params.py asserts)."""
-    return 3, "fat", min(2, p.l)
+    """The tkey slab's config (limbs, layout, lb), read from the JAX
+    package's knobs as iyokan_tpu/crypto/ops.py:tkey_default_config reads
+    them: IYOKAN_TKEY_LIMBS (default 3 key limbs), IYOKAN_TK_LAYOUT (fat,
+    thin or fat2; default fat) and IYOKAN_TK_LB (b-part digits of the
+    asymmetric gadget, default min(2, l), whose noise budget
+    tests/test_noise_and_params.py asserts).  Raises on an lb outside
+    [1, l]."""
+    L = int(os.environ.get("IYOKAN_TKEY_LIMBS", "3"))
+    lay = os.environ.get("IYOKAN_TK_LAYOUT", "fat")
+    lb = int(os.environ.get("IYOKAN_TK_LB", str(min(2, p.l))))
+    if not 1 <= lb <= p.l:
+        raise ValueError(
+            f"IYOKAN_TK_LB={lb} out of range: need 1 <= lb <= l={p.l} (lb=0 "
+            "would be misread as a plain fat layout by the slab's row-count "
+            "inference)")
+    return L, lay, lb
+
+
+DEVICE_ENV = "IYOKAN_TORCH_DEVICE"
 
 
 def default_device() -> torch.device:
-    """The card when one is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of an entry point whose caller names none: the one
+    IYOKAN_TORCH_DEVICE names (cpu runs the kernels' plain twins), else
+    the card.  Raises where there is no card and the variable is unset:
+    nothing falls back to the CPU unasked."""
+    name = os.environ.get(DEVICE_ENV)
+    if name:
+        return check_device(name)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card (torch.cuda.is_available() is False); to run on "
+            f"the CPU, set {DEVICE_ENV}=cpu or pass device='cpu'")
+    return torch.device("cuda")
 
 
 def check_device(device) -> torch.device:
@@ -513,12 +544,39 @@ def unroll_max(tkey: bool) -> int:
     return int(os.environ.get("IYOKAN_UNROLL_MAX", "0" if tkey else "256"))
 
 
+def _warn_unquantized(src: np.ndarray, L: int) -> None:
+    if L < 4 and np.any(src[:2, :, 0, :] & ((1 << (8 * (4 - L))) - 1)):
+        # host.genevalkey quantizes bk masks to the 256-grid so the
+        # truncated slab is exact on the mask component; a key with
+        # full-torus masks rides this kernel with ~2^-6 phase noise --
+        # enough to corrupt cascaded gates.
+        warnings.warn(
+            "eval key has unquantized bootstrapping-key masks: the "
+            f"{L}-limb Toeplitz-slab kernel adds ~2^-6 phase noise on such "
+            "keys. Regenerate the eval key (host.genevalkey quantizes masks "
+            "by default) or set IYOKAN_TKEY_LIMBS=4.")
+
+
+def _slab(src: np.ndarray, p: Params, L: int, layout: str, lb: int,
+          device) -> torch.Tensor:
+    slab = polymul.tkey_kernel_key(src, p, L, layout, lb=lb)
+    return torch.from_numpy(slab).to(device)
+
+
 @dataclasses.dataclass
 class DeviceKeys:
     """Evaluation key prepared for the runtime ops on one device.
 
-    bk_tk     int8 [n, (l+lb)*N, 2*L*128]  fat Toeplitz slab (tkey route;
-                                           None on the others)
+    bk_tk     int8 Toeplitz slab (tkey route; None on the others), in the
+              layout tkey_default_config names (ops/tkey.py reads it from
+              the shape): fat [n, (l+lb)*N, 2*L*128], thin
+              [n, l+lb, N, 2*L*128] or fat2 [n, 2*(l+lb)*N, 2*L*128]; or,
+              under IYOKAN_TK_UNROLL (not 0) with the fat layout, the
+              2-bit-unrolled slab [nh, 3*(l+lb)*N, 2*L*128] of bku
+    bk_tk_small  the 2-bit-unrolled slab of bku for batches of at most
+              IYOKAN_TK_SMALL_MAX rows (default 256), built only under
+              IYOKAN_TK_SMALL=1 with the fat layout when bk_tk is not
+              already unrolled; else None
     ksk_mat   i32  [N*t, n+1]              identity key-switch key
     ksk_f64   f64  [N*t, n+1]              ksk_mat as centred float64
     bk_ntt    i32  [n, 2l, 2, P, N]        CRT64-prepared bk (non-tkey
@@ -535,12 +593,15 @@ class DeviceKeys:
     Gate keys and routes follow iyokan_tpu's from_evalkey, bk_for and
     blind_rotate on the TPU (MXU backend) row for row; the port's plain
     key is always the CRT64 prep1 key.  bk_for(batch) gives the unrolled
-    key to batches of at most thr = unroll_max() rows when it exists,
-    and blind_rotate routes on the key (gate_route):
+    NTT key to batches of at most thr = unroll_max() rows when it exists,
+    then bk_tk_small to batches of at most IYOKAN_TK_SMALL_MAX rows when it
+    exists, else the plain key, and blind_rotate routes on the key
+    (gate_route):
 
     IYOKAN_BR_IMPL  IYOKAN_EP=pallas  plain key (batch > thr)  unrolled key
-    unset / tkey    any               tkey slab (K1), thr = 0  (thr > 0:
-                                                               ntt-unrolled)
+    unset / tkey    any               tkey slab bk_tk, thr = 0 (thr > 0:
+                                      (ops/tkey.py, every      ntt-unrolled)
+                                      layout)
     pallas          no                K5                       ntt-unrolled
     pallas2         no                K4                       ntt-unrolled
     v3              no                K3, M = 1                K3, M = 3
@@ -552,7 +613,14 @@ class DeviceKeys:
     thr is IYOKAN_UNROLL_MAX (default 256, and 0 on tkey, where the
     unrolled key is built only for a positive value); IYOKAN_NO_UNROLL
     set means no unrolled key (and the plain CB key bk2).  ntt-unrolled
-    runs extprod1 at 3*2l rows, one launch per key-bit pair.
+    runs extprod1 at 3*2l rows, one launch per key-bit pair.  The tkey
+    knobs that change the slab, and so the result, are read as the JAX
+    package reads them: IYOKAN_TKEY_LIMBS, IYOKAN_TK_LAYOUT, IYOKAN_TK_LB
+    (tkey_default_config), IYOKAN_TK_UNROLL, IYOKAN_TK_SMALL and
+    IYOKAN_TK_SMALL_MAX.  Those that only schedule the TPU kernel are not
+    carried over: IYOKAN_TK_DOTS, IYOKAN_TK_CHAINS, IYOKAN_TK_PIPE,
+    IYOKAN_TK_KMAJ, IYOKAN_TK_SLOTS, IYOKAN_TK_EXT8, IYOKAN_TK_PRECHECK,
+    IYOKAN_PALLAS_BG and IYOKAN_TK_ABLATE.
     """
 
     params: Params
@@ -562,17 +630,22 @@ class DeviceKeys:
     ksk_f64: torch.Tensor
     bk_ntt: torch.Tensor = None
     bk_ntt_u: torch.Tensor = None
+    bk_tk_small: torch.Tensor = None
     bk2: torch.Tensor = None
     pksk_f64: tuple = None
 
     def bk_for(self, batch: int) -> torch.Tensor:
         """The gate blind-rotation key for a batch of `batch` rows (the
-        size of the JAX call this one mirrors, not the rows it runs): the
-        unrolled key up to unroll_max() rows when it exists, else the
-        route's plain key (blind_rotate routes on its layout)."""
+        size of the JAX call this one mirrors, not the rows it runs), in
+        JAX's order: the unrolled NTT key up to unroll_max() rows, then
+        bk_tk_small up to IYOKAN_TK_SMALL_MAX rows, each when it exists,
+        else the route's plain key (blind_rotate routes on its layout)."""
         tkey = self.bk_tk is not None
         if self.bk_ntt_u is not None and batch <= unroll_max(tkey):
             return self.bk_ntt_u
+        if self.bk_tk_small is not None and batch <= int(
+                os.environ.get("IYOKAN_TK_SMALL_MAX", "256")):
+            return self.bk_tk_small
         return self.bk_tk if tkey else self.bk_ntt
 
     @staticmethod
@@ -589,32 +662,30 @@ class DeviceKeys:
         # port's default, as the JAX package's on the TPU)
         tkey = os.environ.get("IYOKAN_BR_IMPL", "tkey") == "tkey"
         no_unroll = bool(os.environ.get("IYOKAN_NO_UNROLL"))
-        bk_tk = bk_ntt = bk_ntt_u = None
+        bku = (None if ek.bku is None else
+               ek.bku.reshape(ek.bku.shape[0], 6 * p.l, 2, p.N))
+        bk_tk = bk_tk_small = bk_ntt = bk_ntt_u = None
         if not tkey:
             bk_ntt = polymul.prep1(u32_tensor(ek.bk, device), p)
         else:
             L, lay, lb = tkey_default_config(p)
-            src = ek.bk
-            if L < 4 and np.any(src[:2, :, 0, :] & ((1 << (8 * (4 - L))) - 1)):
-                # host.genevalkey quantizes bk masks to the 256-grid so the
-                # truncated slab is exact on the mask component; a key with
-                # full-torus masks rides this kernel with ~2^-6 phase noise
-                # -- enough to corrupt cascaded gates.
-                warnings.warn(
-                    "eval key has unquantized bootstrapping-key masks: the "
-                    f"{L}-limb Toeplitz-slab kernel adds ~2^-6 phase noise "
-                    "on such keys. Regenerate the eval key (host.genevalkey "
-                    "quantizes masks by default).")
-            slab = polymul.tkey_kernel_key(src, p, L, lay, lb=lb)
-            bk_tk = torch.from_numpy(slab).to(device)
-            del slab
-        if (ek.bku is not None and not no_unroll
+            # the main slab from bku under IYOKAN_TK_UNROLL (fat layout
+            # only), and the small-batch unrolled slab under
+            # IYOKAN_TK_SMALL=1 unless the main one already is
+            tku = (bku is not None and lay == "fat"
+                   and os.environ.get("IYOKAN_TK_UNROLL", "0") != "0")
+            src = bku if tku else ek.bk
+            _warn_unquantized(src, L)
+            bk_tk = _slab(src, p, L, lay, lb, device)
+            if (not tku and bku is not None and lay == "fat"
+                    and os.environ.get("IYOKAN_TK_SMALL", "0") == "1"):
+                bk_tk_small = _slab(bku, p, L, "fat", lb, device)
+        if (bku is not None and not no_unroll
                 and (not tkey or unroll_max(True) > 0)):
-            bku = ek.bku.reshape(ek.bku.shape[0], 6 * p.l, 2, p.N)
             bk_ntt_u = polymul.prep1(u32_tensor(bku, device), p)
         ksk_mat = u32_tensor(ek.ksk.reshape(p.N * p.ks_t, p.n + 1), device)
         dk = DeviceKeys(p, device, bk_tk, ksk_mat, ksk_mat.to(torch.float64),
-                        bk_ntt, bk_ntt_u)
+                        bk_ntt, bk_ntt_u, bk_tk_small)
         if with_cb and ek.bk2.shape[0] != 0:
             # the depth-halved unrolled key whenever present, as the JAX
             # package's bk2_for (CB batches are small: l rows per address

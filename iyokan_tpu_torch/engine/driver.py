@@ -102,7 +102,8 @@ def _resolve(design: Design, port: bp_mod.Port) -> int:
 
 class Frontend:
     """mode: 'plain' or 'tfhe'; device: where the engine state lives
-    (default: the card when one is present)."""
+    (default: ops.default_device(), the card or what IYOKAN_TORCH_DEVICE
+    names; without either it raises)."""
 
     def __init__(self, mode: str, bp: bp_mod.Blueprint, req_packet,
                  eval_key: Optional[host.EvalKey] = None,

@@ -47,8 +47,8 @@ from ..circuit.compile import Compiled
 from ..crypto import host, ops
 
 # Level batches bootstrap in chunks of at most this many rows: bounds the
-# kernel's digit scratch (rows x (l+lb)*N int8) and the twin's float64
-# temporaries on very wide levels.
+# kernel's digit scratch (rows x RT int8, RT up to 3*(l+lb)*N) and the
+# twin's float64 temporaries on very wide levels.
 BOOT_CHUNK = 2048
 
 

@@ -60,11 +60,7 @@ def rotation_steps(rows: torch.Tensor, bk: torch.Tensor,
     (a1, a2, a1 + a2 mod 2N), an odd n padded with a2 = 0."""
     if _m_of(bk, p) == 1:
         return rows[:, None, :].contiguous()
-    pad = 2 * bk.shape[0] - rows.shape[0]
-    if pad:
-        rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
-    a1, a2 = rows[0::2], rows[1::2]
-    return torch.stack([a1, a2, (a1 + a2) % (2 * p.N)], dim=1).to(
+    return torch.stack(cops.pair_amounts(rows, bk.shape[0], p.N), dim=1).to(
         torch.int32).contiguous()
 
 

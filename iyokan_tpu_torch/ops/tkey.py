@@ -1,23 +1,44 @@
 """Toeplitz-slab blind rotation: the CUDA kernel's wrapper and plain twin.
 
 Counterpart of iyokan_tpu/ops/pallas_tk.py (`blind_rotate_tkey`, kernels
-`_kernel_pipe` and `_kernel`), fat layout only.  Per CMUX step i and gate g:
+`_kernel_pipe` and `_kernel`) on every slab layout that
+crypto/polymul.tkey_kernel_key builds (RR = l+lb digit rows, C = 2*L*128
+columns ordered (u, limb, 128)):
 
-  x_u   = X^{abar[g,i]} * acc_u - acc_u + off_u           (u = part a, b)
-  ext   = signed gadget digits of x (l for part a, lb for part b), int8,
-          lanes ordered (block b, part, j, 128) like the slab's rows
-  s_K   = -ext[:, :cut] . bk[RT-cut:] + ext[:, cut:] . bk[:RT-cut]
-          (cut = 128*RR*(K+1), RR = l+lb, RT = RR*N, one dot per output
-          block K of 128 coefficients; int32-exact: |d| <= 32, |limb| <=
-          128, contraction 5120 at cggi128 -> |s| < 2^25)
+  fat       int8 [n, RR*N, C], contraction rows (block, j, 128)
+  thin      int8 [n, RR, N, C]
+  fat2      int8 [n, 2*RR*N, C]: the negated key's fat slab, then the key's
+  unrolled  int8 [ceil(n/2), 3*RR*N, C]: the fat slab of the 2-bit-unrolled
+            key bku, one step a key-bit pair, rows (block, m, part, j, 128)
+
+Per step i, gate g and rotation m < M (M = 3 on the unrolled slab, with
+amounts a1, a2, a1+a2 mod 2N of the pair; else M = 1):
+
+  x_mu  = X^{r_m[g]} * acc_u - acc_u + off_u             (u = part a, b)
+  d     = signed gadget digits of x (l for part a, lb for part b), rows
+          (m, part, j)
+  s_K   = the slab product of output block K (128 coefficients):
+    fat, unrolled  -ext[:, :cut] . bk[RT-cut:] + ext[:, cut:] . bk[:RT-cut]
+                   (ext = d with lanes (block, m, part, j, 128), RT =
+                   M*RR*N contraction rows, cut = 128*M*RR*(K+1))
+    fat2           ext . bk[RT-cut : 2*RT-cut]
+    thin           sum_j [d, -d][:, j, 128(K+1) : 128(K+1)+N] . bk[j]
   acc_u[:, 128K:128K+128] += sum_li s_K[:, (u*L+li)*128 : +128]
                              << 8*(4-L+li)          (mod 2^32)
 
+Every s_K is exact in int32 and in float64: |d| <= 32, |limb| <= 128, and
+at most 3*5*1024 = 15360 contraction rows at cggi128 bound it by 2^26.
+fat2 is its own math: at L=3 its negated copy is not the limb-wise
+negation of the key's where a coefficient's dropped limb is -128, so it
+differs from the fat result there (pallas_tk's K-major branch, which reads
+the second copy only, gives the fat result instead).
+
 `blind_rotate_tkey` runs the hand-written Hopper kernel
 (csrc/tkey_blind_rotate.cu) for a CUDA tensor and the plain torch twin
-(`blind_rotate_tkey_ref`) for a CPU tensor; nothing else selects between
-them.  LAUNCHES counts kernel launches (one per blind rotation run on the
-card).
+(`blind_rotate_tkey_ref`, each layout's own form above) for a CPU tensor;
+nothing else selects between them, and a slab it cannot place raises.
+LAUNCHES counts kernel launches (one per blind rotation run on the card),
+LAYOUT_LAUNCHES the same per layout.
 """
 
 from __future__ import annotations
@@ -31,8 +52,11 @@ from ..params import Params
 from . import nvcc
 
 LAUNCHES = 0          # blind rotations launched on the card
+LAYOUT_LAUNCHES = {"fat": 0, "thin": 0, "fat2": 0, "unrolled": 0}
 BLOCK_G = 16          # gate tile of the kernel; batches are padded to it
 SOURCE = "tkey_blind_rotate.cu"
+# the kernel's layout argument (the unrolled slab is fat at M = 3)
+_LAYOUT_ARG = {"fat": 0, "thin": 1, "fat2": 2, "unrolled": 0}
 
 
 # --------------------------------------------------------------------------- #
@@ -41,25 +65,32 @@ SOURCE = "tkey_blind_rotate.cu"
 
 
 def slab_config(bk_tk: torch.Tensor, p: Params):
-    """(L, lb) of a fat slab int8 [n, (l+lb)*N, 2*L*128]; raises on any
-    other layout (thin, fat2 doubled slab, 2-bit unrolled) -- row-count
-    inference as in pallas_tk.blind_rotate_tkey."""
-    if bk_tk.dim() != 3:
-        raise ValueError(
-            f"tkey slab must be the fat layout [n, RR*N, 2L*128]; got a "
-            f"{bk_tk.dim()}-d key (thin layout is not ported)")
+    """(layout, L, lb, M) of a tkey slab, read from its rank and rows per
+    step with pallas_tk.blind_rotate_tkey's precedence: a 4-d key is thin;
+    a 3-d key with (l+lb)*N rows a step is fat, 2(l+lb)*N fat2 and
+    3(l+lb)*N unrolled (M = 3), fat2 winning where the last two collide
+    (l=3: unrolled lb=1 against fat2 lb=3, which tkey_kernel_key refuses
+    to build unrolled).  Raises ValueError on any other slab."""
     if bk_tk.dtype != torch.int8:
         raise ValueError(f"tkey slab must be int8, got {bk_tk.dtype}")
-    rr, rem = divmod(bk_tk.shape[1], p.N)
-    if rem or not 1 <= rr - p.l <= p.l:
-        raise ValueError(
-            f"tkey slab with {bk_tk.shape[1]} rows/step at N={p.N}, l={p.l} "
-            "is not a fat layout (fat2 and 2-bit unrolled slabs are not "
-            "ported)")
-    C = bk_tk.shape[2]
+    C = bk_tk.shape[-1]
     if C % 256 or C // 256 not in (3, 4):
         raise ValueError(f"tkey slab has {C} columns; need 2*L*128, L=3|4")
-    return C // 256, rr - p.l
+    layout, lb = None, 0
+    if bk_tk.dim() == 4 and bk_tk.shape[2] == p.N:
+        layout, lb = "thin", bk_tk.shape[1] - p.l
+    elif bk_tk.dim() == 3 and bk_tk.shape[1] % p.N == 0:
+        rr = bk_tk.shape[1] // p.N
+        for lay, k in (("fat", 1), ("fat2", 2), ("unrolled", 3)):
+            if rr % k == 0 and 1 <= rr // k - p.l <= p.l:
+                layout, lb = lay, rr // k - p.l
+                break
+    if layout is None or not 1 <= lb <= p.l:
+        raise ValueError(
+            f"cannot place tkey slab {tuple(bk_tk.shape)} at N={p.N}, "
+            f"l={p.l}: not a fat, thin, fat2 or unrolled layout with "
+            "1 <= lb <= l")
+    return layout, C // 256, lb, 3 if layout == "unrolled" else 1
 
 
 def _round_off(p: Params, ndig: int) -> int:
@@ -104,45 +135,76 @@ def check_inputs(tlwe0, key, testv, p: Params, steps: int):
         raise ValueError("the key must be contiguous")
 
 
+def _prepare(tlwe0, bk_tk, testv, p: Params):
+    """The slab's config, the rotation rows int32 [M*steps, G] (step i's
+    M amounts at rows M*i..; on the unrolled slab (a1, a2, a1+a2 mod 2N)
+    of each key-bit pair, pallas_tk.py:672-682) and the accumulator."""
+    cfg = slab_config(bk_tk, p)
+    M = cfg[3]
+    steps = (p.n + 1) // 2 if M == 3 else p.n
+    check_inputs(tlwe0, bk_tk, testv, p, steps)
+    rows, acc = _setup(tlwe0, testv, p)
+    if M == 3:
+        rows = torch.stack(cops.pair_amounts(rows, steps, p.N), dim=1)
+        rows = rows.reshape(3 * steps, -1).contiguous()
+    return cfg, rows, acc
+
+
 # --------------------------------------------------------------------------- #
 # the plain twin
 # --------------------------------------------------------------------------- #
 
 
-def _steps_ref(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
-               p: Params, L: int, lb: int) -> torch.Tensor:
-    """The n CMUX steps in plain torch: digits, split dots, recombination,
-    accumulation.  The dots run in float64, which is exact here (|s| <
-    2^25 << 2^53; float32 is not: 5120*32*128 = 2^24.3)."""
-    N = p.N
-    NB = N // 128
-    RR = p.l + lb
-    RT = RR * N
-    G = acc.shape[0]
-    offs = (_round_off(p, p.l), _round_off(p, lb))
-    ndig = (p.l, lb)
-    a = cops.to_u64(acc)                               # [G, 2, N] int64
-    for i in range(bk_tk.shape[0]):
-        rot = cops.to_u64(cops.rot_poly(cops.from_u64(a), rows[i][:, None],
-                                        N))
-        x = (rot - a + torch.tensor(offs, device=a.device)[:, None]) \
-            & cops.MASK32                              # [G, 2, N]
-        digs = []
-        for part in range(2):
-            for j in range(ndig[part]):
+def _digits_ref(a: torch.Tensor, amounts: torch.Tensor, p: Params,
+                lb: int) -> torch.Tensor:
+    """Signed gadget digits int64 [G, M*(l+lb), N], rows (m, part, j), of
+    the rotate-diffs X^r acc - acc (+ the rounding offsets) for each
+    amount row r [G] of amounts [M, G]; a: acc as int64 [G, 2, N]."""
+    offs = torch.tensor((_round_off(p, p.l), _round_off(p, lb)),
+                        device=a.device)[:, None]
+    digs = []
+    for r in amounts:
+        rot = cops.to_u64(cops.rot_poly(cops.from_u64(a), r[:, None], p.N))
+        x = (rot - a + offs) & cops.MASK32                    # [G, 2, N]
+        for part, ndig in ((0, p.l), (1, lb)):
+            for j in range(ndig):
                 sh = 32 - (j + 1) * p.Bgbit
                 digs.append(((x[:, part] >> sh) & (p.Bg - 1)) - p.Bg // 2)
-        d = torch.stack(digs, dim=1)                   # [G, RR, N]
-        # lanes (block, part, j, 128)
-        ext = d.reshape(G, RR, NB, 128).permute(0, 2, 1, 3).reshape(G, RT)
-        ext = ext.to(torch.float64)
-        bk = bk_tk[i].to(torch.float64)                # [RT, 2L*128]
+    return torch.stack(digs, dim=1)
+
+
+def _steps_ref(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
+               p: Params, cfg) -> torch.Tensor:
+    """The CMUX steps in plain torch, each layout in its own form (module
+    docstring): digits, slab products, recombination, accumulation.  The
+    products run in float64, which is exact here (|s| < 2^26 << 2^53;
+    float32 is not: 5120*32*128 = 2^24.3)."""
+    layout, L, lb, M = cfg
+    N, NB = p.N, p.N // 128
+    RR = M * (p.l + lb)
+    RT = RR * N
+    G = acc.shape[0]
+    a = cops.to_u64(acc)                               # [G, 2, N] int64
+    for i in range(bk_tk.shape[0]):
+        d = _digits_ref(a, rows[M * i: M * (i + 1)], p, lb).to(torch.float64)
+        bk = bk_tk[i].to(torch.float64).reshape(-1, bk_tk.shape[-1])
+        if layout == "thin":
+            ext = torch.cat([d, -d], dim=-1)           # [G, RR, 2N]
+        else:                                          # lanes (block, m,
+            ext = d.reshape(G, RR, NB, 128).permute(0, 2, 1, 3).reshape(
+                G, RT)                                 # part, j, 128)
         outs = []
         for K in range(NB):
             cut = 128 * RR * (K + 1)
-            s = -(ext[:, :cut] @ bk[RT - cut:])
-            if cut < RT:
-                s = s + ext[:, cut:] @ bk[: RT - cut]
+            if layout == "thin":
+                w = 128 * (K + 1)                      # each row j's window
+                s = ext[:, :, w: w + N].reshape(G, RT) @ bk
+            elif layout == "fat2":
+                s = ext @ bk[RT - cut: 2 * RT - cut]
+            else:
+                s = -(ext[:, :cut] @ bk[RT - cut:])
+                if cut < RT:
+                    s = s + ext[:, cut:] @ bk[: RT - cut]
             outs.append(s.to(torch.int64))             # [G, 2L*128]
         s = torch.stack(outs, dim=1).reshape(G, NB, 2, L, 128)
         upd = torch.zeros((G, NB, 2, 128), dtype=torch.int64,
@@ -156,10 +218,8 @@ def _steps_ref(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
 def blind_rotate_tkey_ref(tlwe0: torch.Tensor, bk_tk: torch.Tensor,
                           testv: torch.Tensor, p: Params) -> torch.Tensor:
     """The plain torch twin of the kernel, on any device: i32 [G, 2, N]."""
-    L, lb = slab_config(bk_tk, p)
-    check_inputs(tlwe0, bk_tk, testv, p, p.n)
-    rows, acc = _setup(tlwe0, testv, p)
-    return _steps_ref(rows, acc, bk_tk, p, L, lb)
+    cfg, rows, acc = _prepare(tlwe0, bk_tk, testv, p)
+    return _steps_ref(rows, acc, bk_tk, p, cfg)
 
 
 # --------------------------------------------------------------------------- #
@@ -171,7 +231,7 @@ def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.tkey_blind_rotate.restype = ci
     lib.tkey_blind_rotate.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+        vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
         ctypes.c_uint32, ctypes.c_uint32, ci, vp]
     lib.tkey_error_string.restype = ctypes.c_char_p
     lib.tkey_error_string.argtypes = [ci]
@@ -196,9 +256,10 @@ def _split_k(Gp: int, k_tiles: int) -> int:
 
 
 def _steps_kernel(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
-                  p: Params, L: int, lb: int) -> torch.Tensor:
-    """All n CMUX steps on the card; returns the new accumulator."""
+                  p: Params, cfg) -> torch.Tensor:
+    """All CMUX steps on the card; returns the new accumulator."""
     global LAUNCHES
+    layout, L, lb, M = cfg
     lib = nvcc.load(SOURCE, _bind)
     G = acc.shape[0]
     pad = (-G) % BLOCK_G
@@ -208,36 +269,35 @@ def _steps_kernel(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
     acc = acc.contiguous()
     rows = rows.contiguous()
     Gp = G + pad
-    RT = (p.l + lb) * p.N
+    RT = M * (p.l + lb) * p.N
     ext = torch.empty((Gp, RT), dtype=torch.int8, device=acc.device)
     dev = acc.device.index if acc.device.index is not None else \
         torch.cuda.current_device()
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     rc = lib.tkey_blind_rotate(
         rows.data_ptr(), acc.data_ptr(), bk_tk.data_ptr(), ext.data_ptr(),
-        Gp, bk_tk.shape[0], p.N, p.l, lb, p.Bgbit, L,
+        Gp, bk_tk.shape[0], p.N, p.l, lb, p.Bgbit, L, M, _LAYOUT_ARG[layout],
         _split_k(Gp, RT // 64),
         _round_off(p, p.l), _round_off(p, lb), dev, stream)
     if rc != 0:
         raise RuntimeError(
             f"tkey kernel launch failed: {lib.tkey_error_string(rc)}")
     LAUNCHES += 1
+    LAYOUT_LAUNCHES[layout] += 1
     return acc[:G]
 
 
 def blind_rotate_tkey(tlwe0: torch.Tensor, bk_tk: torch.Tensor,
                       testv: torch.Tensor, p: Params) -> torch.Tensor:
-    """Blind rotation lvl0 -> TRLWE lvl1 against a fat tkey slab.
+    """Blind rotation lvl0 -> TRLWE lvl1 against a tkey slab of any layout
+    (module docstring; crypto/polymul.tkey_kernel_key builds them).
 
-    tlwe0: i32 [G, n+1]; bk_tk: int8 [n, (l+lb)*N, 2*L*128] from
-    crypto/polymul.tkey_kernel_key(..., layout="fat"); testv: i32 [N].
-    Returns i32 [G, 2, N].  A CUDA input runs the Hopper kernel, a CPU
-    input the plain twin; there is no fallback between them."""
-    L, lb = slab_config(bk_tk, p)
-    check_inputs(tlwe0, bk_tk, testv, p, p.n)
-    rows, acc = _setup(tlwe0, testv, p)
+    tlwe0: i32 [G, n+1]; bk_tk: int8 slab; testv: i32 [N].  Returns i32
+    [G, 2, N].  A CUDA input runs the Hopper kernel, a CPU input the plain
+    twin; there is no fallback between them."""
+    cfg, rows, acc = _prepare(tlwe0, bk_tk, testv, p)
     if acc.is_cuda:
-        return _steps_kernel(rows, acc, bk_tk, p, L, lb)
+        return _steps_kernel(rows, acc, bk_tk, p, cfg)
     if acc.device.type != "cpu":
         raise ValueError(f"unsupported device {acc.device}")
-    return _steps_ref(rows, acc, bk_tk, p, L, lb)
+    return _steps_ref(rows, acc, bk_tk, p, cfg)

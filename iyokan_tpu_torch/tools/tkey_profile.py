@@ -5,9 +5,12 @@
 For each gate batch G: the CUDA kernel's time per blind rotation (CUDA
 events, after a warm-up), and one torch.profiler trace of a blind rotation
 split by kernel (digits_kernel / conv_kernel) with the device's idle share
-over the traced window.  Uses a random int8 slab of the cggi128 shape
-[steps, 5120, 768] (the kernel's cost depends on shapes only).  Needs a
-card; imports no JAX.
+over the traced window and conv_kernel's time per step.  Beside it, as a
+yardstick of the product alone (not a blind rotation, and never called by
+the port): torch._int_mm of one step's K-major product [NB*Gp, RT] x
+[RT, 2L*128] on random int8 operands made beforehand.  Uses a random int8
+slab of the cggi128 shape [steps, 5120, 768] (the kernel's cost depends on
+shapes only).  Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +25,26 @@ import torch
 
 from .. import params
 from ..ops import tkey
+
+
+def int_mm_ms(G: int, p, L: int, lb: int, gen, reps: int = 20) -> float:
+    """Mean ms of torch._int_mm on one step's K-major product at batch G
+    (padded to the kernel's 16-gate tile), operands built beforehand."""
+    Gp = -(-G // tkey.BLOCK_G) * tkey.BLOCK_G
+    RT, C = (p.l + lb) * p.N, 2 * L * 128
+    a = torch.randint(-32, 33, (p.N // 128 * Gp, RT), dtype=torch.int8,
+                      device="cuda", generator=gen)
+    b = torch.randint(-128, 128, (RT, C), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    torch._int_mm(a, b)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        torch._int_mm(a, b)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def main(argv=None) -> int:
@@ -63,6 +86,7 @@ def main(argv=None) -> int:
             e1.record()
             torch.cuda.synchronize()
         window_us = e0.elapsed_time(e1) * 1e3
+        mm_ms = int_mm_ms(G, p, L, lb, gen)
         kern = {}
         for ev in prof.key_averages():
             if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -71,8 +95,12 @@ def main(argv=None) -> int:
                              getattr(ev, "cuda_time_total", 0))
             kern[ev.key[:80]] = {"device_us": dev_us, "calls": ev.count}
         busy = sum(v["device_us"] for v in kern.values())
+        conv = [v for k, v in kern.items() if "conv_kernel" in k]
         row = {"G": G, "ms_per_blind_rotation": ms,
                "us_per_step": ms * 1e3 / p.n,
+               "conv_us_per_step": (sum(v["device_us"] for v in conv)
+                                    / max(1, sum(v["calls"] for v in conv))),
+               "int_mm_product_only_us": mm_ms * 1e3,
                "traced_window_us": window_us, "kernels": kern,
                "device_idle_share": (1 - busy / window_us
                                      if window_us else None)}

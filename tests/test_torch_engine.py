@@ -8,6 +8,9 @@
   tfhe runs, the JAX packet tool decrypts; plain modes agree.
 * Snapshot/resume (plain and tfhe) and per-cycle decrypted dumps work
   through the port's CLI.
+* The entry points run on the card unless asked for the CPU: with no card,
+  Frontend without a device and the CLI without IYOKAN_TORCH_DEVICE raise;
+  IYOKAN_TORCH_DEVICE=cpu runs the CLI on the CPU (the CLI tests set it).
 (CMUX ROM/RAM designs: tests/test_torch_memory.py.)
 """
 
@@ -27,6 +30,7 @@ from iyokan_tpu_torch import packet as tpacket
 from iyokan_tpu_torch.circuit.blueprint import Blueprint as TBlueprint
 from iyokan_tpu_torch.cli import iyokan_cli as t_iyokan_cli
 from iyokan_tpu_torch.cli import packet_cli as t_packet_cli
+from iyokan_tpu_torch.crypto import ops as tops
 from iyokan_tpu_torch.engine.driver import Frontend as TFrontend
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -83,8 +87,9 @@ def test_mac4_slice_matches_jax(toy_sk, toy_ek, monkeypatch):
     assert _acc(dec) == gen_mac.expected(W, av, bv, cycles)
 
 
-def test_cli_interchange(toy_sk, toy_ek, tmp_path):
+def test_cli_interchange(toy_sk, toy_ek, tmp_path, monkeypatch):
     """JAX packet tool -> port iyokan tfhe -> JAX packet tool, then plain."""
+    monkeypatch.setenv(tops.DEVICE_ENV, "cpu")
     W, cycles = 2, 3
     av, bv, streams = _mac_request(W, cycles, 5)
     p = {k: str(tmp_path / k) for k in (
@@ -150,8 +155,9 @@ def test_port_plain_matches_integers(W):
     assert _acc(res.bits["acc"]) == gen_mac.expected(W, av, bv, cycles)
 
 
-def test_port_plain_snapshot_resume(tmp_path):
+def test_port_plain_snapshot_resume(tmp_path, monkeypatch):
     """--snapshot after 2 cycles, --resume for 1 more == 3 straight cycles."""
+    monkeypatch.setenv(tops.DEVICE_ENV, "cpu")
     W = 4
     av, bv, streams = _mac_request(W, 3, 9)
     bp = os.path.join(DATA, f"mac{W}.toml")
@@ -171,7 +177,8 @@ def test_port_plain_snapshot_resume(tmp_path):
     np.testing.assert_array_equal(a.bits["acc"], b.bits["acc"])
 
 
-def test_port_tfhe_snapshot_resume_and_dump(toy_sk, toy_ek, tmp_path):
+def test_port_tfhe_snapshot_resume_and_dump(toy_sk, toy_ek, tmp_path,
+                                            monkeypatch):
     """tfhe --snapshot after 2 cycles + --resume for 1 == 3 straight cycles,
     bit for bit; --dump-prefix with --secret-key writes each cycle's
     decrypted state (the accumulator before that cycle)."""
@@ -183,6 +190,7 @@ def test_port_tfhe_snapshot_resume_and_dump(toy_sk, toy_ek, tmp_path):
     toy_sk.save(p["sk"])
     toy_ek.save(p["ek"])
     jpacket.PlainPacket(bits=streams).encrypt(toy_sk, seed=3).save(p["req"])
+    monkeypatch.setenv(tops.DEVICE_ENV, "cpu")
     run = t_iyokan_cli.main
     common = ["--blueprint", bp, "--evalkey", p["ek"], "--quiet"]
     assert run(["tfhe", *common, "-i", p["req"], "-o", p["r3"],
@@ -199,6 +207,45 @@ def test_port_tfhe_snapshot_resume_and_dump(toy_sk, toy_ek, tmp_path):
         gen_mac.expected(W, av, bv, 3)
     dump1 = tpacket.PlainPacket.load(str(tmp_path / "dump-1"))
     assert _acc(dump1.bits["acc"]) == gen_mac.expected(W, av, bv, 1)
+
+
+def _plain_cli_args(tmp_path, W=4, cycles=2):
+    av, bv, streams = _mac_request(W, cycles, 31)
+    req = str(tmp_path / "req")
+    tpacket.PlainPacket(bits=streams).save(req)
+    out = str(tmp_path / "res")
+    args = ["plain", "--blueprint", os.path.join(DATA, f"mac{W}.toml"),
+            "-i", req, "-o", out, "-c", str(cycles), "--quiet"]
+    return args, out, gen_mac.expected(W, av, bv, cycles)
+
+
+def test_no_card_and_no_cpu_variable_raises(tmp_path, monkeypatch):
+    """No silent CPU fallback: with no card, Frontend without a device and
+    the CLI without IYOKAN_TORCH_DEVICE raise, naming the variable, and
+    IYOKAN_TORCH_DEVICE=cuda raises too."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    monkeypatch.delenv(tops.DEVICE_ENV, raising=False)
+    args, out, _ = _plain_cli_args(tmp_path)
+    with pytest.raises(RuntimeError, match=tops.DEVICE_ENV):
+        TFrontend("plain", TBlueprint(args[2]),
+                  tpacket.PlainPacket.load(args[4]))
+    with pytest.raises(RuntimeError, match=tops.DEVICE_ENV):
+        t_iyokan_cli.main(args)
+    assert not os.path.exists(out)
+    monkeypatch.setenv(tops.DEVICE_ENV, "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tops.default_device()
+
+
+def test_cpu_variable_runs_the_cli(tmp_path, monkeypatch):
+    """IYOKAN_TORCH_DEVICE=cpu: the default device is the CPU and the CLI
+    runs there."""
+    monkeypatch.setenv(tops.DEVICE_ENV, "cpu")
+    assert tops.default_device() == torch.device("cpu")
+    args, out, want = _plain_cli_args(tmp_path)
+    assert t_iyokan_cli.main(args) == 0
+    assert _acc(tpacket.PlainPacket.load(out).bits["acc"]) == want
 
 
 @pytest.mark.cuda

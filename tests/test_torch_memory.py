@@ -235,6 +235,7 @@ def test_ram_snapshot_resume_cli(toy_sk, toy_ek, tmp_path, monkeypatch):
     cycles: outputs and RAM stores bit for bit (period 2: cycle 1
     refreshes the whole store, cycles 0 and 2 only the written rows)."""
     monkeypatch.setenv("IYOKAN_RAM_REFRESH_PERIOD", "2")
+    monkeypatch.setenv("IYOKAN_TORCH_DEVICE", "cpu")
     p = {k: str(tmp_path / k) for k in ("ek", "req", "r3", "r2", "r3b",
                                         "snap")}
     toy_ek.save(p["ek"])

@@ -7,6 +7,11 @@
   TPU.  The JAX DeviceKeys are built with the MXU backend, as on the TPU;
   the route JAX takes is read by stopping it at the first kernel or
   product it calls.
+* The tkey slab's knobs (IYOKAN_TKEY_LIMBS, IYOKAN_TK_LB, IYOKAN_TK_LAYOUT,
+  IYOKAN_TK_UNROLL, IYOKAN_TK_SMALL, IYOKAN_TK_SMALL_MAX, with
+  IYOKAN_UNROLL_MAX): the key bk_for gives each batch size is the JAX
+  DeviceKeys' (IYOKAN_BR_IMPL=tkey), the slab byte for byte; IYOKAN_TK_LB=0
+  raises in both packages.
 * jax_chunk_sizes, the row-to-chunk map of a level batch, on hand-made
   (nb, nm) cases around the bucket and chunk boundaries.
 * MAC-2 (tests/data/mac2.toml) through the JAX and the port Frontends,
@@ -15,7 +20,9 @@
   that one level's rows take both keys, and the same with
   IYOKAN_BOOT_CHUNK=16, which the port reads as the JAX engine does; (b)
   IYOKAN_BR_IMPL=v3, the JAX side on the MXU backend with its Pallas kernel
-  in interpret mode.
+  in interpret mode; (c) IYOKAN_TK_SMALL=1 with IYOKAN_TK_SMALL_MAX=16, so
+  that a level's 16-row chunks take the unrolled slab and its 32-row chunk
+  the main one, the JAX kernels in interpret mode.
 """
 
 import os
@@ -140,6 +147,78 @@ def test_routing_table_matches_jax(toy_ek, monkeypatch, knobs, routes):
         assert _jax_route(monkeypatch, jbk, jdk.params) == route, batch
 
 
+TK_KNOBS = ("IYOKAN_TKEY_LIMBS", "IYOKAN_TK_LB", "IYOKAN_TK_LAYOUT",
+            "IYOKAN_TK_UNROLL", "IYOKAN_TK_SMALL", "IYOKAN_TK_SMALL_MAX",
+            "IYOKAN_UNROLL_MAX")
+# settings of TK_KNOBS (the others unset) -> the layout of the main slab and
+# whether a small-batch unrolled slab is built
+TK_ROWS = [
+    ({}, "fat", False),
+    ({"IYOKAN_TKEY_LIMBS": "4"}, "fat", False),
+    ({"IYOKAN_TK_LB": "1"}, "fat", False),
+    ({"IYOKAN_TK_LB": "3", "IYOKAN_TKEY_LIMBS": "4"}, "fat", False),
+    ({"IYOKAN_TK_LAYOUT": "thin"}, "thin", False),
+    ({"IYOKAN_TK_LAYOUT": "fat2"}, "fat2", False),
+    ({"IYOKAN_TK_UNROLL": "1"}, "unrolled", False),
+    ({"IYOKAN_TK_UNROLL": "1", "IYOKAN_TK_LB": "3"}, "unrolled", False),
+    ({"IYOKAN_TK_UNROLL": "1", "IYOKAN_TK_LAYOUT": "fat2"}, "fat2", False),
+    ({"IYOKAN_TK_SMALL": "1"}, "fat", True),
+    ({"IYOKAN_TK_SMALL": "1", "IYOKAN_TK_SMALL_MAX": "16"}, "fat", True),
+    ({"IYOKAN_TK_SMALL": "1", "IYOKAN_UNROLL_MAX": "16"}, "fat", True),
+    ({"IYOKAN_TK_SMALL": "1", "IYOKAN_TK_UNROLL": "1"}, "unrolled", False),
+    ({"IYOKAN_TK_SMALL": "1", "IYOKAN_TK_LAYOUT": "thin"}, "thin", False),
+    ({"IYOKAN_TK_SMALL": "1", "IYOKAN_TKEY_LIMBS": "4",
+      "IYOKAN_TK_LB": "3"}, "fat", True),
+]
+
+
+def _tk_knobs(monkeypatch, env):
+    for k in TK_KNOBS + ("IYOKAN_NO_UNROLL", "IYOKAN_EP"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "tkey")
+    monkeypatch.setenv("IYOKAN_SLAB_CACHE", "0")
+
+
+@pytest.mark.parametrize("env,layout,small", TK_ROWS,
+                         ids=["-".join(f"{k[7:]}={v}" for k, v in e.items())
+                              or "defaults" for e, _, _ in TK_ROWS])
+def test_tkey_knobs_match_jax(toy_ek, monkeypatch, env, layout, small):
+    """The key bk_for gives at each of SIZES: the JAX DeviceKeys' (a slab
+    of the same shape and bytes, or the unrolled NTT key on both sides),
+    and the port's tkey route reads the slab's layout."""
+    from iyokan_tpu_torch.ops import tkey
+
+    _tk_knobs(monkeypatch, env)
+    jdk = jops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
+    tdk = tops.DeviceKeys.from_evalkey(toy_ek, "cpu", with_cb=False)
+    assert (tdk.bk_tk_small is not None) == (jdk.bk_tk_small is not None) \
+        == small
+    assert tkey.slab_config(tdk.bk_tk, TP)[0] == layout
+    seen = set()
+    for batch in SIZES:
+        jbk, tbk = jdk.bk_for(batch), tdk.bk_for(batch)
+        if tbk is tdk.bk_ntt_u:
+            assert jbk is jdk.bkuntt and jbk is not None, batch
+            continue
+        assert tbk.dtype == torch.int8 and jbk.dtype == jnp.int8, batch
+        assert tuple(tbk.shape) == tuple(jbk.shape), batch
+        assert (tbk is tdk.bk_tk_small) == (jbk is jdk.bk_tk_small), batch
+        assert tops.gate_route(tbk, TP) == "tkey"
+        if id(tbk) not in seen:
+            seen.add(id(tbk))
+            np.testing.assert_array_equal(tbk.numpy(), np.asarray(jbk))
+
+
+def test_tk_lb_zero_raises_in_both(toy_ek, monkeypatch):
+    _tk_knobs(monkeypatch, {"IYOKAN_TK_LB": "0"})
+    with pytest.raises(ValueError, match="IYOKAN_TK_LB"):
+        jops.DeviceKeys.from_evalkey(toy_ek, with_cb=False)
+    with pytest.raises(ValueError, match="IYOKAN_TK_LB"):
+        tops.DeviceKeys.from_evalkey(toy_ek, "cpu", with_cb=False)
+
+
 @pytest.mark.parametrize("nb,nm,cap,want", [
     # one batch of at most 16 rows goes whole (bucket 16)
     (5, 0, 2048, [16] * 5),
@@ -260,3 +339,23 @@ def test_mac2_v3_matches_jax(toy_sk, toy_ek, monkeypatch):
         jpm._mm_dtypes.cache_clear()
         jpm._use_full_fwd.cache_clear()
     assert tops.gate_route(tfe.engine.keys.bk_for(48), TP) == "v3-unrolled"
+
+
+def test_mac2_tk_small_matches_jax(toy_sk, toy_ek, monkeypatch):
+    """(c) IYOKAN_TK_SMALL=1, IYOKAN_TK_SMALL_MAX=16: MAC-2's levels bucket
+    to 16 or 48 rows (chunks of 16 and 32), so rows take both the unrolled
+    small-batch slab and the main fat slab; JAX runs pallas_tk in interpret
+    mode on both."""
+    _tk_knobs(monkeypatch, {"IYOKAN_TK_SMALL": "1",
+                            "IYOKAN_TK_SMALL_MAX": "16"})
+    for k, v in (("IYOKAN_PALLAS_INTERPRET", "1"),
+                 ("IYOKAN_FUSE_LEVELS", "1")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("IYOKAN_BOOT_CHUNK", raising=False)
+    tfe = _mac2_cycles(toy_sk, toy_ek, 2)
+    keys = tfe.engine.keys
+    taken = {id(keys.bk_for(int(s)))
+             for pl_ in tfe.engine.c.levels
+             for s in ttfhe.jax_chunk_sizes(len(pl_.bin_out),
+                                            len(pl_.mux_out), 2048)}
+    assert taken == {id(keys.bk_tk), id(keys.bk_tk_small)}
