@@ -4,8 +4,9 @@
 
 Phases, one line each or more:
   1. device     -- nvidia-smi name + power limit, torch.cuda device name;
-  2. build      -- the four kernel sources, csrc/tkey_blind_rotate.cu,
-                   extprod1_ntt.cu, br_ntt.cu and br3_ntt.cu, one nvcc each,
+  2. build      -- the five kernel sources, csrc/tkey_blind_rotate.cu,
+                   extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu and micro.cu, one
+                   nvcc each,
                    started together (sm_90a), with ptxas's register lines
                    and each kernel's dynamic shared memory;
   3. kernel     -- blind_rotate_tkey against its plain torch twin on the card
@@ -69,13 +70,25 @@ Phases, one line each or more:
  13. br-slice   -- phase 7's MAC-16 run again with IYOKAN_BR_IMPL=v3 (every
                    level takes the unrolled key: K3 at M = 3); the result
                    equals plain mode and the integers, and K3's launch count
-                   grew from 0 during the encrypted run.
+                   grew from 0 during the encrypted run;
+ 14. micro      -- the microbenchmark tools T1-T3 (csrc/micro.cu): the SASS
+                   opcodes of each elementwise and small-K inner loop; the
+                   tools' entry points as a user runs them (tk_mm_bench at
+                   BG 512 and 2048 x STEPS 100, tk_width_bench's six cases at
+                   BG 512, microbench's mmp and pk_* cases at G 1024, INNER
+                   200), every micro kernel launched from 0 there; then each
+                   kernel == its twin (max |diff| 0) at those shapes on seeded
+                   random and the tools' all-ones inputs, us per step (or
+                   inner round, by the tools' difference method), TOP/s,
+                   share of the bound, L2 bytes per step, torch._int_mm on
+                   the same per-step product where it takes the shape.
 The line before the last is the kernels' JSON record (each kernel's launches
 on its path, max |diff| against its twin, ms, twin ms, the bound of the
 same work on the card and what sets it; one record per K2 layout besides
-K1's; no PyTorch call computes a blind
-rotation or an external product, so library_ms is null), the last line the
-device record.  Any failure raises (non-zero exit, no result line).  Needs
+K1's; no PyTorch call computes a blind rotation or an external product,
+so their library_ms is null; the micro records time torch._int_mm on the
+same per-step product where it takes it, per step or round like their
+ms), the last line the device record.  Any failure raises (non-zero exit, no result line).  Needs
 no JAX: the expected values come from the port's plain engine and Python
 integers.
 """
@@ -88,6 +101,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -108,7 +122,9 @@ from iyokan_tpu_torch.circuit.blueprint import Blueprint  # noqa: E402
 from iyokan_tpu_torch.cli import iyokan_cli, packet_cli  # noqa: E402
 from iyokan_tpu_torch.crypto import host, ops  # noqa: E402
 from iyokan_tpu_torch.engine.driver import build_design  # noqa: E402
-from iyokan_tpu_torch.ops import br, br3, extprod, nvcc, tkey  # noqa: E402
+from iyokan_tpu_torch.ops import br, br3, extprod, micro, nvcc, tkey  # noqa
+from iyokan_tpu_torch.tools import microbench, tk_mm_bench  # noqa: E402
+from iyokan_tpu_torch.tools import tk_width_bench  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 20261016
@@ -125,6 +141,11 @@ BR_SIZES = (1, 64, 256, 2048)
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 INT32_MULS_PER_S = 132 * 64 * 1.98e9
+# the microbenchmarks' elementwise bodies: FP32 lanes (the data sheet's
+# 67 TFLOP/s, an FMA counted as 2 operations) and INT32 lanes at the rate
+# above, an IMAD counted as 2 operations as the tools count a multiply-add
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 2 * INT32_MULS_PER_S
 
 
 def bound(n_ops, ops_per_s, nbytes):
@@ -177,7 +198,8 @@ def phase_device():
 
 
 def phase_build(p):
-    sources = (tkey.SOURCE, extprod.SOURCE, br.SOURCE, br3.SOURCE)
+    sources = (tkey.SOURCE, extprod.SOURCE, br.SOURCE, br3.SOURCE,
+               micro.SOURCE)
     t0 = time.time()
     paths = nvcc.build(*sources)
     dt = time.time() - t0
@@ -838,6 +860,254 @@ def phase_memory(files, data, smi):
     return launches, s_cycle, stages
 
 
+# Phase 14: the microbenchmark tools (T1-T3) at their own full shapes
+MICRO_STEPS, MICRO_INNER, MICRO_G = 100, 200, 1024
+T1_BG = (512, 2048)
+# the Pallas kernel (or, for the elementwise bodies, the body) each record
+# replaces
+T1_LINES = {"fat": 40, "thin": 50, "pure": 64, "puret": 83}
+PK_LINES = {"vpu": 305, "f32": 315, "barrett": 325, "roll": 336,
+            "i16": 349, "i32var": 359, "conv": 370, "select": 380}
+
+
+def micro_check(label, kfn, tfn, sets):
+    """kfn(*ins) == tfn(*ins), bit for bit (every output), on each input
+    set; returns the twin's ms on the first set."""
+    twin_ms = None
+    for which, ins in sets:
+        got = kfn(*ins)
+        torch.cuda.synchronize()
+        want, t_ms = timed(lambda: tfn(*ins))
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        for g, w in pairs:
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"micro {label} != twin on {which} inputs: max |diff| "
+                    f"{float((g.double() - w.double()).abs().max())}")
+        twin_ms = t_ms if twin_ms is None else twin_ms
+    return twin_ms
+
+
+def int_mm_ms(a_shape, b_shape, bt=False):
+    """(ms of one torch._int_mm on random int8 operands, None) or (None,
+    why it refused the shape); bt: b made as b_shape and passed
+    transposed (column-major)."""
+    a = torch.randint(-128, 128, a_shape, dtype=torch.int8, device="cuda")
+    b = torch.randint(-128, 128, b_shape, dtype=torch.int8, device="cuda")
+    b = b.t() if bt else b
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, b), 5), None
+    except RuntimeError as e:
+        return None, str(e).strip().splitlines()[0][:160]
+
+
+def marginal_ms(run, inner):
+    """ms per round of run(n) by the tools' difference method."""
+    return microbench.Bench(MICRO_G, 0, inner, torch.device("cuda")).marginal(
+        run, inner) * 1e3
+
+
+def rand_i8(rng, shape):
+    return torch.from_numpy(rng.integers(-128, 128, shape,
+                                         dtype=np.int8)).cuda()
+
+
+def ones_i8(shape):
+    return torch.ones(shape, dtype=torch.int8, device="cuda")
+
+
+def sass_loops(path):
+    """{kernel: {opcode: count}} of the inner loop (from the target of the
+    last backward branch to that branch) of each elementwise and small-K
+    kernel in the built library, from cuobjdump -sass; {} when cuobjdump
+    is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    names = {f"alu_kernelILi{i}E": f"alu {b}"
+             for b, (i, *_rest) in micro.BODIES.items() if i is not None}
+    names.update({"roll_kernel": "roll", "smallk_kernel": "smallk"})
+    out = {}
+    for fn in text.split("Function : ")[1:]:
+        label = next((v for k, v in names.items() if k in fn.split()[0]),
+                     None)
+        if label is None:
+            continue
+        seq, loop = [], None     # seq: (address, opcode)
+        for line in fn.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_]*)([^;]*);", line)
+            if not m:
+                continue
+            addr = int(m.group(1), 16)
+            seq.append((addr, m.group(2)))
+            t = re.match(r"\s*(0x[0-9a-f]+)", m.group(3))
+            if m.group(2) == "BRA" and t and int(t.group(1), 16) < addr:
+                loop = [op for a, op in seq if a >= int(t.group(1), 16)]
+        ops_ = {}
+        for op in loop or [op for _, op in seq]:
+            ops_[op] = ops_.get(op, 0) + 1
+        out[label] = dict(sorted(ops_.items(), key=lambda kv: -kv[1]))
+    return out
+
+
+def phase_micro(smi):
+    """T1-T3 on the card: the tools' entry points as a user runs them (the
+    path, launches counted from 0), then every kernel against its twin at
+    the tools' full shapes on seeded random and the tools' all-ones inputs
+    (max |diff| 0, or it raises), timed beside its bound, its twin and
+    torch._int_mm on the same per-step product where that takes it."""
+    t_phase = time.time()
+    for label, mix in sass_loops(nvcc.lib_path(micro.SOURCE)).items():
+        say("micro", f"SASS inner loop of {label}: {json.dumps(mix)}")
+    micro.LAUNCHES.clear()
+    with knobs(BENCH_G=str(MICRO_G), BENCH_INNER=str(MICRO_INNER),
+               BENCH_ITERS="20"):
+        for BG in T1_BG:
+            tk_mm_bench.main([str(BG), str(MICRO_STEPS), "1", "puret",
+                              "pure", "fat", "thin"])
+        tk_width_bench.main(["512", str(MICRO_STEPS), "1"])
+        microbench.main(["mmp"] + [f"pk_{b}" for b in micro.BODIES]
+                        + ["pk_mm", "pk_smallk", "pk_bdot"])
+    torch.cuda.synchronize()
+    path = dict(micro.LAUNCHES)
+    say("micro", f"launches on the tools' path: {json.dumps(path)}")
+    rng = np.random.default_rng(SEED + 14)
+    S, I = MICRO_STEPS, MICRO_INNER
+    recs = []
+
+    def record(name, replaces, key, k_ms, t_ms, n_ops, peak, io, per,
+               lib=(None, "no single PyTorch call"), l2=None, tops="TOP/s"):
+        if not path.get(key):
+            raise AssertionError(f"micro {name}: no launch of {key!r} on the "
+                                 "tools' path")
+        b_ms, b_by = bound(n_ops, peak, io)
+        lib_ms, why = lib
+        rec = {"name": f"micro {name}", "route": "cuda",
+               "source": f"iyokan_tpu_torch/csrc/{micro.SOURCE}",
+               "replaces": replaces, "launches": path[key],
+               "max_abs_err": 0, "ms": k_ms, "plain_ms": t_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "per": per}
+        if l2 is not None:
+            rec["l2_bytes_per_step"] = l2
+        recs.append(rec)
+        say("micro", f"{name}: == twin on random and all-ones inputs; "
+            f"{k_ms * 1e3:.2f} us/{per}, {n_ops / (k_ms / 1e3) / 1e12:.2f} "
+            f"{tops} = {b_ms / k_ms:.3f} of the bound ({b_by}); twin "
+            f"{t_ms * 1e3:.1f} us/{per}"
+            + (f"; L2 {l2 / 1e6:.2f} MB/{per} = "
+               f"{l2 / (k_ms / 1e3) / 1e12:.2f} TB/s" if l2 else "")
+            + (f"; torch._int_mm {lib_ms * 1e3:.2f} us" if lib_ms is not None
+               else f"; library_ms null: {why}") + f" on {smi}")
+
+    for BG in T1_BG:
+        for mode in micro.MODES:
+            xs = (BG, 6, 2048) if mode == "thin" else (BG, 12288)
+            rs = {"thin": (1024, 768), "puret": (768, 6144)}.get(
+                mode, (6144, 768))
+            x, rhs = rand_i8(rng, xs), rand_i8(rng, rs)
+            t_ms = micro_check(
+                f"tk_loop {mode} BG={BG}",
+                lambda a, b: micro.tk_loop(a, b, S, mode),
+                lambda a, b: micro.tk_loop_ref(a, b, S, mode),
+                [("random", (x, rhs)), ("all-ones", (ones_i8(xs),
+                                                     ones_i8(rs)))]) / S
+            k_ms = cuda_ms(lambda: micro.tk_loop(x, rhs, S, mode), 2) / S
+            rows, k = (48 * BG, 1024) if mode == "thin" else (8 * BG, 6144)
+            lib = int_mm_ms((rows, k), rs, bt=mode == "puret")
+            out_b = x.numel() if mode in ("fat", "thin") else BG * 768 * 4
+            record(f"tk_loop {mode} BG={BG}",
+                   f"tools/tk_mm_bench.py:{T1_LINES[mode]}",
+                   micro.launch_key("tk_loop", mode), k_ms, t_ms,
+                   2 * rows * k * 768, INT8_OPS_PER_S,
+                   (x.numel() + rhs.numel() + out_b) / S, "step", lib,
+                   micro.l2_bytes_per_step(micro.tk_config(x, rhs, mode)))
+    BG = 512
+    for short, _, (K, NO, nd) in tk_width_bench.CASES:
+        x, rhs = rand_i8(rng, (BG, K + 128 * nd)), rand_i8(rng, (K, NO))
+        t_ms = micro_check(
+            f"width_loop {short}",
+            lambda a, b: micro.width_loop(a, b, S, nd),
+            lambda a, b: micro.width_loop_ref(a, b, S, nd),
+            [("random", (x, rhs)),
+             ("all-ones", (ones_i8(x.shape), ones_i8(rhs.shape)))]) / S
+        k_ms = cuda_ms(lambda: micro.width_loop(x, rhs, S, nd), 2) / S
+        record(f"width_loop {short} BG={BG}", "tools/tk_width_bench.py:48",
+               micro.launch_key("width_loop", K, NO, nd), k_ms, t_ms,
+               2 * nd * BG * K * NO, INT8_OPS_PER_S,
+               (x.numel() + rhs.numel() + BG * 128 * 4) / S, "step",
+               int_mm_ms((nd * BG, K), (K, NO)),
+               micro.l2_bytes_per_step(micro.width_config(x, rhs, nd)))
+
+    # T3a: one launch a step; T3c, T3e: INNER rounds a launch
+    M = 6 * MICRO_G
+    a, b = rand_i8(rng, (M, 1024)), rand_i8(rng, (1024, 1024))
+    t_ms = micro_check("mm_mask mmp", lambda u, v: micro.mm_mask(u, v, 127, 1),
+                       lambda u, v: micro.mm_mask_ref(u, v, 127, 1),
+                       [("random", (a, b)), ("all-ones", (ones_i8(a.shape),
+                                                          ones_i8(b.shape)))])
+    k_ms = cuda_ms(lambda: micro.mm_mask(a, b, 127, 1), 10)
+    record("mm_mask mmp", "tools/microbench.py:78",
+           micro.launch_key("mm_mask", M, 1024), k_ms, t_ms,
+           2 * M * 1024 * 1024, INT8_OPS_PER_S, 2 * a.numel() + b.numel(),
+           "launch", int_mm_ms((M, 1024), (1024, 1024)),
+           micro.l2_bytes_per_step(micro.mm_config(a, b, 127)))
+    for name, line, ash, bsh, mask, lib in (
+            ("pk_mm", 398, (3072, 1024), (1024, 1024), 127,
+             int_mm_ms((3072, 1024), (1024, 1024))),
+            ("pk_bdot", 472, (8, 768, 128), (8, 128, 128), 63,
+             (None, "no PyTorch call takes a batched int8 product with "
+                    "int32 sums (torch.bmm has no int8 form on CUDA)"))):
+        a, b = rand_i8(rng, ash), rand_i8(rng, bsh)
+        t_ms = micro_check(
+            f"mm_mask {name}", lambda u, v: micro.mm_mask(u, v, mask, I),
+            lambda u, v: micro.mm_mask_ref(u, v, mask, I),
+            [("random", (a, b)), ("all-ones", (ones_i8(ash),
+                                               ones_i8(bsh)))]) / I
+        k_ms = marginal_ms(lambda n: micro.mm_mask(a, b, mask, n), I)
+        macs = a.numel() * bsh[-1]
+        record(f"mm_mask {name}", f"tools/microbench.py:{line}",
+               micro.launch_key("mm_mask", *ash), k_ms, t_ms, 2 * macs,
+               INT8_OPS_PER_S, (2 * a.numel() + b.numel()) / I, "inner", lib,
+               micro.l2_bytes_per_step(micro.mm_config(a, b, mask)))
+    # T3d: K = 8 on dp4a
+    w, a = rand_i8(rng, (8, 8)), rand_i8(rng, (8, 3072, 128))
+    t_ms = micro_check("smallk_loop", lambda u, v: micro.smallk_loop(u, v, I),
+                       lambda u, v: micro.smallk_loop_ref(u, v, I),
+                       [("random", (w, a)), ("all-ones", (ones_i8(w.shape),
+                                                          ones_i8(a.shape)))]
+                       ) / I
+    k_ms = marginal_ms(lambda n: micro.smallk_loop(w, a, n), I)
+    record("smallk_loop pk_smallk", "tools/microbench.py:435",
+           micro.launch_key("smallk_loop"), k_ms, t_ms, 2 * 8 * a.numel(),
+           INT8_OPS_PER_S, (2 * a.numel() + 64) / I, "inner",
+           int_mm_ms((a[0].numel(), 8), (8, 8)))
+    # T3b: the elementwise bodies
+    for body, (_, dtype, per_elem, _) in micro.BODIES.items():
+        ins = micro.alu_operands(body, "cuda", rng)
+        t_ms = micro_check(
+            f"alu_loop {body}",
+            lambda *u: micro.alu_loop(u[0], body, I, *u[1:]),
+            lambda *u: micro.alu_loop_ref(u[0], body, I, *u[1:]),
+            [("random", ins),
+             ("all-ones", micro.alu_operands(body, "cuda"))]) / I
+        k_ms = marginal_ms(lambda n: micro.alu_loop(ins[0], body, n,
+                                                    *ins[1:]), I)
+        record(f"alu_loop {body}", f"tools/microbench.py:{PK_LINES[body]}",
+               micro.launch_key("alu_loop", body), k_ms, t_ms,
+               ins[0].numel() * per_elem,
+               FP32_OPS_PER_S if dtype == torch.float32 else INT32_OPS_PER_S,
+               (2 * ins[0].nbytes + sum(e.nbytes for e in ins[1:])) / I,
+               "inner", (None, "no single PyTorch call runs the INNER-round "
+                               "chain (eager torch launches a kernel per op)"),
+               tops="Tops/s")
+    say("micro", f"phase {time.time() - t_phase:.1f} s, {len(recs)} records")
+    return recs
+
+
 def kernel_records(p, times, worst, launches, ep_rows, ep_worst, br_rows,
                    br_gates, k3_launches, tk_layouts, tk_small_launches):
     """The kernels' JSON records: launches on each kernel's path (the
@@ -947,6 +1217,7 @@ def main() -> int:
     del bdk
     torch.cuda.empty_cache()
     k3_launches, v3_s_cycle = phase_slice(smi, "br-slice")
+    micro_recs = phase_micro(smi)
 
     say("summary", json.dumps({
         "card": smi, "blind_rotate_ms": times,
@@ -960,7 +1231,7 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": kernel_records(
         p, times, worst, launches, ep_rows, ep_worst, br_rows, br_gates,
-        k3_launches, tk_layouts, tk_small_launches)}))
+        k3_launches, tk_layouts, tk_small_launches) + micro_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
