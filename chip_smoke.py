@@ -80,8 +80,11 @@ Phases, one line each or more:
                    kernel == its twin (max |diff| 0) at those shapes on seeded
                    random and the tools' all-ones inputs, us per step (or
                    inner round, by the tools' difference method), TOP/s,
-                   share of the bound, L2 bytes per step, torch._int_mm on
-                   the same per-step product where it takes the shape.
+                   share of the bound, the L2 bytes a step computed from
+                   the tiling (printed only: not a measurement), each
+                   elementwise loop's IMAD or FFMA rate as issued in its
+                   SASS, torch._int_mm on the same per-step product where
+                   it takes the shape.
 The line before the last is the kernels' JSON record (each kernel's launches
 on its path, max |diff| against its twin, ms, twin ms, the bound of the
 same work on the card and what sets it; one record per K2 layout besides
@@ -123,8 +126,8 @@ from iyokan_tpu_torch.cli import iyokan_cli, packet_cli  # noqa: E402
 from iyokan_tpu_torch.crypto import host, ops  # noqa: E402
 from iyokan_tpu_torch.engine.driver import build_design  # noqa: E402
 from iyokan_tpu_torch.ops import br, br3, extprod, micro, nvcc, tkey  # noqa
-from iyokan_tpu_torch.tools import microbench, tk_mm_bench  # noqa: E402
-from iyokan_tpu_torch.tools import tk_width_bench  # noqa: E402
+from iyokan_tpu_torch.tools import microbench, timing  # noqa: E402
+from iyokan_tpu_torch.tools import tk_mm_bench, tk_width_bench  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SEED = 20261016
@@ -173,14 +176,7 @@ def say(phase, msg):
 def cuda_ms(fn, reps):
     """Mean device milliseconds of fn() over reps runs (after one warm-up)."""
     fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return timing.timed_ms(fn, reps, "cuda")
 
 
 def phase_device():
@@ -870,25 +866,27 @@ PK_LINES = {"vpu": 305, "f32": 315, "barrett": 325, "roll": 336,
             "i16": 349, "i32var": 359, "conv": 370, "select": 380}
 
 
-def micro_check(label, kfn, tfn, sets):
-    """kfn(*ins) == tfn(*ins), bit for bit (every output), on each input
-    set; returns the twin's ms on the first set."""
-    twin_ms = None
+def micro_check(label, kfn, tfn, sets, per=1):
+    """kfn(*ins) against tfn(*ins), every output, on each input set; raises
+    unless bit-identical.  Returns (the twin's ms on the first set / per,
+    the max |diff| over all sets)."""
+    twin_ms, err = None, 0.0
     for which, ins in sets:
         got = kfn(*ins)
         torch.cuda.synchronize()
         want, t_ms = timed(lambda: tfn(*ins))
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
         for g, w in pairs:
-            if not torch.equal(g, w):
-                raise AssertionError(
-                    f"micro {label} != twin on {which} inputs: max |diff| "
-                    f"{float((g.double() - w.double()).abs().max())}")
+            d = float((g.double() - w.double()).abs().max())
+            if d or not torch.equal(g, w):
+                raise AssertionError(f"micro {label} != twin on {which} "
+                                     f"inputs: max |diff| {d}")
+            err = max(err, d)
         twin_ms = t_ms if twin_ms is None else twin_ms
-    return twin_ms
+    return twin_ms / per, err
 
 
-def int_mm_ms(a_shape, b_shape, bt=False):
+def int_mm_lib(a_shape, b_shape, bt=False):
     """(ms of one torch._int_mm on random int8 operands, None) or (None,
     why it refused the shape); bt: b made as b_shape and passed
     transposed (column-major)."""
@@ -896,15 +894,14 @@ def int_mm_ms(a_shape, b_shape, bt=False):
     b = torch.randint(-128, 128, b_shape, dtype=torch.int8, device="cuda")
     b = b.t() if bt else b
     try:
-        return cuda_ms(lambda: torch._int_mm(a, b), 5), None
+        return timing.int_mm_ms(a, b, 5), None
     except RuntimeError as e:
         return None, str(e).strip().splitlines()[0][:160]
 
 
 def marginal_ms(run, inner):
     """ms per round of run(n) by the tools' difference method."""
-    return microbench.Bench(MICRO_G, 0, inner, torch.device("cuda")).marginal(
-        run, inner) * 1e3
+    return timing.marginal(run, inner, "cuda") * 1e3
 
 
 def rand_i8(rng, shape):
@@ -919,11 +916,12 @@ def ones_i8(shape):
 def sass_loops(path):
     """{kernel: {opcode: count}} of the inner loop (from the target of the
     last backward branch to that branch) of each elementwise and small-K
-    kernel in the built library, from cuobjdump -sass; {} when cuobjdump
-    is missing."""
+    kernel in the built library, from cuobjdump -sass; raises when
+    cuobjdump is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        return {}
+        raise FileNotFoundError("cuobjdump (CUDA toolkit) not found: the "
+                                "micro phase prints each loop's SASS mix")
     text = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
     names = {f"alu_kernelILi{i}E": f"alu {b}"
@@ -960,7 +958,8 @@ def phase_micro(smi):
     (max |diff| 0, or it raises), timed beside its bound, its twin and
     torch._int_mm on the same per-step product where that takes it."""
     t_phase = time.time()
-    for label, mix in sass_loops(nvcc.lib_path(micro.SOURCE)).items():
+    mixes = sass_loops(nvcc.lib_path(micro.SOURCE))
+    for label, mix in mixes.items():
         say("micro", f"SASS inner loop of {label}: {json.dumps(mix)}")
     micro.LAUNCHES.clear()
     with knobs(BENCH_G=str(MICRO_G), BENCH_INNER=str(MICRO_INNER),
@@ -978,28 +977,30 @@ def phase_micro(smi):
     S, I = MICRO_STEPS, MICRO_INNER
     recs = []
 
-    def record(name, replaces, key, k_ms, t_ms, n_ops, peak, io, per,
+    def record(name, replaces, key, k_ms, checked, n_ops, peak, io, per,
                lib=(None, "no single PyTorch call"), l2=None, tops="TOP/s"):
+        """l2: the L2 bytes a step the kernel's tiling implies
+        (micro.l2_bytes_per_step), printed as computed, not measured."""
         if not path.get(key):
             raise AssertionError(f"micro {name}: no launch of {key!r} on the "
                                  "tools' path")
+        t_ms, err = checked
         b_ms, b_by = bound(n_ops, peak, io)
         lib_ms, why = lib
-        rec = {"name": f"micro {name}", "route": "cuda",
-               "source": f"iyokan_tpu_torch/csrc/{micro.SOURCE}",
-               "replaces": replaces, "launches": path[key],
-               "max_abs_err": 0, "ms": k_ms, "plain_ms": t_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-               "per": per}
-        if l2 is not None:
-            rec["l2_bytes_per_step"] = l2
-        recs.append(rec)
+        recs.append({"name": f"micro {name}", "route": "cuda",
+                     "source": f"iyokan_tpu_torch/csrc/{micro.SOURCE}",
+                     "replaces": replaces, "launches": path[key],
+                     "max_abs_err": err, "ms": k_ms, "plain_ms": t_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms, "per": per})
         say("micro", f"{name}: == twin on random and all-ones inputs; "
+            f"{path[key]} launches on the path; "
             f"{k_ms * 1e3:.2f} us/{per}, {n_ops / (k_ms / 1e3) / 1e12:.2f} "
             f"{tops} = {b_ms / k_ms:.3f} of the bound ({b_by}); twin "
             f"{t_ms * 1e3:.1f} us/{per}"
-            + (f"; L2 {l2 / 1e6:.2f} MB/{per} = "
-               f"{l2 / (k_ms / 1e3) / 1e12:.2f} TB/s" if l2 else "")
+            + (f"; L2 {l2 / 1e6:.2f} MB/{per} computed from the tiling (at "
+               f"this time {l2 / (k_ms / 1e3) / 1e12:.2f} TB/s)" if l2
+               else "")
             + (f"; torch._int_mm {lib_ms * 1e3:.2f} us" if lib_ms is not None
                else f"; library_ms null: {why}") + f" on {smi}")
 
@@ -1009,101 +1010,112 @@ def phase_micro(smi):
             rs = {"thin": (1024, 768), "puret": (768, 6144)}.get(
                 mode, (6144, 768))
             x, rhs = rand_i8(rng, xs), rand_i8(rng, rs)
-            t_ms = micro_check(
+            checked = micro_check(
                 f"tk_loop {mode} BG={BG}",
                 lambda a, b: micro.tk_loop(a, b, S, mode),
                 lambda a, b: micro.tk_loop_ref(a, b, S, mode),
                 [("random", (x, rhs)), ("all-ones", (ones_i8(xs),
-                                                     ones_i8(rs)))]) / S
+                                                     ones_i8(rs)))], S)
             k_ms = cuda_ms(lambda: micro.tk_loop(x, rhs, S, mode), 2) / S
             rows, k = (48 * BG, 1024) if mode == "thin" else (8 * BG, 6144)
-            lib = int_mm_ms((rows, k), rs, bt=mode == "puret")
+            lib = int_mm_lib((rows, k), rs, bt=mode == "puret")
             out_b = x.numel() if mode in ("fat", "thin") else BG * 768 * 4
             record(f"tk_loop {mode} BG={BG}",
                    f"tools/tk_mm_bench.py:{T1_LINES[mode]}",
-                   micro.launch_key("tk_loop", mode), k_ms, t_ms,
+                   micro.launch_key("tk_loop", mode, BG), k_ms, checked,
                    2 * rows * k * 768, INT8_OPS_PER_S,
                    (x.numel() + rhs.numel() + out_b) / S, "step", lib,
                    micro.l2_bytes_per_step(micro.tk_config(x, rhs, mode)))
     BG = 512
     for short, _, (K, NO, nd) in tk_width_bench.CASES:
         x, rhs = rand_i8(rng, (BG, K + 128 * nd)), rand_i8(rng, (K, NO))
-        t_ms = micro_check(
+        checked = micro_check(
             f"width_loop {short}",
             lambda a, b: micro.width_loop(a, b, S, nd),
             lambda a, b: micro.width_loop_ref(a, b, S, nd),
             [("random", (x, rhs)),
-             ("all-ones", (ones_i8(x.shape), ones_i8(rhs.shape)))]) / S
+             ("all-ones", (ones_i8(x.shape), ones_i8(rhs.shape)))], S)
         k_ms = cuda_ms(lambda: micro.width_loop(x, rhs, S, nd), 2) / S
         record(f"width_loop {short} BG={BG}", "tools/tk_width_bench.py:48",
-               micro.launch_key("width_loop", K, NO, nd), k_ms, t_ms,
+               micro.launch_key("width_loop", K, NO, nd), k_ms, checked,
                2 * nd * BG * K * NO, INT8_OPS_PER_S,
                (x.numel() + rhs.numel() + BG * 128 * 4) / S, "step",
-               int_mm_ms((nd * BG, K), (K, NO)),
+               int_mm_lib((nd * BG, K), (K, NO)),
                micro.l2_bytes_per_step(micro.width_config(x, rhs, nd)))
 
     # T3a: one launch a step; T3c, T3e: INNER rounds a launch
     M = 6 * MICRO_G
     a, b = rand_i8(rng, (M, 1024)), rand_i8(rng, (1024, 1024))
-    t_ms = micro_check("mm_mask mmp", lambda u, v: micro.mm_mask(u, v, 127, 1),
-                       lambda u, v: micro.mm_mask_ref(u, v, 127, 1),
-                       [("random", (a, b)), ("all-ones", (ones_i8(a.shape),
-                                                          ones_i8(b.shape)))])
+    checked = micro_check(
+        "mm_mask mmp", lambda u, v: micro.mm_mask(u, v, 127, 1),
+        lambda u, v: micro.mm_mask_ref(u, v, 127, 1),
+        [("random", (a, b)), ("all-ones", (ones_i8(a.shape),
+                                           ones_i8(b.shape)))])
     k_ms = cuda_ms(lambda: micro.mm_mask(a, b, 127, 1), 10)
     record("mm_mask mmp", "tools/microbench.py:78",
-           micro.launch_key("mm_mask", M, 1024), k_ms, t_ms,
+           micro.launch_key("mm_mask", M, 1024), k_ms, checked,
            2 * M * 1024 * 1024, INT8_OPS_PER_S, 2 * a.numel() + b.numel(),
-           "launch", int_mm_ms((M, 1024), (1024, 1024)),
+           "launch", int_mm_lib((M, 1024), (1024, 1024)),
            micro.l2_bytes_per_step(micro.mm_config(a, b, 127)))
     for name, line, ash, bsh, mask, lib in (
             ("pk_mm", 398, (3072, 1024), (1024, 1024), 127,
-             int_mm_ms((3072, 1024), (1024, 1024))),
+             int_mm_lib((3072, 1024), (1024, 1024))),
             ("pk_bdot", 472, (8, 768, 128), (8, 128, 128), 63,
              (None, "no PyTorch call takes a batched int8 product with "
                     "int32 sums (torch.bmm has no int8 form on CUDA)"))):
         a, b = rand_i8(rng, ash), rand_i8(rng, bsh)
-        t_ms = micro_check(
+        checked = micro_check(
             f"mm_mask {name}", lambda u, v: micro.mm_mask(u, v, mask, I),
             lambda u, v: micro.mm_mask_ref(u, v, mask, I),
             [("random", (a, b)), ("all-ones", (ones_i8(ash),
-                                               ones_i8(bsh)))]) / I
+                                               ones_i8(bsh)))], I)
         k_ms = marginal_ms(lambda n: micro.mm_mask(a, b, mask, n), I)
         macs = a.numel() * bsh[-1]
         record(f"mm_mask {name}", f"tools/microbench.py:{line}",
-               micro.launch_key("mm_mask", *ash), k_ms, t_ms, 2 * macs,
+               micro.launch_key("mm_mask", *ash), k_ms, checked, 2 * macs,
                INT8_OPS_PER_S, (2 * a.numel() + b.numel()) / I, "inner", lib,
                micro.l2_bytes_per_step(micro.mm_config(a, b, mask)))
     # T3d: K = 8 on dp4a
     w, a = rand_i8(rng, (8, 8)), rand_i8(rng, (8, 3072, 128))
-    t_ms = micro_check("smallk_loop", lambda u, v: micro.smallk_loop(u, v, I),
-                       lambda u, v: micro.smallk_loop_ref(u, v, I),
-                       [("random", (w, a)), ("all-ones", (ones_i8(w.shape),
-                                                          ones_i8(a.shape)))]
-                       ) / I
+    checked = micro_check(
+        "smallk_loop", lambda u, v: micro.smallk_loop(u, v, I),
+        lambda u, v: micro.smallk_loop_ref(u, v, I),
+        [("random", (w, a)), ("all-ones", (ones_i8(w.shape),
+                                           ones_i8(a.shape)))], I)
     k_ms = marginal_ms(lambda n: micro.smallk_loop(w, a, n), I)
     record("smallk_loop pk_smallk", "tools/microbench.py:435",
-           micro.launch_key("smallk_loop"), k_ms, t_ms, 2 * 8 * a.numel(),
+           micro.launch_key("smallk_loop"), k_ms, checked, 2 * 8 * a.numel(),
            INT8_OPS_PER_S, (2 * a.numel() + 64) / I, "inner",
-           int_mm_ms((a[0].numel(), 8), (8, 8)))
+           int_mm_lib((a[0].numel(), 8), (8, 8)))
     # T3b: the elementwise bodies
     for body, (_, dtype, per_elem, _) in micro.BODIES.items():
         ins = micro.alu_operands(body, "cuda", rng)
-        t_ms = micro_check(
+        checked = micro_check(
             f"alu_loop {body}",
             lambda *u: micro.alu_loop(u[0], body, I, *u[1:]),
             lambda *u: micro.alu_loop_ref(u[0], body, I, *u[1:]),
             [("random", ins),
-             ("all-ones", micro.alu_operands(body, "cuda"))]) / I
+             ("all-ones", micro.alu_operands(body, "cuda"))], I)
         k_ms = marginal_ms(lambda n: micro.alu_loop(ins[0], body, n,
                                                     *ins[1:]), I)
         record(f"alu_loop {body}", f"tools/microbench.py:{PK_LINES[body]}",
-               micro.launch_key("alu_loop", body), k_ms, t_ms,
+               micro.launch_key("alu_loop", body), k_ms, checked,
                ins[0].numel() * per_elem,
                FP32_OPS_PER_S if dtype == torch.float32 else INT32_OPS_PER_S,
                (2 * ins[0].nbytes + sum(e.nbytes for e in ins[1:])) / I,
                "inner", (None, "no single PyTorch call runs the INNER-round "
                                "chain (eager torch launches a kernel per op)"),
                tops="Tops/s")
+        # the loop's multiply-adds as issued: its SASS count (one round of
+        # one element an iteration) x elements / time a round
+        for op, lanes in (("IMAD", INT32_MULS_PER_S),
+                          ("FFMA", FP32_OPS_PER_S / 2)):
+            n_op = mixes.get(f"alu {body}", {}).get(op, 0)
+            if n_op:
+                rate = n_op * ins[0].numel() / (k_ms / 1e3)
+                say("micro", f"alu_loop {body}: {n_op} {op} a round in SASS "
+                    f"-> {rate:.4g} {op}/s = {rate / lanes:.3f} of the "
+                    f"{lanes:.4g}/s lane rate")
     say("micro", f"phase {time.time() - t_phase:.1f} s, {len(recs)} records")
     return recs
 

@@ -65,7 +65,9 @@ BODIES = {
 
 
 def launch_key(fn: str, *shape) -> str:
-    """LAUNCHES' key of a launch: the function and its variant."""
+    """LAUNCHES' key of a launch: the function and its variant (tk_loop:
+    mode and BG; width_loop: K, NO, ndots; mm_mask: a's shape; alu_loop:
+    the body)."""
     return " ".join([fn] + [str(s) for s in shape])
 
 
@@ -278,7 +280,7 @@ def tk_loop(x: torch.Tensor, rhs: torch.Tensor, steps: int, mode: str):
         return tk_loop_ref(x, rhs, steps, mode)
     lhs = x.contiguous().clone()
     _, acc, chk = _loop_kernel(dict(cfg, steps=steps), lhs, rhs,
-                               launch_key("tk_loop", mode))
+                               launch_key("tk_loop", mode, x.shape[0]))
     return (lhs if cfg["mode"] == 0 else acc), chk[0]
 
 

@@ -43,7 +43,7 @@ import torch
 from .. import params as params_mod
 from ..crypto import host, ops
 from ..ops import micro
-from .tk_mm_bench import timed_ms
+from .timing import marginal, timed_ms
 
 P = params_mod.CGGI128
 PRIME = micro.BARRETT_P     # PRIMES1[3] of the JAX package's 4-prime NTT
@@ -74,20 +74,6 @@ class Bench:
     def sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize()
-
-    def run_ms(self, fn) -> float:
-        """ms of one fn() call (CUDA events on the card)."""
-        return timed_ms(fn, 1, self.device)
-
-    def marginal(self, run, n: int) -> float:
-        """Seconds per unit: (t(run(4n)) - t(run(n))) / 3n, each the
-        minimum of 3 runs after a warm-up."""
-        run(n)
-        run(4 * n)
-        self.sync()
-        t1 = min(self.run_ms(lambda: run(n)) for _ in range(3))
-        t4 = min(self.run_ms(lambda: run(4 * n)) for _ in range(3))
-        return (t4 - t1) / 1e3 / (3 * n)
 
 
 def chained(op, x0):
@@ -124,16 +110,16 @@ def center_reduce(x: torch.Tensor, p: int) -> torch.Tensor:
 def mm_case(b: Bench):
     a = torch.ones((6 * b.G, P.N), dtype=i8, device=b.device)
     w = torch.ones((P.N, P.N), dtype=i8, device=b.device)
-    dt = report("mm_int8 [6G,N]@[N,N]", b.marginal(chained(
-        lambda x: (torch._int_mm(x, w) & 127).to(i8), a), b.iters))
+    dt = report("mm_int8 [6G,N]@[N,N]", marginal(chained(
+        lambda x: (torch._int_mm(x, w) & 127).to(i8), a), b.iters, b.device))
     print(f"    -> {6 * b.G * P.N * P.N / dt / 1e12:.1f} TOPS")
 
 
 def mmp_case(b: Bench):
     a = torch.ones((6 * b.G, P.N), dtype=i8, device=b.device)
     w = torch.ones((P.N, P.N), dtype=i8, device=b.device)
-    dt = report("mm_int8 pallas", b.marginal(chained(
-        lambda x: micro.mm_mask(x, w, 127, 1), a), b.iters))
+    dt = report("mm_int8 pallas", marginal(chained(
+        lambda x: micro.mm_mask(x, w, 127, 1), a), b.iters, b.device))
     print(f"    -> {6 * b.G * P.N * P.N / dt / 1e12:.1f} TOPS")
 
 
@@ -143,28 +129,30 @@ def vpu_case(b: Bench):
             x = x * 3 + 1
         return x & 0xFFFF
     x = torch.ones((b.G, 2, P.N), dtype=i32, device=b.device)
-    dt = report("vpu 11 i32 ops [G,2,N]", b.marginal(chained(op, x), b.iters))
+    dt = report("vpu 11 i32 ops [G,2,N]",
+                marginal(chained(op, x), b.iters, b.device))
     print(f"    -> {11 * b.G * 2 * P.N / dt / 1e12:.2f} Tops/s")
 
 
 def barrett_case(b: Bench):
     x = torch.full((b.G, 2, P.N), 12345, dtype=i32, device=b.device)
-    dt = report("center_reduce [G,2,N]", b.marginal(chained(
-        lambda x: center_reduce(x + 1, PRIME), x), b.iters))
+    dt = report("center_reduce [G,2,N]", marginal(chained(
+        lambda x: center_reduce(x + 1, PRIME), x), b.iters, b.device))
     print(f"    -> {b.G * 2 * P.N / dt / 1e9:.1f} Gelem/s")
 
 
 def rot_case(b: Bench):
     acc = torch.ones((b.G, 2, P.N), dtype=i32, device=b.device)
     r = torch.arange(b.G, device=b.device) % (2 * P.N)
-    report("rot_poly [G,2,N]", b.marginal(chained(
-        lambda a: ops.rot_poly(a, r[:, None], P.N) + 1, acc), b.iters))
+    report("rot_poly [G,2,N]", marginal(chained(
+        lambda a: ops.rot_poly(a, r[:, None], P.N) + 1, acc), b.iters,
+        b.device))
 
 
 def decomp_case(b: Bench):
     x = torch.ones((b.G, 2, P.N), dtype=i32, device=b.device)
-    report("decompose1 [G,2,N]", b.marginal(chained(
-        lambda x: x + ops.decompose1(x, P)[:, :2, :], x), b.iters))
+    report("decompose1 [G,2,N]", marginal(chained(
+        lambda x: x + ops.decompose1(x, P)[:, :2, :], x), b.iters, b.device))
 
 
 def step_case(b: Bench):
@@ -182,7 +170,7 @@ def step_case(b: Bench):
         fn = lambda: ops.blind_rotate(tl, key[:nsteps], testv, pp)  # noqa
         fn()
         b.sync()
-        return b.run_ms(fn) / 1e3
+        return timed_ms(fn, 1, b.device) / 1e3
 
     per = (run_n(160) - run_n(32)) / 128
     print(f"{'blind_rotate marginal step':34s} {per * 1e6:10.1f} us/step   "
@@ -227,7 +215,8 @@ def tkey_step_case(b: Bench):
     L = int(os.environ.get("BENCH_TKEY_L", "3"))
     acc = torch.ones((b.G, 2, P.N), dtype=i32, device=b.device)
     dt = report(f"tkey step L={L} BG={b.G}",
-                b.marginal(chained(_tkey_op(b, L), acc), b.iters))
+                marginal(chained(_tkey_op(b, L), acc), b.iters,
+                         b.device))
     print(f"    -> {48 * L * b.G * P.N * 128 / dt / 1e12:.1f} TOPS   "
           f"(635 steps = {dt * 635 * 1e3:.1f} ms -> "
           f"{b.G / (dt * 635):.0f} gates/s)")
@@ -238,7 +227,8 @@ def tkey_step_rot_case(b: Bench):
     acc = torch.ones((b.G, 2, P.N), dtype=i32, device=b.device)
     r = torch.arange(b.G, device=b.device) % (2 * P.N)
     dt = report(f"tkey step+rot L={L} BG={b.G}",
-                b.marginal(chained(_tkey_op(b, L, r), acc), b.iters))
+                marginal(chained(_tkey_op(b, L, r), acc), b.iters,
+                         b.device))
     print(f"    -> 635 steps = {dt * 635 * 1e3:.1f} ms -> "
           f"{b.G / (dt * 635):.0f} gates/s")
 
@@ -268,8 +258,8 @@ PK_NAMES = {"vpu": "pk_vpu 11 i32 ops", "f32": "pk_f32 11 ops",
 def pk_alu_case(body: str):
     def case(b: Bench):
         x, *extra = micro.alu_operands(body, b.device)
-        dt = b.marginal(lambda n: micro.alu_loop(x, body, n, *extra),
-                        b.inner)
+        dt = marginal(lambda n: micro.alu_loop(x, body, n, *extra),
+                      b.inner, b.device)
         n = x.numel() * micro.BODIES[body][2]
         print(f"{PK_NAMES[body]:34s} {dt * 1e6:10.1f} us/inner   "
               f"{n / dt / 1e12:8.2f} Tops/s", flush=True)
@@ -279,7 +269,7 @@ def pk_alu_case(body: str):
 def pk_mm_case(b: Bench):
     a = torch.ones((3072, 1024), dtype=i8, device=b.device)
     w = torch.ones((1024, 1024), dtype=i8, device=b.device)
-    dt = b.marginal(lambda n: micro.mm_mask(a, w, 127, n), b.inner)
+    dt = marginal(lambda n: micro.mm_mask(a, w, 127, n), b.inner, b.device)
     print(f"{'pk_mm int8 [3072,1024]@[1024,1024]':34s} {dt * 1e6:10.1f} "
           f"us/inner   {3072 * 1024 * 1024 / dt / 1e12:8.1f} TOPS")
 
@@ -288,7 +278,7 @@ def pk_smallk_case(b: Bench):
     Y = 3072 * 128
     a = torch.ones((8, Y // 128, 128), dtype=i8, device=b.device)
     w = torch.ones((8, 8), dtype=i8, device=b.device)
-    dt = b.marginal(lambda n: micro.smallk_loop(w, a, n), b.inner)
+    dt = marginal(lambda n: micro.smallk_loop(w, a, n), b.inner, b.device)
     print(f"{'pk_smallk [8,8]@[8,384K]':34s} {dt * 1e6:10.1f} us/inner"
           f"   {8 * 8 * Y / dt / 1e12:8.2f} TOPS (K=8)")
 
@@ -296,7 +286,7 @@ def pk_smallk_case(b: Bench):
 def pk_bdot_case(b: Bench):
     a = torch.ones((8, 768, 128), dtype=i8, device=b.device)
     w = torch.ones((8, 128, 128), dtype=i8, device=b.device)
-    dt = b.marginal(lambda n: micro.mm_mask(a, w, 63, n), b.inner)
+    dt = marginal(lambda n: micro.mm_mask(a, w, 63, n), b.inner, b.device)
     print(f"{'pk_bdot [8,768,128]x[8,128,128]':34s} {dt * 1e6:10.1f} "
           f"us/inner   {8 * 768 * 128 * 128 / dt / 1e12:8.2f} TOPS (batched)")
 

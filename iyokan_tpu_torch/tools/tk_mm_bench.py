@@ -32,24 +32,7 @@ import torch
 
 from ..crypto import ops
 from ..ops import micro
-
-
-def timed_ms(fn, reps: int, device) -> float:
-    """Mean ms of fn() over reps calls: CUDA events on the card, the host
-    clock on the CPU."""
-    if device.type == "cuda":
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
+from .timing import timed_ms
 
 
 def main(argv=None) -> list:

@@ -29,7 +29,7 @@ import torch
 
 from ..crypto import ops
 from ..ops import micro
-from .tk_mm_bench import timed_ms
+from .timing import timed_ms
 
 CASES = [
     ("w768", "8x[BG,6144]x[6144,768]", (6144, 768, 8)),

@@ -25,9 +25,10 @@ import torch
 
 from .. import params
 from ..ops import tkey
+from .timing import int_mm_ms, timed_ms
 
 
-def int_mm_ms(G: int, p, L: int, lb: int, gen, reps: int = 20) -> float:
+def step_product_ms(G: int, p, L: int, lb: int, gen) -> float:
     """Mean ms of torch._int_mm on one step's K-major product at batch G
     (padded to the kernel's 16-gate tile), operands built beforehand."""
     Gp = -(-G // tkey.BLOCK_G) * tkey.BLOCK_G
@@ -36,15 +37,7 @@ def int_mm_ms(G: int, p, L: int, lb: int, gen, reps: int = 20) -> float:
                       device="cuda", generator=gen)
     b = torch.randint(-128, 128, (RT, C), dtype=torch.int8, device="cuda",
                       generator=gen)
-    torch._int_mm(a, b)
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        torch._int_mm(a, b)
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return int_mm_ms(a, b)
 
 
 def main(argv=None) -> int:
@@ -68,25 +61,16 @@ def main(argv=None) -> int:
     for G in (int(g) for g in args.G.split(",")):
         tl = torch.randint(-2**31, 2**31, (G, p.n + 1), dtype=torch.int64,
                            device="cuda", generator=gen).to(torch.int32)
-        tkey.blind_rotate_tkey(tl, bk, testv, p)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(3):
+        def rotate():
             tkey.blind_rotate_tkey(tl, bk, testv, p)
-        e1.record()
+        rotate()
         torch.cuda.synchronize()
-        ms = e0.elapsed_time(e1) / 3
+        ms = timed_ms(rotate, 3, "cuda")
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            e0.record()
-            tkey.blind_rotate_tkey(tl, bk, testv, p)
-            e1.record()
-            torch.cuda.synchronize()
-        window_us = e0.elapsed_time(e1) * 1e3
-        mm_ms = int_mm_ms(G, p, L, lb, gen)
+            window_us = timed_ms(rotate, 1, "cuda") * 1e3
+        mm_ms = step_product_ms(G, p, L, lb, gen)
         kern = {}
         for ev in prof.key_averages():
             if not str(getattr(ev, "device_type", "")).endswith("CUDA"):

@@ -253,6 +253,20 @@ def test_microbench_refuses_the_unported_cases():
             mb.main([case])
 
 
+def test_timing_marginal_is_the_difference_method(monkeypatch):
+    """timing.marginal(run, n) = (t(run(4n)) - t(run(n))) / 3n with each t
+    the minimum of 3 timed calls: a fake clock that advances 2 ms a unit
+    plus 5 ms a call gives 2 ms a unit (the fixed cost cancels)."""
+    from iyokan_tpu_torch.tools import timing
+    clock = [0.0]
+    monkeypatch.setattr(timing.time, "perf_counter", lambda: clock[0])
+
+    def run(n):
+        clock[0] += 5e-3 + 2e-3 * n
+    assert timing.marginal(run, 10, "cpu") == pytest.approx(2e-3, abs=1e-12)
+    assert timing.timed_ms(lambda: run(1), 4, "cpu") == pytest.approx(7.0)
+
+
 def test_loop_kernel_l2_bytes_per_step():
     """The looped kernel's L2 traffic a step, at T1 fat BG 512: 32 blocks x
     6144 rows x (768 rhs columns + 8 windows x 16 rows x 3 chunks)."""
@@ -295,9 +309,10 @@ def test_tk_loop_kernel_equals_twin_on_card(mode):
     x = _t(_i8(rng, (48, 6, 2048) if mode == "thin" else (48, 12288)))
     rhs = _t(_i8(rng, {"thin": (1024, 768), "puret": (768, 6144)}.get(
         mode, (6144, 768))))
-    before = micro.LAUNCHES[micro.launch_key("tk_loop", mode)]
+    key = micro.launch_key("tk_loop", mode, 48)
+    before = micro.LAUNCHES[key]
     assert _same(*_both(micro.tk_loop, x, rhs, 3, mode))
-    assert micro.LAUNCHES[micro.launch_key("tk_loop", mode)] == before + 1
+    assert micro.LAUNCHES[key] == before + 1
 
 
 @pytest.mark.cuda
