@@ -5,15 +5,24 @@
 Phases, one line each or more:
   1. device     -- nvidia-smi name + power limit, torch.cuda device name;
   2. build      -- the five kernel sources, csrc/tkey_blind_rotate.cu,
-                   extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu and micro.cu, one
-                   nvcc each,
+                   extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu and micro.cu (the
+                   first and last include csrc/wgmma_s8.cuh), one nvcc each,
                    started together (sm_90a), with ptxas's register lines
-                   and each kernel's dynamic shared memory;
+                   and each kernel's dynamic shared memory; then the SASS
+                   opcode mix (cuobjdump -sass) of every int8 product
+                   kernel: conv_wgmma_kernel, conv_kernel and mm_step_kernel,
+                   raising where a wgmma form has no warpgroup MMA (GMMA)
+                   instruction (a build that lost sm_90a);
   3. kernel     -- blind_rotate_tkey against its plain torch twin on the card
-                   at cggi128 with the real [635, 5120, 768] slab, G = 1, 5,
-                   64, 2048: bit-identical, kernel ms vs twin ms;
+                   at cggi128 with the real [635, 5120, 768] slab, stored
+                   K-contiguous, G = 1, 5, 64 (the mma.sync form) and 2048
+                   (the wgmma form): bit-identical, kernel ms vs twin ms;
+                   then both forms at G = 64, 128, 144, 192, 256 (the route
+                   threshold ops/tkey.py WGMMA_MIN_G), each == the twin;
   4. gates      -- 2048 NAND gate bootstraps (linear combination, bootstrap,
-                   key switch), 0 wrong after decryption, gate bootstraps/s;
+                   key switch), 0 wrong after decryption, gate bootstraps/s,
+                   one wgmma-form launch; K1's ms at G=2048 and the rate
+                   beside the card's nvidia-smi name and power limit;
   5. ntt-gates  -- 256 NANDs through the NTT blind-rotation route
                    (IYOKAN_EP=pallas, IYOKAN_BR_IMPL=ntt: 635 extprod1_ntt
                    launches), 0 wrong, ms per batch beside the tkey route's;
@@ -23,7 +32,8 @@ Phases, one line each or more:
                    (=fat2), the 2-bit-unrolled main slab (IYOKAN_TK_UNROLL=1)
                    and the fat slab at L=4, lb=3 (IYOKAN_TKEY_LIMBS=4
                    IYOKAN_TK_LB=3): the kernel == its twin (max |diff| 0) at
-                   G = 1, 64, 2048 (and 256 unrolled), kernel ms vs twin ms;
+                   G = 1, 5, 64 (mma.sync form), 2048 (wgmma; and 256
+                   unrolled), kernel ms vs twin ms;
                    then 2048 NANDs through bk_for on that slab (one launch
                    under its layout), 0 wrong, max phase error, gate
                    bootstraps/s beside phase 4's;
@@ -87,8 +97,9 @@ Phases, one line each or more:
                    it takes the shape.
 The line before the last is the kernels' JSON record (each kernel's launches
 on its path, max |diff| against its twin, ms, twin ms, the bound of the
-same work on the card and what sets it; one record per K2 layout besides
-K1's; no PyTorch call computes a blind rotation or an external product,
+same work on the card and what sets it; K1's wgmma form, its mma.sync
+form (small batches) and one record per K2 layout; no PyTorch call
+computes a blind rotation or an external product,
 so their library_ms is null; the micro records time torch._int_mm on the
 same per-step product where it takes it, per step or round like their
 ms), the last line the device record.  Any failure raises (non-zero exit, no result line).  Needs
@@ -213,6 +224,13 @@ def phase_build(p):
         say("build", f"{os.path.relpath(path, ROOT)} (all {len(sources)} "
             f"nvcc in parallel: {dt:.2f} s); ptxas per kernel: {regs}; "
             f"dynamic shared memory: {smem.get(src, 'see the source')}")
+    for src in (tkey.SOURCE, micro.SOURCE):
+        for label, mix in sass_products(nvcc.lib_path(src)).items():
+            say("build", f"SASS of {src} {label}: {sum(mix.values())} "
+                f"instructions, "
+                f"{sum(v for k, v in mix.items() if 'GMMA' in k)} GMMA, "
+                f"{mix.get('IMMA', 0)} IMMA; top opcodes "
+                f"{json.dumps(dict(list(mix.items())[:12]))}")
 
 
 @contextlib.contextmanager
@@ -258,9 +276,48 @@ def phase_kernel(p, sk, dk, rng):
                        3)
         t_ms = cuda_ms(
             lambda: tkey.blind_rotate_tkey_ref(ct, dk.bk_tk, testv, p), 1)
-        rows.append({"G": G, "kernel_ms": k_ms, "twin_ms": t_ms})
-        say("kernel", f"G={G}: bit-identical to twin; kernel {k_ms:.3f} ms, "
-            f"twin {t_ms:.3f} ms per blind rotation")
+        form = form_of(G)
+        rows.append({"G": G, "form": form, "kernel_ms": k_ms,
+                     "twin_ms": t_ms})
+        say("kernel", f"G={G}: bit-identical to twin; {form} form {k_ms:.3f}"
+            f" ms, twin {t_ms:.3f} ms per blind rotation")
+    return rows, worst
+
+
+def form_of(G):
+    """The form of the step product the route threshold gives G gates."""
+    Gp = -(-G // tkey.BLOCK_G) * tkey.BLOCK_G
+    return "wgmma" if Gp >= tkey.WGMMA_MIN_G else "mma"
+
+
+FORM_SIZES = (64, 128, 144, 192, 256)
+
+
+def phase_forms(p, sk, dk, rng, smi):
+    """Both forms of the step product on the fat slab at the batches around
+    the route threshold: each == the twin, bit for bit, and timed."""
+    testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
+    rows, worst = [], 0
+    for G in FORM_SIZES:
+        bits = rng.integers(0, 2, G, dtype=np.uint8)
+        ct = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
+        want, t_ms = timed(
+            lambda: tkey.blind_rotate_tkey_ref(ct, dk.bk_tk, testv, p))
+        rec = {"G": G, "picked": form_of(G), "twin_ms": t_ms}
+        for form in ("mma", "wgmma"):
+            err = max_diff(tkey.blind_rotate_tkey(ct, dk.bk_tk, testv, p,
+                                                  form=form), want)
+            worst = max(worst, err)
+            if err:
+                raise AssertionError(f"{form} form != twin at G={G}: max "
+                                     f"|diff| {err}")
+            rec[f"{form}_ms"] = cuda_ms(lambda: tkey.blind_rotate_tkey(
+                ct, dk.bk_tk, testv, p, form=form), 3)
+        rows.append(rec)
+        say("forms", f"G={G}: both forms == twin; mma.sync "
+            f"{rec['mma_ms']:.3f} ms, wgmma {rec['wgmma_ms']:.3f} ms per "
+            f"blind rotation (threshold {tkey.WGMMA_MIN_G} picks "
+            f"{rec['picked']}) on {smi}")
     return rows, worst
 
 
@@ -279,15 +336,20 @@ def phase_gates(p, sk, dk, rng, smi):
         lvl1 = ops.gate_bootstrap_tlwe1(pre, dk.bk_tk, p)
         return ops.keyswitch_10(lvl1, dk.ksk_f64, p)
 
+    reset_launches()
     out = host.decrypt_bits(sk, ops.u32_numpy(nand()))
+    launches = tkey.FORM_LAUNCHES["wgmma"]
+    if launches != 1 or all_launches() != 1:
+        raise AssertionError(f"2048 NANDs: {launches} wgmma-form launches, "
+                             f"{all_launches()} in all")
     wrong = int((out != (1 - (a & b))).sum())
     if wrong:
         raise AssertionError(f"{wrong}/{G} wrong NANDs")
     ms = cuda_ms(nand, 3)
     rate = G / (ms / 1e3)
-    say("gates", f"{G} NANDs, 0 wrong; {ms:.1f} ms per batch (3 reps) -> "
-        f"gate_bootstraps_per_sec={rate:.1f} on {smi}")
-    return rate, ms
+    say("gates", f"{G} NANDs, 0 wrong, 1 wgmma-form launch; {ms:.1f} ms per"
+        f" batch (3 reps) -> gate_bootstraps_per_sec={rate:.1f} on {smi}")
+    return rate, ms, launches
 
 
 def phase_ntt_gates(p, sk, ek, dk, rng, smi):
@@ -468,6 +530,8 @@ def reset_launches():
     br.STEP_LAUNCHES = br.LOOP_LAUNCHES = 0
     for layout in tkey.LAYOUT_LAUNCHES:
         tkey.LAYOUT_LAUNCHES[layout] = 0
+    for form in tkey.FORM_LAUNCHES:
+        tkey.FORM_LAUNCHES[form] = 0
 
 
 def all_launches():
@@ -499,12 +563,12 @@ def phase_err_16ths(p, sk, res, want):
 # K2's layouts: record name, the knobs that build it, (layout, L, lb) the
 # slab must read as, and the batches of the kernel-vs-twin check
 TK_LAYOUTS = (
-    ("thin", {"IYOKAN_TK_LAYOUT": "thin"}, ("thin", 3, 2), (1, 64, 2048)),
-    ("fat2", {"IYOKAN_TK_LAYOUT": "fat2"}, ("fat2", 3, 2), (1, 64, 2048)),
+    ("thin", {"IYOKAN_TK_LAYOUT": "thin"}, ("thin", 3, 2), (1, 5, 64, 2048)),
+    ("fat2", {"IYOKAN_TK_LAYOUT": "fat2"}, ("fat2", 3, 2), (1, 5, 64, 2048)),
     ("unrolled", {"IYOKAN_TK_UNROLL": "1"}, ("unrolled", 3, 2),
-     (1, 64, 256, 2048)),
+     (1, 5, 64, 256, 2048)),
     ("fat L=4 lb=3", {"IYOKAN_TKEY_LIMBS": "4", "IYOKAN_TK_LB": "3"},
-     ("fat", 4, 3), (1, 64, 2048)),
+     ("fat", 4, 3), (1, 5, 64, 2048)),
 )
 
 
@@ -539,11 +603,11 @@ def phase_tk_layouts(p, sk, ek, rng, smi, tkey_rate):
             del got, want
             k_ms = cuda_ms(lambda: tkey.blind_rotate_tkey(ct, key, testv, p),
                            3)
-            rows.append({"G": G, "kernel_ms": k_ms, "twin_ms": t_ms,
-                         "max_abs_diff": err})
-            say("tk-layouts", f"{name} G={G}: bit-identical to twin; kernel "
-                f"{k_ms:.3f} ms, twin {t_ms:.3f} ms per blind rotation on "
-                f"{smi}")
+            rows.append({"G": G, "form": form_of(G), "kernel_ms": k_ms,
+                         "twin_ms": t_ms, "max_abs_diff": err})
+            say("tk-layouts", f"{name} G={G}: bit-identical to twin; "
+                f"{form_of(G)} form {k_ms:.3f} ms, twin {t_ms:.3f} ms per "
+                f"blind rotation on {smi}")
 
         G = 2048
         pre, want = nand_inputs(p, sk, rng, G)
@@ -815,8 +879,11 @@ def phase_memory(files, data, smi):
         lg.setLevel(logging.INFO)
     t_run = time.time() - t0
     launches = {"tkey_blind_rotate": tkey.LAUNCHES,
-                "extprod1_ntt": extprod.LAUNCHES}
-    if not all(launches.values()):
+                "extprod1_ntt": extprod.LAUNCHES,
+                "tkey mma form": tkey.FORM_LAUNCHES["mma"],
+                "tkey wgmma form": tkey.FORM_LAUNCHES["wgmma"]}
+    if not (launches["tkey_blind_rotate"] and launches["extprod1_ntt"]
+            and launches["tkey mma form"]):
         raise AssertionError(f"the encrypted memory run launched {launches}")
 
     packet_cli.main(["dec", "--key", f["sk"], "--in", f["res.enc"],
@@ -913,17 +980,57 @@ def ones_i8(shape):
     return torch.ones(shape, dtype=torch.int8, device="cuda")
 
 
-def sass_loops(path):
-    """{kernel: {opcode: count}} of the inner loop (from the target of the
-    last backward branch to that branch) of each elementwise and small-K
-    kernel in the built library, from cuobjdump -sass; raises when
-    cuobjdump is missing."""
+def sass_text(path):
+    """cuobjdump -sass of a built library; raises when cuobjdump is
+    missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise FileNotFoundError("cuobjdump (CUDA toolkit) not found: the "
-                                "micro phase prints each loop's SASS mix")
-    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                                "smoke run prints the kernels' SASS mix")
+    return subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
+
+
+# the int8 product kernels: mangled-name piece -> form; the wgmma forms
+# must hold warpgroup MMA instructions
+PRODUCT_KERNELS = {"conv_wgmma_kernel": "wgmma", "mm_step_kernel": "wgmma",
+                   "conv_kernel": "mma.sync"}
+
+
+def sass_products(path):
+    """{kernel instance: {opcode: count}} over the whole function of each
+    int8 product kernel in the built library (instances by their template
+    arguments, e.g. conv_wgmma_kernel<3,0>); raises if a wgmma form has no
+    GMMA instruction (IGMMA on int8)."""
+    out = {}
+    for fn in sass_text(path).split("Function : ")[1:]:
+        name = fn.split()[0]
+        kind = next((k for k in PRODUCT_KERNELS
+                     if re.search(rf"\d{k}I", name)), None)
+        if kind is None:
+            continue
+        args = ",".join(re.findall(r"Li(\d+)E", name.split(kind, 1)[1])[:2])
+        ops_ = {}
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_]*)[^;]*;", fn):
+            ops_[m.group(1)] = ops_.get(m.group(1), 0) + 1
+        label = f"{kind}<{args}>"
+        out[label] = dict(sorted(ops_.items(), key=lambda kv: -kv[1]))
+        if (PRODUCT_KERNELS[kind] == "wgmma"
+                and not any("GMMA" in op for op in ops_)):
+            raise AssertionError(f"{label} holds no warpgroup MMA (GMMA) "
+                                 "instruction: the wgmma form was not built "
+                                 "for sm_90a")
+    if not any(PRODUCT_KERNELS[k.split("<")[0]] == "wgmma" for k in out):
+        raise AssertionError(f"no wgmma product kernel found in {path}")
+    return out
+
+
+def sass_loops(path):
+    """{kernel: {opcode: count}} of the inner loop (from the target of the
+    last backward branch to that branch) of each elementwise and small-K
+    kernel in the built library, from cuobjdump -sass."""
+    text = sass_text(path)
     names = {f"alu_kernelILi{i}E": f"alu {b}"
              for b, (i, *_rest) in micro.BODIES.items() if i is not None}
     names.update({"roll_kernel": "roll", "smallk_kernel": "smallk"})
@@ -1120,10 +1227,12 @@ def phase_micro(smi):
     return recs
 
 
-def kernel_records(p, times, worst, launches, ep_rows, ep_worst, br_rows,
-                   br_gates, k3_launches, tk_layouts, tk_small_launches):
+def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
+                   ep_worst, br_rows, br_gates, k3_launches, tk_layouts,
+                   tk_small_launches):
     """The kernels' JSON records: launches on each kernel's path (the
-    memmac run for tkey_blind_rotate and extprod1_ntt, the br-gates runs
+    2048-NAND run for tkey_blind_rotate's wgmma form, the memmac run for
+    its mma.sync form and extprod1_ntt, the br-gates runs
     for K5 and K4, the br-slice run for K3, the tk-layouts NAND runs for
     K2's thin, fat2 and L=4 slabs, the tk-slice run for its unrolled slab),
     max |diff| against the twin over every compared shape, ms and twin ms
@@ -1135,10 +1244,20 @@ def kernel_records(p, times, worst, launches, ep_rows, ep_worst, br_rows,
     RT, C = (p.l + lb) * p.N, 2 * L * 128
     io = G * (p.n + 1) * i32 + p.N * i32 + G * 2 * p.N * i32
     recs = [("tkey_blind_rotate", "tkey_blind_rotate.cu",
-             "iyokan_tpu/ops/pallas_tk.py:219", launches["tkey_blind_rotate"],
+             "iyokan_tpu/ops/pallas_tk.py:219", gate_launches,
              worst, next(r for r in times if r["G"] == G),
              bound(2 * p.n * G * (p.N // 128) * RT * C, INT8_OPS_PER_S,
                    p.n * RT * C + io))]
+    # the small-batch form, at the largest batch of phase 3 below the
+    # threshold
+    row = max((r for r in times if r["form"] == "mma"), key=lambda r: r["G"])
+    g = row["G"]
+    io_g = g * (p.n + 1) * i32 + p.N * i32 + g * 2 * p.N * i32
+    recs.append(("tkey_blind_rotate conv_kernel (mma.sync form)",
+                 "tkey_blind_rotate.cu", "iyokan_tpu/ops/pallas_tk.py:219",
+                 launches["tkey mma form"], worst, row,
+                 bound(2 * p.n * g * (p.N // 128) * RT * C, INT8_OPS_PER_S,
+                       p.n * RT * C + io_g)))
     K, RR = 2, 2 * p.l
     recs.append(("extprod1_ntt", "extprod1_ntt.cu",
                  "iyokan_tpu/ops/pallas_ep.py:91", launches["extprod1_ntt"],
@@ -1207,7 +1326,14 @@ def main() -> int:
     say("kernel", f"slab {tuple(dk.bk_tk.shape)} int8 built + moved in "
         f"{time.time() - t0:.1f} s")
     times, worst = phase_kernel(p, sk, dk, rng)
-    rate, _ = phase_gates(p, sk, dk, rng, smi)
+    form_rows, form_worst = phase_forms(p, sk, dk, rng, smi)
+    worst = max(worst, form_worst)
+    rate, _, gate_launches = phase_gates(p, sk, dk, rng, smi)
+    k1 = next(r for r in times if r["G"] == 2048)
+    say("gates", f"K1 (tkey_blind_rotate, {k1['form']} form) at G=2048: "
+        f"{k1['kernel_ms']:.3f} ms a blind rotation, "
+        f"{k1['kernel_ms'] * 1e3 / p.n:.1f} us a step; 2048 NANDs: "
+        f"gate_bootstraps_per_sec={rate:.1f}; card {smi}")
     ntt = phase_ntt_gates(p, sk, ek, dk, rng, smi)
     del dk
     torch.cuda.empty_cache()
@@ -1239,11 +1365,12 @@ def main() -> int:
         "memmac_stage_s": stages, "br_kernels": br_rows,
         "ntt_unrolled_route": unrolled, "br_gates": br_gates,
         "mac16_v3_s_per_cycle": v3_s_cycle, "tk_layouts": tk_layouts,
-        "mac16_tk_small_s_per_cycle": tk_s_cycle}))
+        "mac16_tk_small_s_per_cycle": tk_s_cycle,
+        "tkey_forms": form_rows, "wgmma_min_g": tkey.WGMMA_MIN_G}))
     print(smi)
     print(json.dumps({"kernels": kernel_records(
-        p, times, worst, launches, ep_rows, ep_worst, br_rows, br_gates,
-        k3_launches, tk_layouts, tk_small_launches) + micro_recs}))
+        p, times, worst, gate_launches, launches, ep_rows, ep_worst, br_rows,
+        br_gates, k3_launches, tk_layouts, tk_small_launches) + micro_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -559,8 +559,13 @@ def _warn_unquantized(src: np.ndarray, L: int) -> None:
 
 def _slab(src: np.ndarray, p: Params, L: int, layout: str, lb: int,
           device) -> torch.Tensor:
-    slab = polymul.tkey_kernel_key(src, p, L, layout, lb=lb)
-    return torch.from_numpy(slab).to(device)
+    """The tkey slab of `src` on `device`, stored K-contiguous (the
+    kernel's storage; ops/tkey.py:k_contiguous) with the logical shape
+    tkey_kernel_key gives."""
+    from ..ops.tkey import k_contiguous
+
+    return k_contiguous(polymul.tkey_kernel_key(src, p, L, layout, lb=lb),
+                        device)
 
 
 @dataclasses.dataclass
@@ -569,7 +574,8 @@ class DeviceKeys:
 
     bk_tk     int8 Toeplitz slab (tkey route; None on the others), in the
               layout tkey_default_config names (ops/tkey.py reads it from
-              the shape): fat [n, (l+lb)*N, 2*L*128], thin
+              the shape), stored K-contiguous (ops/tkey.py:k_contiguous)
+              as a view of the logical shape: fat [n, (l+lb)*N, 2*L*128], thin
               [n, l+lb, N, 2*L*128] or fat2 [n, 2*(l+lb)*N, 2*L*128]; or,
               under IYOKAN_TK_UNROLL (not 0) with the fat layout, the
               2-bit-unrolled slab [nh, 3*(l+lb)*N, 2*L*128] of bku

@@ -4,9 +4,10 @@
 //
 // Replaces the Pallas kernels of
 //   tools/tk_mm_bench.py     kern_fat, kern_thin, kern_pure, kern_puret
-//   tools/tk_width_bench.py  main.make.kern
+//                            (mm_step_kernel, TILE and ACC modes)
+//   tools/tk_width_bench.py  main.make.kern (mm_step_kernel, ACC)
 //   tools/microbench.py      mm_int8_pallas_case.kern, pk_mm_case.kern,
-//                            pk_bdot_case.kern (mm_loop_kernel, MM mode),
+//                            pk_bdot_case.kern (mm_step_kernel, MM),
 //                            pk_smallk_case.kern (smallk_kernel),
 //                            _pallas_loop_case.make.kern with the bodies
 //                            pk_vpu, pk_f32, pk_barrett, pk_i16, pk_i32var,
@@ -15,51 +16,50 @@
 //
 // Three designs:
 //
-// 1. mm_loop_kernel<MODE, BT>: a looped int8 tensor-core product.  Every
-//    step's LHS row depends only on that row's previous step, so a block
-//    owns BM = 16 LHS rows across all steps and no block waits for another.
-//    A step reads `nwin` LHS windows that share every rhs k-tile, in
-//    `nouter` passes over rhs:
+// 1. mm_step_kernel<MODE, BN>: a looped int8 product.  A step reads
+//    `nwin` LHS windows against one right-hand side, in `nouter` passes:
 //      P_w[r, n] = sum_{o < nouter} sum_{k < seglen}
 //                  L[r, doff + w*wstride + o*ostride + k] * B[k, n]
 //    (B = rhs [seglen, NO], or rhs^T for BT: rhs stored [NO, seglen]).
 //    The epilogue of MODE reads them:
 //      TILE  one dot a window (kern_fat: 8 windows 768 apart, one pass;
 //            kern_thin: 8 windows 128 apart, a pass per j-row):
-//            w_d = (P_d[:, :128] + P_d[:, 128:256]) & 31, and at the step's
-//            end L[r, c] = w_{((c mod wrap) / 128) mod nwin}[r, c mod 128]
-//            (wrap = 12288 fat, 2048 thin: every j-row);
+//            w_d = (P_d[:, :128] + P_d[:, 128:256]) & 31, and the next
+//            L[r, c] = w_{(c / 128) mod nwin}[r, c mod 128] (the tools'
+//            ((c mod wrap) / 128) mod nwin for their wraps 12288 and 2048,
+//            multiples of 128 nwin);
 //      ACC   one dot, the sum of the windows S = sum_w P_w (kern_pure /
 //            kern_puret: the 8 windows 768 apart; the width sweep: ndots
 //            windows 128 apart): acc[:, :accw] += S[:, :accw] (wrapping
 //            int32, in global memory), and at the step's end L[:, :128] =
 //            the low byte of acc[:, :128] (accw = 768 pure, 128 width);
-//      MM    one window: L' = (P & mask) as int8, into the other of two LHS
-//            buffers (mmp, pk_mm; pk_bdot with a batch per blockIdx.y).
+//      MM    one window: L' = (P & mask) as int8 (mmp, pk_mm; pk_bdot with
+//            a batch per blockIdx.z).
 //    Columns the tool never reads (TILE: 256..767, ACC: accw..NO-1) are
 //    still computed and summed into a per-row uint32 checksum `chk`, so the
-//    compiler cannot drop their mma.sync and the rate counts every product
+//    compiler cannot drop their products and the rate counts every product
 //    the tool counts.
 //    What bounds it: the int8 products (2 ops a MAC at 1979 TOP/s) at large
-//    batches, but the right-hand sides (4.5 MB for T1, up to 36 MB for the
-//    width sweep, 1 MB for pk_mm) do not fit in shared memory, so every
-//    block streams rhs from L2 every step: nouter * seglen * NO bytes, plus
-//    its LHS windows once per 256-column chunk (ops/micro.py
-//    l2_bytes_per_step, which the smoke run prints).  The design: mma.sync
-//    m16n8k32 s8 -> s32 with ldmatrix fragments; 8 warps x 32 columns make
-//    a 256-column chunk; each rhs k-tile brought into shared memory serves
-//    all nwin windows (its B fragments are loaded once for them), so rhs is
-//    read once a pass, not once a dot; a 4-deep cp.async ring of 64-deep
-//    k-tiles streams without a break across the passes and chunks of a
-//    step (it drains only where the next step's LHS is written); each block
-//    starts its k-tiles at its own offset, so blocks in flight read
-//    different rhs lines instead of all hitting the same L2 lines at once
-//    (integer sums are exact in any order).  A row-major rhs (pure, fat,
-//    thin, width, MM) is transposed in shared memory per k-tile by byte
-//    permutes, because the B operand wants the contraction contiguous and
-//    ldmatrix cannot transpose 8-bit elements; a BT rhs ([NO, K], puret)
-//    goes straight from the ring to ldmatrix.  pure vs puret measures that
-//    transpose, which the tkey kernel's conv_kernel pays too.
+//    batches.  The design: the shared Hopper mainloop of wgmma_s8.cuh (TMA,
+//    an mbarrier ring, two consumer warpgroups on wgmma m64nNk32 s8) on
+//    128-row x BN-column tiles of each step, so every shape covers the SMs
+//    (ops/micro.py:step_plan picks BN and the split):
+//      - the steps depend on each other only row by row, so a step
+//        boundary is a launch boundary: one launch a step on the stream
+//        (a cooperative grid barrier would hold every CTA resident and
+//        give the split nothing), the next LHS written to the other of two
+//        buffers (TILE, MM) or, after the step, in place by acc_low_bytes
+//        (ACC, whose split sums land by atomics first);
+//      - TILE's windows are separate outputs: stacked M rows; ACC's all
+//        multiply B, so their sum is one longer contraction (windows x
+//        passes x seglen) in one accumulator, split across CTAs where the
+//        tiles alone are too few (exact int32 atomics);
+//      - B must be K-major for wgmma: a BT rhs (puret) is used as it is; a
+//        row-major one is transposed once per call into a scratch [NO,
+//        seglen] by rhs_kmajor (its time is part of the call), TILE's
+//        first 256 columns reordered so a 128-column tile holds columns c
+//        and c + 128 in one thread's registers for w_d.
+//    pure vs puret now measures only that transpose.
 //
 // 2. smallk_kernel: a <- (W @ a & mask) as int8 with W [8, 8] (pk_smallk).
 //    mma.sync int8 needs K = 32 and M = 16, so a K = 8, M = 8 product would
@@ -88,323 +88,203 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "wgmma_s8.cuh"
+
 namespace {
 
-constexpr int BM = 16;            // LHS rows a block owns (one m16 tile)
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int WN = 32;            // output columns a warp owns in a chunk
-constexpr int CN = WARPS * WN;    // columns a chunk covers
-constexpr int BK = 64;            // contraction rows per k-tile
-constexpr int STAGES = 4;         // cp.async ring depth
-constexpr int ASTR = 80;          // A tile row stride (64 bytes + pad)
-constexpr int TSTR = 80;          // [n][k] B tile row stride (64 + pad)
-constexpr int RSTR = CN + 16;     // raw row-major B tile row stride
-constexpr int MAXDOT = 8;         // TILE: windows (dots) a step at most
-constexpr int MAXWIN = 16;        // ACC: windows a step at most
-
 enum Mode { TILE = 0, ACC = 1, MM = 2 };
-
-struct LoopArgs {
-  int8_t* lhs;          // [batches][rows][lstride]; TILE: the output
-  int8_t* lhs2;         // MM: the second buffer
-  const int8_t* rhs;    // [batches][seglen][NO], or BT [batches][NO][seglen]
-  int32_t* acc;         // ACC: [rows][accw], zeroed by the caller
-  uint32_t* chk;        // [batches][rows]
-  long long lhs_bstride, rhs_bstride;
-  int rows, lstride, NO, seglen, nwin, wstride, nouter, ostride, doff;
-  int steps, accw, wrap, mask;
-};
-
-template <int MODE, bool BT>
-struct LoopSmem {
-  static constexpr int NW = MODE == TILE ? MAXDOT : (MODE == ACC ? MAXWIN : 1);
-  static constexpr int A_BYTES = NW * BM * ASTR;            // nwin A tiles
-  static constexpr int B_BYTES = BT ? CN * TSTR : BK * RSTR;
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int BT_OFF = STAGES * STAGE;             // transposed B
-  static constexpr int BT_BYTES = BT ? 0 : CN * TSTR;
-  static constexpr int EPI_OFF = BT_OFF + BT_BYTES;
-  // TILE: w sums [MAXDOT][BM][128] int32; ACC: acc[:, :128] [BM][128]
-  static constexpr int EPI_BYTES =
-      MODE == TILE ? MAXDOT * BM * 128 * 4 : (MODE == ACC ? BM * 128 * 4 : 0);
-  static constexpr int CHK_OFF = EPI_OFF + EPI_BYTES;
-  static constexpr int BYTES = CHK_OFF + BM * 4;
-};
 
 __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct StepArgs {
+  int8_t* lnext;        // TILE, MM: the next LHS buffer
+  int32_t* acc;         // ACC: [rows][accw]
+  uint32_t* chk;        // [batches][rows]
+  int rows, lstride, NO, seglen, nwin, wstride, nouter, ostride, doff;
+  int accw, mask;
+  int m_tiles;          // 128-row tiles of the rows (a window's on TILE)
+  int n_tiles, split;   // BN-column tiles; CTAs splitting the contraction
+};
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
+// One step, one CTA: rows [r0, r0+128) of window w_m (TILE) or of the
+// rows (ACC, MM) of batch blockIdx.z, columns [nt*BN, nt*BN + BN) (TILE:
+// of the permuted scratch), k-tiles [q0, q1) of the step's sum.
+//   lmap: the current LHS [batches*rows][lstride], 128-row boxes;
+//   bmap: B K-major [batches*NO][seglen], BN-row boxes.
+template <int MODE, int BN>
+__global__ void __launch_bounds__(wgs8::THREADS, 1)
+mm_step_kernel(const __grid_constant__ CUtensorMap lmap,
+               const __grid_constant__ CUtensorMap bmap, StepArgs g) {
+  extern __shared__ uint8_t smem_raw[];
+  const wgs8::Ring<BN> ring = wgs8::ring_init<BN>(smem_raw);
+  const int nt = blockIdx.x % g.n_tiles, sp = blockIdx.x / g.n_tiles;
+  const int b = blockIdx.z;
+  const int w_m = MODE == TILE ? blockIdx.y / g.m_tiles : 0;
+  const int r0 = (MODE == TILE ? blockIdx.y % g.m_tiles : blockIdx.y) *
+                 wgs8::BM;
+  const int T = g.seglen / wgs8::BK;
+  const int Q = (MODE == ACC ? g.nwin : 1) * g.nouter * T;
+  const int q0 = (int)((long long)Q * sp / g.split);
+  const int q1 = (int)((long long)Q * (sp + 1) / g.split);
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N_PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING));
-}
-
-template <int MODE, bool BT>
-__global__ void __launch_bounds__(THREADS)
-mm_loop_kernel(LoopArgs g) {
-  using SM = LoopSmem<MODE, BT>;
-  constexpr int NACC = MODE == TILE ? MAXDOT : 1;  // accumulators a thread
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* Bt = smem + SM::BT_OFF;
-  int32_t* epi = reinterpret_cast<int32_t*>(smem + SM::EPI_OFF);
-  uint32_t* chk_s = reinterpret_cast<uint32_t*>(smem + SM::CHK_OFF);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int r0 = blockIdx.x * BM;
-  const int b = blockIdx.y;
-  int8_t* cur = g.lhs + b * g.lhs_bstride + (size_t)r0 * g.lstride;
-  int8_t* nxt = MODE == MM ? g.lhs2 + b * g.lhs_bstride +
-                                 (size_t)r0 * g.lstride
-                           : nullptr;
-  const int8_t* rhs = g.rhs + b * g.rhs_bstride;
-  const int nchunk = (g.NO + CN - 1) / CN;
-  const int T = g.seglen / BK;            // k-tiles a pass
-  const int TO = T * g.nouter;            // k-tiles a chunk
-  const int Q = nchunk * TO;              // k-tiles a step
-  const int t_off = (int)((blockIdx.x + (size_t)blockIdx.y * gridDim.x) % T);
-
-  // k-tile q of the step -> ring slot: the nwin A windows' rows and the
-  // chunk's rhs rows (or BT columns) of k-tile (t + t_off) mod T
-  auto issue = [&](int slot, int q) {
-    int8_t* As = smem + slot * SM::STAGE;
-    int8_t* Bs = As + SM::A_BYTES;
-    const int t = (q % T + t_off) % T, o = (q / T) % g.nouter;
-    const int kk = t * BK, c0 = (q / TO) * CN;
-    const int8_t* a0 = cur + g.doff + o * g.ostride + kk;
-    for (int u = tid; u < g.nwin * BM * 4; u += THREADS) {
-      const int w = u / (BM * 4), row = (u >> 2) % BM, part = u & 3;
-      cp_async16(As + (w * BM + row) * ASTR + part * 16,
-                 a0 + (size_t)row * g.lstride + w * g.wstride + part * 16);
-    }
-    for (int u = tid; u < BK * CN / 16; u += THREADS) {
-      if (BT) {  // u -> (column n, 16-byte piece of its 64 k)
-        const int n = u >> 2, part = u & 3;
-        if (c0 + n < g.NO)
-          cp_async16(Bs + n * TSTR + part * 16,
-                     rhs + (size_t)(c0 + n) * g.seglen + kk + part * 16);
-      } else {   // u -> (k row, 16-column piece)
-        const int k = u / (CN / 16), piece = u % (CN / 16);
-        if (c0 + piece * 16 < g.NO)
-          cp_async16(Bs + k * RSTR + piece * 16,
-                     rhs + (size_t)(kk + k) * g.NO + c0 + piece * 16);
-      }
-    }
-  };
-
-  uint32_t chk0 = 0, chk1 = 0;   // rows grp and grp + 8
-  if (tid < BM) chk_s[tid] = 0;
-  int c[NACC][4][4];
-
-  for (int step = 0; step < g.steps; ++step) {
-    if (MODE == TILE)
-      for (int i = tid; i < g.nwin * BM * 128; i += THREADS) epi[i] = 0;
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < Q) issue(s, s);
-      cp_async_commit();
-    }
-#pragma unroll
-    for (int w = 0; w < NACC; ++w)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[w][nt][e] = 0;
-
-    for (int q = 0; q < Q; ++q) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int8_t* As = smem + (q % STAGES) * SM::STAGE;
-      const int8_t* Bs = As + SM::A_BYTES;
-      if (!BT) {
-        // transpose the raw tile [64 k][CN n] -> Bt[n][k] in 4x4-byte
-        // blocks: w[i] byte j = (k 4kq+i, n 4nq+j) -> Bt[4nq+j][4kq+i];
-        // a warp takes 8 n-blocks x 4 k-blocks, so its raw reads are 2-way
-        // and its transposed writes 4-way bank conflicts (n-blocks alone
-        // made the writes 16-way)
-        static_assert(BK / 4 == 16 && CN / 4 == 64, "the lane split below");
-        for (int u = tid; u < (BK / 4) * (CN / 4); u += THREADS) {
-          const int nq = (u & 7) | ((u >> 5) & 7) << 3;
-          const int kq = ((u >> 3) & 3) | (u >> 8) << 2;
-          const int8_t* src = Bs + kq * 4 * RSTR + nq * 4;
-          const uint32_t w0 = ld32(src), w1 = ld32(src + RSTR);
-          const uint32_t w2 = ld32(src + 2 * RSTR);
-          const uint32_t w3 = ld32(src + 3 * RSTR);
-          const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
-          const uint32_t t1 = __byte_perm(w0, w1, 0x7362);
-          const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
-          const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
-          uint32_t* dst =
-              reinterpret_cast<uint32_t*>(Bt + nq * 4 * TSTR + kq * 4);
-          dst[0] = __byte_perm(t0, t2, 0x5410);
-          dst[TSTR / 4] = __byte_perm(t0, t2, 0x7632);
-          dst[2 * TSTR / 4] = __byte_perm(t1, t3, 0x5410);
-          dst[3 * TSTR / 4] = __byte_perm(t1, t3, 0x7632);
-        }
-      }
-      if (q + STAGES - 1 < Q) issue((q + STAGES - 1) % STAGES, q + STAGES - 1);
-      cp_async_commit();
-      if (!BT) __syncthreads();  // Bt complete
-      const int8_t* Bn = BT ? Bs : Bt;   // [n][k], row stride TSTR
-      const int cw = (q / TO) * CN + warp * WN;  // this warp's first column
-      if (cw < g.NO) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 32) {
-          uint32_t bf[2][4];   // n8 tiles (2np, 2np+1) of this k32 slice
-#pragma unroll
-          for (int np = 0; np < 2; ++np)
-            ldmatrix_x4(bf[np], Bn + (warp * WN + np * 16 + (lane >> 4) * 8 +
-                                      (lane & 7)) * TSTR +
-                                    kk + ((lane >> 3) & 1) * 16);
-          const int8_t* Ar = As + ((lane & 7) + ((lane >> 3) & 1) * 8) *
-                                      ASTR + kk + (lane >> 4) * 16;
-          // a group of windows' A fragments first, then their products,
-          // so the loads' latency overlaps instead of stalling each
-          // window's mmas (TILE: one group of its 8 windows, one
-          // accumulator each; ACC: groups of 8 into one accumulator)
-          constexpr int GRP = SM::NW < 8 ? SM::NW : 8;
-          for (int w0 = 0; w0 < g.nwin; w0 += GRP) {
-            uint32_t a[GRP][4];
-#pragma unroll
-            for (int w = 0; w < GRP; ++w)
-              if (w0 + w < g.nwin)
-                ldmatrix_x4(a[w], Ar + (w0 + w) * BM * ASTR);
-#pragma unroll
-            for (int w = 0; w < GRP; ++w) {
-              if (w0 + w >= g.nwin) continue;
-              int (&cc)[4][4] = c[MODE == TILE ? w : 0];
-#pragma unroll
-              for (int np = 0; np < 2; ++np) {
-                mma_s8(cc[2 * np], a[w], bf[np][0], bf[np][1]);
-                mma_s8(cc[2 * np + 1], a[w], bf[np][2], bf[np][3]);
-              }
-            }
-          }
-        }
-      }
-      if (q % TO == TO - 1 && cw < g.NO) {  // the chunk is complete
-#pragma unroll
-        for (int w = 0; w < NACC; ++w)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int row = grp + (e >> 1) * 8;
-              const int col = cw + nt * 8 + tig * 2 + (e & 1);
-              const int v = c[w][nt][e];
-              c[w][nt][e] = 0;
-              bool dead = false;
-              if (MODE == TILE) {
-                if (w >= g.nwin) continue;
-                if (col < 256)
-                  atomicAdd(&epi[(w * BM + row) * 128 + (col & 127)], v);
-                else
-                  dead = true;
-              } else if (MODE == ACC) {
-                if (col < g.accw) {
-                  int32_t* ap = g.acc + (size_t)(r0 + row) * g.accw + col;
-                  const int nv = (int)((uint32_t)*ap + (uint32_t)v);
-                  *ap = nv;
-                  if (col < 128) epi[row * 128 + col] = nv;
-                } else {
-                  dead = true;
-                }
-              } else {
-                nxt[(size_t)row * g.lstride + col] = (int8_t)(v & g.mask);
-              }
-              if (dead) {
-                if (e >> 1) chk1 += (uint32_t)v;
-                else chk0 += (uint32_t)v;
-              }
-            }
-      }
-    }
-    // step end: every read of this step's LHS is done; write the next one
-    cp_async_wait<0>();
-    __syncthreads();
-    if (MODE == TILE) {
-      for (int u = tid; u < BM * g.lstride / 16; u += THREADS) {
-        const int row = u / (g.lstride / 16);
-        const int col = (u % (g.lstride / 16)) * 16;
-        const int cc = col % g.wrap;
-        const int32_t* w =
-            epi + (((cc >> 7) % g.nwin) * BM + row) * 128 + (cc & 127);
-        uint32_t out[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          out[i] = (uint32_t)(w[4 * i] & 31) |
-                   (uint32_t)(w[4 * i + 1] & 31) << 8 |
-                   (uint32_t)(w[4 * i + 2] & 31) << 16 |
-                   (uint32_t)(w[4 * i + 3] & 31) << 24;
-        *reinterpret_cast<uint4*>(cur + (size_t)row * g.lstride + col) =
-            make_uint4(out[0], out[1], out[2], out[3]);
-      }
-    } else if (MODE == ACC) {
-      for (int u = tid; u < BM * 128; u += THREADS)
-        cur[(size_t)(u >> 7) * g.lstride + (u & 127)] = (int8_t)epi[u];
-    } else {
-      int8_t* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-    __syncthreads();
+  if (threadIdx.x >= wgs8::CONSUMERS) {  // the producer warpgroup
+    wgs8::producer_regs();
+    if (threadIdx.x == wgs8::CONSUMERS)
+      wgs8::produce(ring, q1 - q0, wgs8::Ring<BN>::STAGE,
+                    [&](int q, uint8_t* a, uint8_t* bt, uint64_t* bar) {
+                      q += q0;
+                      const int kk = (q % T) * wgs8::BK;
+                      const int o = (q / T) % g.nouter;
+                      const int w = MODE == ACC ? q / (T * g.nouter) : w_m;
+                      wgs8::tma_load(a, &lmap,
+                                     g.doff + w * g.wstride + o * g.ostride +
+                                         kk,
+                                     b * g.rows + r0, bar);
+                      wgs8::tma_load(bt, &bmap, kk, b * g.NO + nt * BN, bar);
+                    });
+    return;
   }
+  wgs8::consumer_regs();
+  uint32_t d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0;
+  wgs8::consume<BN>(ring, q1 - q0, d, [](int, uint32_t (&)[BN / 2]) {});
 
-  // checksum of the unread columns: the four threads of a row group, then
-  // the eight warps
-  chk0 += __shfl_xor_sync(0xffffffffu, chk0, 1);
-  chk0 += __shfl_xor_sync(0xffffffffu, chk0, 2);
-  chk1 += __shfl_xor_sync(0xffffffffu, chk1, 1);
-  chk1 += __shfl_xor_sync(0xffffffffu, chk1, 2);
-  __syncthreads();
-  if (tig == 0) {
-    atomicAdd(&chk_s[grp], chk0);
-    atomicAdd(&chk_s[grp + 8], chk1);
+  const int lane = threadIdx.x & 31;
+  const size_t row0 = (size_t)b * g.rows + r0;   // the tile's first row
+  uint32_t dead[2] = {0, 0};   // unread columns of rows acc_row(0), +8
+  bool has_dead = false;
+  if constexpr (MODE == TILE) {
+    if (nt < 2) {
+      // w = (P[:, c] + P[:, c + 128]) & 31 for c = 64 nt + (0..63): tile
+      // columns 8j.. and 64 + 8j.. (j < 8; the scratch's order), staged in
+      // shared memory as [128 rows][64 bytes] (the ring is drained)
+      uint8_t* W = ring.a(0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          W[wgs8::acc_row(e) * 64 + wgs8::acc_col(4 * j + e)] =
+              (uint8_t)((d[4 * j + e] + d[4 * (j + 8) + e]) & 31);
+      wgs8::consumers_sync();
+      // block p of 128 columns of the next LHS takes window p mod nwin: the
+      // copies of this window's 64 columns, 16 bytes a thread
+      const int ncopy = g.lstride / (128 * g.nwin);
+      for (int q = threadIdx.x; q < wgs8::BM * ncopy * 4;
+           q += wgs8::CONSUMERS) {
+        const int row = q / (ncopy * 4), cpy = (q >> 2) % ncopy, ch = q & 3;
+        if (r0 + row >= g.rows) continue;
+        const int col = (w_m + g.nwin * cpy) * 128 + nt * 64 + ch * 16;
+        *reinterpret_cast<uint4*>(g.lnext + (row0 + row) * g.lstride + col) =
+            *reinterpret_cast<const uint4*>(W + row * 64 + ch * 16);
+      }
+    } else {  // columns 256..767: only the checksum
+      has_dead = true;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) dead[(i >> 1) & 1] += d[i];
+    }
+  } else if constexpr (MODE == ACC) {
+    has_dead = (nt + 1) * BN > g.accw;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int col = nt * BN + wgs8::acc_col(i);
+      const int r = r0 + wgs8::acc_row(i);
+      if (col >= g.accw)
+        dead[(i >> 1) & 1] += d[i];
+      else if (r < g.rows)
+        atomicAdd(g.acc + (size_t)r * g.accw + col, (int)d[i]);
+    }
+  } else {   // MM: the next LHS, two adjacent bytes a register pair
+#pragma unroll
+    for (int i = 0; i < BN / 2; i += 2) {
+      const int r = r0 + wgs8::acc_row(i);
+      if (r >= g.rows) continue;
+      const uint32_t m = (uint32_t)g.mask;
+      *reinterpret_cast<uint16_t*>(g.lnext + ((size_t)b * g.rows + r) *
+                                                 g.lstride +
+                                   nt * BN + wgs8::acc_col(i)) =
+          (uint16_t)((d[i] & m) | (d[i + 1] & m) << 8);
+    }
   }
-  __syncthreads();
-  if (tid < BM) g.chk[(size_t)b * g.rows + r0 + tid] = chk_s[tid];
+  if (has_dead) {
+    // the four threads of a row group, then one atomic a row
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      dead[h] += __shfl_xor_sync(0xffffffffu, dead[h], 1);
+      dead[h] += __shfl_xor_sync(0xffffffffu, dead[h], 2);
+      const int r = r0 + wgs8::acc_row(2 * h);
+      if ((lane & 3) == 0 && r < g.rows)
+        atomicAdd(g.chk + (size_t)b * g.rows + r, dead[h]);
+    }
+  }
 }
 
-template <int MODE, bool BT>
-int launch_loop(const LoopArgs& g, int batches, cudaStream_t st) {
-  using SM = LoopSmem<MODE, BT>;
+// rhs [batches][seglen][NO] -> bt [batches][NO][seglen] (K-major), 64 x 64
+// byte tiles through shared memory.  tile_pairs (TILE): column c < 256
+// goes to row 128 ((c mod 128) / 64) + 64 (c / 128) + c mod 64, so scratch
+// rows [128t, 128t + 128) hold columns 64t.. and 128 + 64t.. (t = 0, 1).
+__global__ void __launch_bounds__(256)
+rhs_kmajor(const int8_t* __restrict__ rhs, int8_t* __restrict__ bt,
+           int seglen, int NO, int tile_pairs) {
+  __shared__ uint8_t t[64][65];
+  const int n0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
+  const int8_t* src = rhs + (size_t)blockIdx.z * seglen * NO;
+  int8_t* dst = bt + (size_t)blockIdx.z * NO * seglen;
+  const int r = threadIdx.x >> 2, p = (threadIdx.x & 3) * 16;
+  const uint4 v =
+      *reinterpret_cast<const uint4*>(src + (size_t)(k0 + r) * NO + n0 + p);
+  const uint8_t* vb = reinterpret_cast<const uint8_t*>(&v);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) t[r][p + j] = vb[j];
+  __syncthreads();
+  uint4 o;
+  uint8_t* ob = reinterpret_cast<uint8_t*>(&o);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) ob[j] = t[p + j][r];   // column n0 + r
+  const int c = n0 + r;
+  const int row = tile_pairs && c < 256
+                      ? ((c & 127) >> 6) * 128 + (c >> 7) * 64 + (c & 63)
+                      : c;
+  *reinterpret_cast<uint4*>(dst + (size_t)row * seglen + k0 + p) = o;
+}
+
+// ACC, after a step: L[r, :128] = the low byte of acc[r, :128]
+__global__ void acc_low_bytes(const int32_t* __restrict__ acc,
+                              int8_t* __restrict__ lhs, int rows, int accw,
+                              int lstride) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * 128) return;
+  lhs[(size_t)(i >> 7) * lstride + (i & 127)] =
+      (int8_t)acc[(size_t)(i >> 7) * accw + (i & 127)];
+}
+
+template <int MODE, int BN>
+int launch_steps(const StepArgs& a, const CUtensorMap (&lmaps)[2],
+                 const CUtensorMap& bmap, int8_t* (&bufs)[2], int batches,
+                 int steps, cudaStream_t st) {
+  constexpr int smem = wgs8::Ring<BN>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      mm_loop_kernel<MODE, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SM::BYTES);
+      mm_step_kernel<MODE, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
-  mm_loop_kernel<MODE, BT><<<dim3(g.rows / BM, batches), THREADS, SM::BYTES,
-                             st>>>(g);
-  return (int)cudaGetLastError();
+  const dim3 grid(a.n_tiles * a.split,
+                  a.m_tiles * (MODE == TILE ? a.nwin : 1), batches);
+  for (int s = 0; s < steps; ++s) {
+    StepArgs g = a;
+    const int cur = MODE == ACC ? 0 : s & 1;
+    g.lnext = bufs[cur ^ 1];
+    mm_step_kernel<MODE, BN><<<grid, wgs8::THREADS, smem, st>>>(
+        lmaps[cur], bmap, g);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if (MODE == ACC) {
+      acc_low_bytes<<<(a.rows * 128 + 255) / 256, 256, 0, st>>>(
+          a.acc, bufs[0], a.rows, a.accw, a.lstride);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -573,39 +453,76 @@ int launch_alu(const void* x, const void* y, void* out, long long n,
 
 }  // namespace
 
-// The looped product (module header).  mode: 0 TILE, 1 ACC, 2 MM; bt: rhs
-// stored [NO, seglen].  Shapes: rows % 16 == 0, NO % 32 == 0, seglen % 64
-// == 0, every LHS offset and stride a multiple of 16 bytes; TILE: nwin <=
-// 8, wrap % 128 == 0, NO >= 256; ACC: nwin <= 16, 128 <= accw <= NO; MM:
-// nwin == 1, NO == lstride.  Returns 0 or the first CUDA error.
+// The looped product (module header): `steps` launches of mm_step_kernel
+// (ACC: each followed by acc_low_bytes), after one rhs_kmajor unless bt.
+// mode: 0 TILE, 1 ACC, 2 MM; bt: rhs stored [NO, seglen] (ACC only).
+//   lhs      [batches][rows][lstride]; ACC: updated in place; TILE, MM:
+//            with lhs2 the two LHS buffers, the result in lhs2 after an
+//            odd number of steps
+//   rhs_t    scratch [batches][NO][seglen] (unless bt)
+//   acc      ACC: int32 [rows][accw], zeroed by the caller
+//   chk      uint32 [batches][rows], zeroed by the caller
+// bn (32, 64, 128 or 256; TILE and ACC 128) and split (ACC only)
+// from ops/micro.py:step_plan.  Shapes: NO % bn == 0, NO % 64 == 0,
+// seglen % 128 == 0, lstride % 16 == 0, lhs_bstride == rows * lstride,
+// rhs_bstride == seglen * NO; TILE: NO >= 256, lstride % (128 nwin) == 0;
+// ACC: batches == 1, 128 <= accw <= NO; MM: nwin == 1, NO == lstride.
+// Returns 0 or the first CUDA error.
 extern "C" int micro_mm_loop(int mode, int bt, void* lhs, void* lhs2,
-                             const void* rhs, void* acc, void* chk,
-                             int batches, int rows, int lstride,
+                             const void* rhs, void* rhs_t, void* acc,
+                             void* chk, int batches, int rows, int lstride,
                              long long lhs_bstride, long long rhs_bstride,
                              int NO, int seglen, int nwin, int wstride,
                              int nouter, int ostride, int doff, int steps,
-                             int accw, int wrap, int mask, void* stream) {
+                             int accw, int mask, int bn, int split,
+                             void* stream) {
   const bool ok =
-      mode >= TILE && mode <= MM && batches >= 1 && rows > 0 &&
-      rows % BM == 0 && NO > 0 && NO % WN == 0 && seglen > 0 &&
-      seglen % BK == 0 && nwin >= 1 && nouter >= 1 && steps >= 0 &&
-      lstride % 16 == 0 && wstride % 16 == 0 && ostride % 16 == 0 &&
-      doff % 16 == 0 && (!bt || mode == ACC) &&
-      (mode != TILE || (nwin <= MAXDOT && wrap % 128 == 0 && NO >= 256 &&
-                        lstride % wrap == 0)) &&
-      (mode != ACC || (nwin <= MAXWIN && accw >= 128 && accw <= NO)) &&
+      mode >= TILE && mode <= MM && batches >= 1 && rows > 0 && NO > 0 &&
+      (bn == 32 || bn == 64 || bn == 128 || bn == 256) && NO % bn == 0 &&
+      NO % 64 == 0 && seglen > 0 && seglen % wgs8::BK == 0 && nwin >= 1 &&
+      nouter >= 1 && steps >= 0 && split >= 1 && lstride % 16 == 0 &&
+      lhs_bstride == (long long)rows * lstride &&
+      (batches == 1 || rhs_bstride == (long long)seglen * NO) &&
+      (!bt || mode == ACC) && (mode == ACC || split == 1) &&
+      (mode != TILE || (bn == 128 && NO >= 256 &&
+                        lstride % (128 * nwin) == 0)) &&
+      (mode != ACC || (batches == 1 && bn == 128 && accw >= 128 &&
+                       accw <= NO)) &&
       (mode != MM || (nwin == 1 && NO == lstride));
   if (!ok) return (int)cudaErrorInvalidValue;
-  LoopArgs g{static_cast<int8_t*>(lhs), static_cast<int8_t*>(lhs2),
-             static_cast<const int8_t*>(rhs), static_cast<int32_t*>(acc),
-             static_cast<uint32_t*>(chk), lhs_bstride, rhs_bstride, rows,
-             lstride, NO, seglen, nwin, wstride, nouter, ostride, doff,
-             steps, accw, wrap, mask};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (mode == TILE) return launch_loop<TILE, false>(g, batches, st);
-  if (mode == MM) return launch_loop<MM, false>(g, batches, st);
-  return bt ? launch_loop<ACC, true>(g, batches, st)
-            : launch_loop<ACC, false>(g, batches, st);
+  const void* bsrc = rhs;
+  if (!bt) {
+    rhs_kmajor<<<dim3(NO / 64, seglen / 64, batches), 256, 0, st>>>(
+        static_cast<const int8_t*>(rhs), static_cast<int8_t*>(rhs_t), seglen,
+        NO, mode == TILE);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    bsrc = rhs_t;
+  }
+  int8_t* bufs[2] = {static_cast<int8_t*>(lhs),
+                     static_cast<int8_t*>(mode == ACC ? lhs : lhs2)};
+  CUtensorMap lmaps[2], bmap;
+  int rc = wgs8::encode_2d(&bmap, bsrc, seglen, (uint64_t)batches * NO,
+                           seglen, bn);
+  for (int i = 0; i < 2 && rc == 0; ++i)
+    rc = wgs8::encode_2d(&lmaps[i], bufs[i], lstride,
+                         (uint64_t)batches * rows, lstride, wgs8::BM);
+  if (rc != 0) return rc;
+  const StepArgs a{nullptr, static_cast<int32_t*>(acc),
+                   static_cast<uint32_t*>(chk), rows, lstride, NO, seglen,
+                   nwin, wstride, nouter, ostride, doff, accw, mask,
+                   (rows + wgs8::BM - 1) / wgs8::BM, NO / bn, split};
+  if (mode == TILE)
+    return launch_steps<TILE, 128>(a, lmaps, bmap, bufs, batches, steps, st);
+  if (mode == ACC)
+    return launch_steps<ACC, 128>(a, lmaps, bmap, bufs, batches, steps, st);
+  switch (bn) {
+    case 32: return launch_steps<MM, 32>(a, lmaps, bmap, bufs, batches, steps, st);
+    case 64: return launch_steps<MM, 64>(a, lmaps, bmap, bufs, batches, steps, st);
+    case 128: return launch_steps<MM, 128>(a, lmaps, bmap, bufs, batches, steps, st);
+    default: return launch_steps<MM, 256>(a, lmaps, bmap, bufs, batches, steps, st);
+  }
 }
 
 // w int8 [8, 8], a int8 [8, Y] -> out [8, Y] after `inner` rounds.

@@ -6,7 +6,7 @@
 // crypto/polymul.tkey_kernel_key, with the asymmetric gadget: any L in
 // {3, 4} key limbs and lb in [1, l] b-part digits.  The TPU's chain
 // interleave, DMA slots and compile-probe ladder are schedule, not math, and
-// are not carried over; its K-major form is (conv_kernel).  Layouts (RR =
+// are not carried over; its K-major form is both kernels'.  Layouts (RR =
 // M*(l+lb) digit rows a step, RT = RR*N contraction rows, C = 2*L*128
 // columns ordered (u, limb, 128)):
 //   fat       [n, RT, C], rows (block, part, j, 128), M = 1;
@@ -30,7 +30,7 @@
 //   digits_kernel: x_u = X^{rot_m[g]} acc_u - acc_u + off_u for each of the
 //     M rotations, its signed base-Bg digits as int8 ext[g, :] in the
 //     slab's row order;
-//   conv_kernel: s_K[g, :] = sum_r A_K[g, r] * bk[r, :] (one K-major
+//   the product: s_K[g, :] = sum_r A_K[g, r] * bk[r, :] (one K-major
 //     product, see below), recombined as sum_li s_K[u, li] << 8*(4-L+li) in
 //     uint32 and added in place to acc[g, u, 128K : 128K+128].
 // int32 accumulation is exact: |digit| <= 32, |limb| <= 128, contraction
@@ -41,27 +41,40 @@
 // steps unrolled), and every step streams a 3.9 MB slab (5120 x 768 int8;
 // 11.8 MB unrolled) that all gates of the batch share.  At large batches
 // the products bound it; at small batches the slab stream and the 2n
-// launches do.  The design: the products run on the tensor cores
-// (mma.sync m16n8k32 s8 -> s32); a tile is 16 gates x all 8 output blocks
-// (one warp each) x (L x 32) slab columns, so each slab tile brought into
-// shared memory serves every output block and the step slab is read once
-// per 16 gates; a 4-deep cp.async ring keeps three 64-row k-tiles in
-// flight behind the products, so a tile's few iterations do not each wait
-// a full memory latency; the slab tile is transposed in shared memory
-// (byte permutes), because the tensor-core B operand wants the contraction
-// contiguous and the slab keeps columns contiguous; small batches split the
-// contraction across tiles
-// (exact uint32 atomics: addition mod 2^32 is associative) so the grid
-// still covers the SMs.  wgmma/TMA and a persistent step loop are later
+// launches do.  The slab lies on the card contraction-contiguous
+// (ops/tkey.py:k_contiguous: physical [n, C, RT], fat2 [n, C, 2RT], thin
+// [n, C, RR, N]), because both tensor-core forms below take B K-major.
+// The conv step has two forms, chosen by the caller (ops/tkey.py,
+// WGMMA_MIN_G):
+//   conv_wgmma_kernel (batches of at least WGMMA_MIN_G padded gates): a
+//     step is one GEMM over rows (output block K, gate).  A CTA owns 128
+//     gates of one block K x one part u x 64 coefficients of all L limbs
+//     (N = L*64: the L limbs of a coefficient land in one thread's
+//     registers, so the recombination needs no shuffle).  The shared
+//     mainloop of wgmma_s8.cuh (TMA into 128-byte-swizzled tiles, a 4-deep
+//     mbarrier ring, two consumer warpgroups on wgmma m64nNk32) runs the
+//     k-tile schedule of conv_tile/wrap_order: the rows that do not wrap
+//     first, then the wrapped ones, whose minus sign is a negation of the
+//     accumulator before and after them (-(-P + W) = P - W, exact mod
+//     2^32); fat2 switches B to the first copy instead.  Each output
+//     belongs to one CTA: a plain += into acc.
+//   conv_kernel (small batches): mma.sync m16n8k32 s8 -> s32; a tile is 16
+//     gates x all 8 output blocks (one warp each) x (L x 32) slab columns,
+//     so each slab tile brought into shared memory serves every output
+//     block; a 4-deep cp.async ring of 64-row k-tiles; the K-contiguous
+//     slab goes straight into the B fragments' layout; the contraction is
+//     split across tiles (exact uint32 atomics: addition mod 2^32 is
+//     associative) so the grid still covers the SMs.
+// A persistent step loop or CUDA graphs over the 2n launches are later
 // work.
 //
-// Built by iyokan_tpu_torch/ops/tkey.py:
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libtkey-<hash>.so tkey_blind_rotate.cu
-// and called through ctypes (plain C interface below).
+// Built by iyokan_tpu_torch/ops/tkey.py through ops/nvcc.py (nvcc for
+// sm_90a, plain C interface below, called through ctypes).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "wgmma_s8.cuh"
 
 namespace {
 
@@ -72,7 +85,7 @@ constexpr int BK = 64;     // contraction rows per shared-memory stage
 constexpr int STAGES = 4;  // cp.async ring depth (k-tiles in flight + 1)
 constexpr int CT = 32;     // output coefficients per tile (per limb strip)
 constexpr int ASTR = 80;   // shared row stride of the digit tile (bytes)
-constexpr int BSTR = 68;   // row stride of the transposed slab tile (bytes)
+constexpr int BSTR = 80;   // row stride of the slab tile [column][k] (bytes)
 
 // the slab layouts of the C interface (the 2-bit-unrolled slab is FAT at
 // M = 3)
@@ -148,55 +161,77 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING));
 }
 
-// Shared-memory plan of conv_kernel<L, MODE>: a STAGES-deep ring of raw
-// tiles (digits A: 128 rows x 64 bytes; slab B: 64 rows x L*32 columns, as
-// in global memory, NBT of them: fat2 brings both copies) and NBT
-// transposed slab tiles Bt [L*32 columns][64 rows].
+// The k-tile schedule of both forms.  Output block K reads the digit
+// extension negacyclically rotated against the plain slab (the K-major form
+// of pallas_tk.py::_kernel_pipe): the contraction splits into segments of
+// seg rows (one on the fat layouts, seg = RT; one per digit row on thin,
+// seg = N, a power of two), each rotated by (K+1)*shift rows (shift =
+// 128*RR on the fat layouts, 128 on thin):
+//   s_K[g, :] = sum_r A_K[g, r] * bk[r, :],  r = base + t (t < seg),
+//   A_K[g, r] = ext[g, base + (t + (K+1)*shift) mod seg], negated where
+//               t + (K+1)*shift >= seg (the row wraps).
+// On FAT2 a wrapped row is not negated but read from the first copy:
+// A_K[g, r] = ext[g, (r + cut) mod RT] against the first copy's row r where
+// r + cut >= RT, against the second copy's elsewhere (slab contraction
+// coordinate r or RT + r).  seg and shift are multiples of 128, so a k-tile
+// of 64 or 128 rows never straddles a segment or a wrap.
+struct ConvTile {
+  int acol;   // ext column of the k-tile's first row for block K
+  int bk;     // the slab's contraction coordinate of that row
+  bool wrap;  // its rows wrap: a minus sign, or (FAT2) the first copy
+};
+
+template <int MODE>
+__device__ __forceinline__ ConvTile conv_tile(int r0, int K, int seg,
+                                              int shift, int RT) {
+  const int t0 = MODE == THIN ? (r0 & (seg - 1)) : r0;  // row in its segment
+  int o = t0 + (K + 1) * shift;
+  const bool wrap = o >= seg;
+  if (wrap) o -= seg;
+  return {r0 - t0 + o, MODE == FAT2 ? (wrap ? r0 : RT + r0) : r0, wrap};
+}
+
+// The wgmma form's order: position q of block K's sequence -> its 128-row
+// k-tile.  Every segment's rows that do not wrap come first, then the
+// wrapped ones, so the accumulator changes sign at most twice.
+__device__ __forceinline__ int wrap_order(int q, int K, int seg, int shift,
+                                          int RT) {
+  const int TS = seg / wgs8::BK, nseg = RT / seg;
+  const int PS = (seg - (K + 1) * shift) / wgs8::BK;  // plain k-tiles a seg
+  if (q < nseg * PS) return (q / PS) * TS + q % PS;
+  q -= nseg * PS;
+  const int WS = TS - PS;
+  return (q / WS) * TS + PS + q % WS;
+}
+
+// Shared-memory plan of conv_kernel<L, MODE>: a STAGES-deep ring of digit
+// tiles A (MAXNB*GB rows x 64 bytes) and slab tiles B [L*32 columns][64
+// contraction bytes], NBT of them (fat2 brings both copies).
 template <int L, int MODE>
 struct ConvSmem {
   static constexpr int BW = L * CT;              // slab columns per tile
   static constexpr int NBT = MODE == FAT2 ? 2 : 1;  // slab tiles per k-tile
   static constexpr int A_BYTES = MAXNB * GB * ASTR;
-  static constexpr int BRSTR = BW + 16;          // raw slab row stride
-  static constexpr int B_BYTES = BK * BRSTR;     // one raw slab tile
-  static constexpr int BT_BYTES = BW * BSTR;     // one transposed slab tile
-  static constexpr int STAGE = A_BYTES + NBT * B_BYTES;
-  static constexpr int BYTES = STAGES * STAGE + NBT * BT_BYTES;
+  static constexpr int BT_BYTES = BW * BSTR;     // one slab tile
+  static constexpr int STAGE = A_BYTES + NBT * BT_BYTES;
+  static constexpr int BYTES = STAGES * STAGE;
 };
 
-// One tile: 16 gates x all NB output blocks K (warp K computes block K) x
-// part u x coefficients [ct*32, ct*32+32) of each block, all L limbs, over
-// the contraction k-tiles [t_lo, t_hi) of the split along blockIdx.z.
-// K-major form (pallas_tk.py::_kernel_pipe kmaj): output block K is the
-// digit extension negacyclically rotated against the plain slab.  The
-// contraction splits into segments of seg rows (one on the fat layouts,
-// seg = RT; one per digit row on thin, seg = N, a power of two), each
-// rotated by (K+1)*shift rows (shift = 128*RR on the fat layouts, 128 on
-// thin):
-//   s_K[g, :] = sum_r A_K[g, r] * bk[r, :],  r = base + t (t < seg),
-//   A_K[g, r] = ext[g, base + (t + (K+1)*shift) mod seg], negated where
-//               t + (K+1)*shift >= seg,
-// so one slab tile in shared memory serves all NB blocks: the 3.9 MB step
-// slab is read once per 16 gates instead of once per block.  On FAT2 a
-// wrapped row is not negated but read from bkw, the first copy:
-// A_K[g, r] = ext[g, (r + cut) mod RT] against bkw[r] where r + cut >= RT,
-// against bk[r] (the second copy) elsewhere.  seg and shift are multiples
-// of 128, so a 64-row k-tile never straddles a segment or a wrap.  Tiles
-// arrive by cp.async STAGES-1 k-tiles ahead of the products.
+// The small-batch form.  One tile: 16 gates x all NB output blocks K (warp
+// K computes block K) x part u x coefficients [ct*32, ct*32+32) of each
+// block, all L limbs, over the contraction k-tiles [t_lo, t_hi) of the
+// split along blockIdx.z.  One slab tile in shared memory serves all NB
+// blocks: the 3.9 MB step slab is read once per 16 gates.  bk is this
+// step's K-contiguous slab [C][KT] (KT = RT, or 2RT on FAT2).
 template <int L, int MODE>
 __global__ void __launch_bounds__(THREADS)
 conv_kernel(const int8_t* __restrict__ ext,  // [Gp, RT]
-            const int8_t* __restrict__ bk,   // [RT, 2*L*128] (this step)
-            const int8_t* __restrict__ bkw,  // FAT2: wrapped rows' slab
+            const int8_t* __restrict__ bk,   // [C, KT] (this step)
             uint32_t* __restrict__ acc,      // [Gp, 2, N]
-            int N, int RT, int seg, int shift, int split) {
+            int N, int RT, int KT, int seg, int shift, int split) {
   using SM = ConvSmem<L, MODE>;
-  // row r's place in its segment: r itself on the fat layouts (r < RT)
-  auto in_seg = [seg](int r) { return MODE == THIN ? r & (seg - 1) : r; };
   constexpr int NT = L * 4;  // n8 tiles: L limb strips x 32 columns
-  constexpr int C = 2 * L * 128;
   extern __shared__ __align__(16) int8_t smem[];
-  int8_t* Bt = smem + STAGES * SM::STAGE;       // NBT transposed tiles
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, tig = lane & 3;
@@ -210,27 +245,27 @@ conv_kernel(const int8_t* __restrict__ ext,  // [Gp, RT]
   const int ntiles = t_hi - t_lo;
 
   // k-tile t -> ring slot: A rows (K, gate) from the rotated digit
-  // extension, B rows from the slab's L column strips of this tile
+  // extension, B rows (the tile's L x 32 slab columns, each 64 contiguous
+  // contraction bytes) from the K-contiguous slab
   auto issue = [&](int slot, int t) {
     int8_t* As = smem + slot * SM::STAGE;
     int8_t* Bs = As + SM::A_BYTES;
     const int r0 = t * BK;
-    const int t0 = in_seg(r0);    // the tile's first row in its segment
     for (int q = tid; q < NB * GB * 4; q += THREADS) {
       const int row = q >> 2;
-      int o = t0 + (row / GB + 1) * shift;
-      if (o >= seg) o -= seg;
+      const ConvTile c = conv_tile<MODE>(r0, row / GB, seg, shift, RT);
       cp_async16(As + row * ASTR + (q & 3) * 16,
-                 ext + (size_t)(g0 + row % GB) * RT + (r0 - t0) + o +
-                     (q & 3) * 16);
+                 ext + (size_t)(g0 + row % GB) * RT + c.acol + (q & 3) * 16);
     }
-    constexpr int CHUNKS = BK * L * 2;  // 16-byte pieces of one slab tile
+    constexpr int CHUNKS = SM::BW * 4;  // 16-byte pieces of one slab tile
     for (int q = tid; q < SM::NBT * CHUNKS; q += THREADS) {
       const int c = SM::NBT == 1 ? 0 : q / CHUNKS, qq = q - c * CHUNKS;
-      const int row = qq / (2 * L), li = (qq >> 1) % L, half = qq & 1;
-      cp_async16(Bs + c * SM::B_BYTES + row * SM::BRSTR + li * CT + half * 16,
-                 (c ? bkw : bk) + (size_t)(r0 + row) * C +
-                     (u * L + li) * 128 + ct * CT + half * 16);
+      const int col = qq >> 2, piece = qq & 3;
+      // c = 1: the first copy (fat2's wrapped rows), else the plain rows
+      const int kc = MODE == FAT2 ? (c ? r0 : RT + r0) : r0;
+      cp_async16(Bs + c * SM::BT_BYTES + col * BSTR + piece * 16,
+                 bk + (size_t)((u * L + col / CT) * 128 + ct * CT + col % CT)
+                          * KT + kc + piece * 16);
     }
   };
 
@@ -249,41 +284,18 @@ conv_kernel(const int8_t* __restrict__ ext,  // [Gp, RT]
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<STAGES - 2>();  // k-tile i has landed (this thread's part)
     __syncthreads();              // ... everyone's; slot i-1 is free
-    const int8_t* As = smem + (i % STAGES) * SM::STAGE;
-    const int8_t* Bs = As + SM::A_BYTES;
-    // transpose the slab tile: 4x4-byte blocks, w[q] byte p = (row 4kq+q,
-    // col 4cq+p) -> Bt[col][row]
-    constexpr int UNITS = BK / 4 * SM::BW / 4;  // per slab tile
-    for (int unit = tid; unit < SM::NBT * UNITS; unit += THREADS) {
-      const int c = SM::NBT == 1 ? 0 : unit / UNITS;
-      const int kq = (unit - c * UNITS) / (SM::BW / 4);
-      const int cq = unit % (SM::BW / 4);
-      const int8_t* src = Bs + c * SM::B_BYTES + kq * 4 * SM::BRSTR + cq * 4;
-      const uint32_t w0 = ld32(src), w1 = ld32(src + SM::BRSTR);
-      const uint32_t w2 = ld32(src + 2 * SM::BRSTR);
-      const uint32_t w3 = ld32(src + 3 * SM::BRSTR);
-      const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
-      const uint32_t t1 = __byte_perm(w0, w1, 0x7362);
-      const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
-      const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(
-          Bt + c * SM::BT_BYTES + cq * 4 * BSTR + kq * 4);
-      dst[0] = __byte_perm(t0, t2, 0x5410);
-      dst[BSTR / 4] = __byte_perm(t0, t2, 0x7632);
-      dst[2 * BSTR / 4] = __byte_perm(t1, t3, 0x5410);
-      dst[3 * BSTR / 4] = __byte_perm(t1, t3, 0x7632);
-    }
     if (i + STAGES - 1 < ntiles)
       issue((i + STAGES - 1) % STAGES, t_lo + i + STAGES - 1);
     cp_async_commit();
-    __syncthreads();  // Bt complete
     if (active) {
-      // wrapped rows (t + (K+1)*shift >= seg) enter with a minus sign:
-      // negate the digits (|d| <= 32 fits int8 either way); fat2 takes
-      // them from the first copy's tile instead
-      const bool wrap = in_seg((t_lo + i) * BK) + (warp + 1) * shift >= seg;
-      const bool neg = MODE != FAT2 && wrap;
-      const int8_t* Bw = Bt + (MODE == FAT2 && wrap ? SM::BT_BYTES : 0);
+      const int8_t* As = smem + (i % STAGES) * SM::STAGE;
+      // wrapped rows enter with a minus sign: negate the digits (|d| <= 32
+      // fits int8 either way); fat2 takes them from the first copy's tile
+      const ConvTile c =
+          conv_tile<MODE>((t_lo + i) * BK, warp, seg, shift, RT);
+      const bool neg = MODE != FAT2 && c.wrap;
+      const int8_t* Bw = As + SM::A_BYTES +
+                         (MODE == FAT2 && c.wrap ? SM::BT_BYTES : 0);
       const int8_t* A = As + warp * GB * ASTR;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 32) {
@@ -326,27 +338,127 @@ conv_kernel(const int8_t* __restrict__ ext,  // [Gp, RT]
     }
 }
 
-// All n_steps steps on `st` with the conv_kernel instance of (L, MODE):
-// its dynamic shared memory (> 48 KB must be opted into, per kernel) is set
-// once, then digits_kernel and conv_kernel alternate.  RR = M*(l+lb).
+// The wgmma form: one CTA = 128 gates [g0, g0+128) of output block K =
+// blockIdx.z x part u x coefficients [64 cb, 64 cb + 64) of every limb (u =
+// blockIdx.x / 2, cb = blockIdx.x % 2), N = L*64 tile columns ordered (limb,
+// coefficient).  Gates from Gp on read as zeros (TMA) and are not written.
+//   ext_map: ext [Gp][RT] in 128 x 128-byte boxes;
+//   bk_map:  the whole K-contiguous slab [n_steps*C][KT] in 64-row boxes;
+//            this step's rows start at crow0.
+template <int L, int MODE>
+__global__ void __launch_bounds__(wgs8::THREADS, 1)
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap ext_map,
+                  const __grid_constant__ CUtensorMap bk_map,
+                  uint32_t* __restrict__ acc, int Gp, int N, int RT, int seg,
+                  int shift, int crow0) {
+  constexpr int BN = L * 64;
+  extern __shared__ uint8_t smem_raw[];
+  const wgs8::Ring<BN> ring = wgs8::ring_init<BN>(smem_raw);
+  const int K = blockIdx.z, g0 = blockIdx.y * wgs8::BM;
+  const int u = blockIdx.x >> 1, cb = blockIdx.x & 1;
+  const int T = RT / wgs8::BK;
+  auto tile = [&](int q) {
+    return conv_tile<MODE>(wrap_order(q, K, seg, shift, RT) * wgs8::BK, K,
+                           seg, shift, RT);
+  };
+
+  if (threadIdx.x >= wgs8::CONSUMERS) {  // the producer warpgroup
+    wgs8::producer_regs();
+    if (threadIdx.x == wgs8::CONSUMERS)
+      wgs8::produce(ring, T, wgs8::Ring<BN>::STAGE,
+                    [&](int q, uint8_t* a, uint8_t* b, uint64_t* bar) {
+                      const ConvTile c = tile(q);
+                      wgs8::tma_load(a, &ext_map, c.acol, g0, bar);
+#pragma unroll
+                      for (int li = 0; li < L; ++li)
+                        wgs8::tma_load(b + li * 64 * wgs8::BK, &bk_map, c.bk,
+                                       crow0 + (u * L + li) * 128 + cb * 64,
+                                       bar);
+                    });
+    return;
+  }
+  wgs8::consumer_regs();
+  uint32_t d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0;
+  // the accumulator holds -(the sum so far) while neg: flipped on entering
+  // and leaving the wrapped k-tiles
+  bool neg = false;
+  wgs8::consume<BN>(ring, T, d, [&](int q, uint32_t (&v)[BN / 2]) {
+    const bool w = MODE != FAT2 && tile(q).wrap;
+    if (w != neg) {
+      wgs8::settle(v);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) v[i] = 0u - v[i];
+      neg = w;
+    }
+  });
+  if (neg) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) d[i] = 0u - d[i];
+  }
+
+  // limb recombination: register 4*(li*8 + j) + e holds coefficient
+  // 8j + 2*(lane%4) + (e&1) of limb li
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int g = g0 + wgs8::acc_row(2 * h);
+      if (g >= Gp) continue;
+      uint32_t v0 = 0, v1 = 0;
+#pragma unroll
+      for (int li = 0; li < L; ++li) {
+        v0 += d[4 * (li * 8 + j) + 2 * h] << (8 * (4 - L + li));
+        v1 += d[4 * (li * 8 + j) + 2 * h + 1] << (8 * (4 - L + li));
+      }
+      const int coef = K * 128 + cb * 64 + wgs8::acc_col(4 * j);
+      uint2* dst = reinterpret_cast<uint2*>(acc + ((size_t)g * 2 + u) * N +
+                                            coef);
+      uint2 cur = *dst;
+      cur.x += v0;
+      cur.y += v1;
+      *dst = cur;
+    }
+}
+
+// All n_steps steps on `st`, in the given form (wgmma: the conv_wgmma_kernel
+// instance of (L, MODE); else conv_kernel's, split `split` ways): the
+// kernel's dynamic shared memory (> 48 KB must be opted into) and, for
+// wgmma, the tensor maps are set once, then digits_kernel and the product
+// alternate.  RR = M*(l+lb).
 template <int L, int MODE>
 int run_steps(const int32_t* rows, uint32_t* acc, const int8_t* bk,
               int8_t* ext, int Gp, int n_steps, int N, int l, int lb,
-              int Bgbit, int M, int split, uint32_t off_a, uint32_t off_b,
-              cudaStream_t st) {
+              int Bgbit, int M, int split, bool wgmma, uint32_t off_a,
+              uint32_t off_b, cudaStream_t st) {
+  constexpr int BN = L * 64;
   using SM = ConvSmem<L, MODE>;
-  cudaError_t e = cudaFuncSetAttribute(
-      conv_kernel<L, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SM::BYTES);
+  const int smem = wgmma ? wgs8::Ring<BN>::BYTES : SM::BYTES;
+  cudaError_t e =
+      wgmma ? cudaFuncSetAttribute(conv_wgmma_kernel<L, MODE>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem)
+            : cudaFuncSetAttribute(conv_kernel<L, MODE>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem);
   if (e != cudaSuccess) return (int)e;
   const int RR = M * (l + lb);
   const int RT = RR * N;
-  const size_t C = 2 * (size_t)L * 128;
-  // fat2: a step is 2*RT rows, the first copy (wrapped rows) then the
-  // second (the others)
-  const size_t step_rows = MODE == FAT2 ? 2 * (size_t)RT : RT;
+  const int C = 2 * L * 128;
+  // fat2: a step is 2*RT contraction bytes, the first copy (wrapped rows)
+  // then the second (the others)
+  const int KT = MODE == FAT2 ? 2 * RT : RT;
   const int seg = MODE == THIN ? N : RT, shift = MODE == THIN ? 128 : RR * 128;
+  CUtensorMap ext_map, bk_map;
+  if (wgmma) {
+    int rc = wgs8::encode_2d(&ext_map, ext, RT, Gp, RT, wgs8::BM);
+    if (rc == 0)
+      rc = wgs8::encode_2d(&bk_map, bk, KT, (uint64_t)n_steps * C, KT, 64);
+    if (rc != 0) return rc;
+  }
   const dim3 grid(2 * 4, Gp / GB, split);
+  const dim3 wgrid(4, (Gp + wgs8::BM - 1) / wgs8::BM, N / 128);
   const int dblocks = (int)(((int64_t)Gp * N + 255) / 256);
   for (int i = 0; i < n_steps; ++i) {
     const int32_t* rot = rows + (size_t)i * M * Gp;
@@ -357,18 +469,20 @@ int run_steps(const int32_t* rows, uint32_t* acc, const int8_t* bk,
       digits_kernel<1, MODE == THIN><<<dblocks, 256, 0, st>>>(
           rot, acc, ext, Gp, N, l, lb, Bgbit, off_a, off_b);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    const int8_t* bkw = bk + i * step_rows * C;
-    const int8_t* bki = bkw + (MODE == FAT2 ? (size_t)RT * C : 0);
-    conv_kernel<L, MODE><<<grid, THREADS, SM::BYTES, st>>>(
-        ext, bki, bkw, acc, N, RT, seg, shift, split);
+    if (wgmma)
+      conv_wgmma_kernel<L, MODE><<<wgrid, wgs8::THREADS, smem, st>>>(
+          ext_map, bk_map, acc, Gp, N, RT, seg, shift, i * C);
+    else
+      conv_kernel<L, MODE><<<grid, THREADS, smem, st>>>(
+          ext, bk + (size_t)i * C * KT, acc, N, RT, KT, seg, shift, split);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
 using RunSteps = int (*)(const int32_t*, uint32_t*, const int8_t*, int8_t*,
-                         int, int, int, int, int, int, int, int, uint32_t,
-                         uint32_t, cudaStream_t);
+                         int, int, int, int, int, int, int, int, bool,
+                         uint32_t, uint32_t, cudaStream_t);
 
 }  // namespace
 
@@ -376,17 +490,20 @@ using RunSteps = int (*)(const int32_t*, uint32_t*, const int8_t*, int8_t*,
 //   rows  int32 [n_steps*M, Gp]  rotation amounts in [0, 2N), the M of
 //                                step i at rows M*i..
 //   acc   uint32 [Gp, 2, N]      accumulator, updated in place
-//   bk    int8 slab of `layout`: FAT [n_steps, RT, C] (M = 1, or M = 3 for
-//         the 2-bit-unrolled slab), THIN [n_steps, l+lb, N, C], FAT2
-//         [n_steps, 2*RT, C]; RT = M*(l+lb)*N, C = 2*L*128
+//   bk    int8 slab of `layout`, stored K-contiguous: FAT [n_steps, C, RT]
+//         (M = 1, or M = 3 for the 2-bit-unrolled slab), THIN
+//         [n_steps, C, l+lb, N] (the same bytes as FAT's), FAT2
+//         [n_steps, C, 2*RT]; RT = M*(l+lb)*N, C = 2*L*128
 //   ext   int8 [Gp, RT]          scratch
-// Gp must be a multiple of 16, N a power of two from 128 to 1024; split in
+// form 1: the wgmma form (any Gp; the caller takes it from 128 gates on);
+// form 0: conv_kernel with the contraction split `split` ways.  Gp must
+// be a multiple of 16, N a power of two from 128 to 1024; split in
 // [1, RT/64].  Returns 0 or the first CUDA error.
 extern "C" int tkey_blind_rotate(const void* rows, void* acc, const void* bk,
                                  void* ext, int Gp, int n_steps, int N, int l,
                                  int lb, int Bgbit, int L, int M, int layout,
-                                 int split, uint32_t off_a, uint32_t off_b,
-                                 int device, void* stream) {
+                                 int split, int form, uint32_t off_a,
+                                 uint32_t off_b, int device, void* stream) {
   static const RunSteps run[2][3] = {
       {run_steps<3, FAT>, run_steps<3, THIN>, run_steps<3, FAT2>},
       {run_steps<4, FAT>, run_steps<4, THIN>, run_steps<4, FAT2>}};
@@ -394,14 +511,14 @@ extern "C" int tkey_blind_rotate(const void* rows, void* acc, const void* bk,
   if (Gp <= 0 || Gp % GB || N < 128 || N > 128 * MAXNB || (N & (N - 1)) ||
       (L != 3 && L != 4) || (M != 1 && M != 3) || layout < FAT ||
       layout > FAT2 || (M == 3 && layout != FAT) || split < 1 ||
-      split > RR * N / BK)
+      split > RR * N / BK || form < 0 || form > 1)
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   return run[L - 3][layout](
       static_cast<const int32_t*>(rows), static_cast<uint32_t*>(acc),
       static_cast<const int8_t*>(bk), static_cast<int8_t*>(ext), Gp, n_steps,
-      N, l, lb, Bgbit, M, split, off_a, off_b,
+      N, l, lb, Bgbit, M, split, form == 1, off_a, off_b,
       reinterpret_cast<cudaStream_t>(stream));
 }
 

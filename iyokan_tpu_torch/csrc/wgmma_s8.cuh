@@ -1,0 +1,448 @@
+// The Hopper (sm_90a) int8 mainloop shared by the port's two int8 product
+// kernels: micro.cu's mm_step_kernel (the looped product of T1-T3) and
+// tkey_blind_rotate.cu's conv_wgmma_kernel (the K1/K2 step product).
+//
+// A CTA computes one BM x BN tile of an int8 product with int32 sums over
+// a sequence of k-tiles, each BK = 128 bytes of contraction (four wgmma
+// k32 steps).  Both operands are K-major: every row of A and of B (the
+// right-hand side, stored [N, K]) keeps its contraction contiguous, the
+// only int8 form wgmma takes.
+//   - TMA: 2-d tensor maps (CUtensorMap, passed as __grid_constant__
+//     kernel parameters) with 128-byte swizzle and 128-byte-deep boxes load
+//     each k-tile: A as one box of BM rows, B as boxes of up to 256 rows.
+//     The maps are encoded on the host by encode_2d, which fetches
+//     libcuda's cuTensorMapEncodeTiled through cudaGetDriverEntryPoint (the
+//     libraries link only the CUDA runtime).
+//   - A ring of STAGES slots, each with a "full" mbarrier (one arrival and
+//     the TMA byte count) and an "empty" one (one arrival from each of the
+//     8 consumer warps), fed by one producer thread.
+//   - Two consumer warpgroups (rows 0-63 and 64-127 of the tile) issue
+//     wgmma.mma_async.sync.aligned.m64nNk32.s32.s8.s8 with both operands
+//     in shared memory and commit; one k-tile's products stay in flight
+//     while the next are issued, and a slot is released once the products
+//     that read it are done.
+// The kernel supplies what differs: which coordinates k-tile q loads
+// (produce's callback), a hook before each k-tile on the accumulator
+// (consume's; the tkey kernel flips its sign there) and the epilogue.
+//
+// Accumulator layout (PTX ISA, wgmma D fragment of 32-bit values): thread
+// t of a consumer warpgroup holds in d[4j + e] the sum of row
+// 16*(t/32 % 4) + (t%32)/4 + 8*(e>>1) of the warpgroup's 64 and column
+// 8j + 2*(t%4) + (e&1) (acc_row, acc_col).  Integer sums wrap mod 2^32.
+//
+// Shared-memory descriptors (desc_sw128): K-major tiles of 128-byte rows
+// in 8-row, 1024-byte swizzle atoms (stride byte offset 1024, layout type
+// SWIZZLE_128B); the k32 step kk of a tile starts 32*kk bytes into it, as
+// the swizzle is applied to the computed address.  Every tile starts on a
+// 1024-byte boundary.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+namespace wgs8 {
+
+constexpr int BM = 128;          // tile rows: two consumer warpgroups x 64
+constexpr int BK = 128;          // contraction bytes a k-tile
+constexpr int STAGES = 4;        // ring depth
+constexpr int CONSUMERS = 256;   // threads of the two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// A 2-d map of an int8 matrix [rows][row_bytes] (rows of `inner` bytes used,
+// row_bytes a multiple of 16) in boxes of box_rows rows x 128 bytes, swizzled
+// 128 bytes; reads outside the matrix give zeros.  Returns 0 or a CUDA error.
+inline int encode_2d(CUtensorMap* map, const void* base, uint64_t inner,
+                     uint64_t rows, uint64_t row_bytes, uint32_t box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return (int)e;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {inner, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// device: barriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed; a
+// wait of more than ~2^35 cycles (~17 s) is a broken schedule: trap, so the
+// launch fails instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) break;
+    if (clock64() - t0 > (1ll << 35)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// one box of `map` at (column c0 in bytes, row c1) into dst, counted on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+  const uint64_t a = smem_u32(tile);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of the accumulator across
+// the asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// every product issued so far done, and the accumulator's registers
+// ordered after them
+template <int R>
+__device__ __forceinline__ void settle(uint32_t (&d)[R]) {
+  wgmma_wait_all();
+  fence_acc(d);
+}
+
+// consumer rows of the 256 threads' barrier (named barrier 1)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// row (0..BM-1) of the tile and column (0..N-1) of accumulator register i
+// of this consumer thread
+__device__ __forceinline__ int acc_row(int i) {
+  const int t = threadIdx.x;
+  return (t >> 7) * 64 + ((t >> 5) & 3) * 16 + ((t & 31) >> 2) +
+         8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int i) {
+  return (i >> 2) * 8 + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// D[64 x N] += A[64 x 32] . B[N x 32]^T, s8 x s8 -> s32, both from shared
+// memory: one wgmma instruction of the warpgroup
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<32> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[16], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<64> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<128> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<192> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[96], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<256> {
+  __device__ __forceinline__ static void run(uint32_t (&d)[128], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the ring and its two sides
+// ---------------------------------------------------------------------------
+
+// Shared memory of a ring of BN-wide tiles: STAGES x (A BM x BK, B BN x BK),
+// then the barriers; BYTES includes the slack that aligns the start to 1024.
+template <int BN>
+struct Ring {
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int B_BYTES = BN * BK;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int BAR_OFF = STAGES * STAGE;
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8 + 1024;
+  static_assert(STAGE % 1024 == 0, "tiles must stay 1024-byte aligned");
+  uint8_t* base;
+  __device__ uint8_t* a(int s) const { return base + s * STAGE; }
+  __device__ uint8_t* b(int s) const { return base + s * STAGE + A_BYTES; }
+  __device__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(base + BAR_OFF) + s;
+  }
+  __device__ uint64_t* empty(int s) const {
+    return reinterpret_cast<uint64_t*>(base + BAR_OFF) + STAGES + s;
+  }
+};
+
+// The ring in the kernel's dynamic shared memory, its barriers initialised
+// (all THREADS threads call it).
+template <int BN>
+__device__ __forceinline__ Ring<BN> ring_init(uint8_t* raw) {
+  Ring<BN> r;
+  r.base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(r.full(s), 1);
+      mbar_init(r.empty(s), CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// register budgets of the two roles: 128 x 40 + 256 x 232 <= 65536
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+}
+
+// The producer thread: k-tiles 0..n-1 into the ring; load(q, a, b, bar)
+// issues the TMA boxes of k-tile q (`bytes` in all) into slot tiles a, b.
+template <int BN, class Load>
+__device__ __forceinline__ void produce(const Ring<BN>& ring, int n,
+                                        uint32_t bytes, Load load) {
+  for (int q = 0; q < n; ++q) {
+    const int s = q % STAGES;
+    if (q >= STAGES) mbar_wait(ring.empty(s), ((q / STAGES) - 1) & 1);
+    mbar_expect_tx(ring.full(s), bytes);
+    load(q, ring.a(s), ring.b(s), ring.full(s));
+  }
+}
+
+// A consumer thread: d += the products of k-tiles 0..n-1, before(q, d)
+// called ahead of k-tile q's products.  One k-tile's products stay in
+// flight while the next one's are issued: a slot is released when the
+// products after it have been waited for, and a hook that touches d must
+// first call settle(d) (every product done).
+template <int BN, class Hook>
+__device__ __forceinline__ void consume(const Ring<BN>& ring, int n,
+                                        uint32_t (&d)[BN / 2], Hook before) {
+  const int wg = threadIdx.x >> 7;
+  for (int q = 0; q < n; ++q) {
+    const int s = q % STAGES;
+    mbar_wait(ring.full(s), (q / STAGES) & 1);
+    before(q, d);
+    const uint64_t da = desc_sw128(ring.a(s) + wg * 64 * BK);
+    const uint64_t db = desc_sw128(ring.b(s));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk)
+      Mma<BN>::run(d, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait_one();   // k-tile q-1's products are done: free its slot
+    fence_acc(d);
+    if (q > 0 && (threadIdx.x & 31) == 0)
+      mbar_arrive(ring.empty((q - 1) % STAGES));
+  }
+  settle(d);
+}
+
+}  // namespace wgs8

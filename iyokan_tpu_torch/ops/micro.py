@@ -41,7 +41,6 @@ from . import nvcc
 
 SOURCE = "micro.cu"
 LAUNCHES = collections.Counter()   # launch_key -> kernel launches
-ROWS = 16                          # LHS rows a block owns; rows % ROWS == 0
 MODES = ("fat", "thin", "pure", "puret")
 MASK32 = 0xFFFFFFFF
 
@@ -115,12 +114,12 @@ def tk_config(x: torch.Tensor, rhs: torch.Tensor, mode: str) -> dict:
     base = dict(rows=BG, batches=1, lstride=12288, NO=768, mask=0)
     if mode == "fat":       # 8 dots at windows 768 K
         return dict(base, mode=0, bt=0, seglen=6144, nwin=8, wstride=768,
-                    nouter=1, ostride=0, doff=0, accw=0, wrap=12288)
+                    nouter=1, ostride=0, doff=0, accw=0)
     if mode == "thin":      # 8 dots at windows 128 (K+1), a pass per j
         return dict(base, mode=0, bt=0, seglen=1024, nwin=8, wstride=128,
-                    nouter=6, ostride=2048, doff=128, accw=0, wrap=2048)
+                    nouter=6, ostride=2048, doff=128, accw=0)
     return dict(base, mode=1, bt=int(mode == "puret"), seglen=6144, nwin=8,
-                wstride=768, nouter=1, ostride=0, doff=0, accw=768, wrap=0)
+                wstride=768, nouter=1, ostride=0, doff=0, accw=768)
 
 
 def width_config(x: torch.Tensor, rhs: torch.Tensor, ndots: int) -> dict:
@@ -130,11 +129,9 @@ def width_config(x: torch.Tensor, rhs: torch.Tensor, ndots: int) -> dict:
         raise ValueError(f"width: x {tuple(x.shape)} for rhs {tuple(rhs.shape)}"
                          f" and {ndots} dots; need [BG, K + 128 ndots], "
                          "NO >= 128")
-    if ndots > 16:
-        raise ValueError(f"width: {ndots} dots; the kernel sums at most 16")
     return dict(mode=1, bt=0, rows=x.shape[0], batches=1, lstride=x.shape[1],
                 NO=NO, seglen=K, nwin=ndots, wstride=128, nouter=1,
-                ostride=0, doff=0, accw=128, wrap=0, mask=0)
+                ostride=0, doff=0, accw=128, mask=0)
 
 
 def mm_config(a: torch.Tensor, b: torch.Tensor, mask: int) -> dict:
@@ -150,26 +147,63 @@ def mm_config(a: torch.Tensor, b: torch.Tensor, mask: int) -> dict:
     B = a.shape[0] if batched else 1
     return dict(mode=2, bt=0, rows=a.shape[-2], batches=B, lstride=K, NO=K,
                 seglen=K, nwin=1, wstride=0, nouter=1, ostride=0, doff=0,
-                accw=0, wrap=0, mask=mask)
+                accw=0, mask=mask)
+
+
+SMS = 132         # the H100's SMs: a step's grid should cover them
+BM = 128          # rows of a step tile (csrc/wgmma_s8.cuh)
+BK = 128          # contraction bytes of a k-tile
+
+
+def step_plan(cfg: dict) -> dict:
+    """The step grid of the looped kernel (csrc/micro.cu mm_step_kernel):
+    128-row tiles (TILE: of each window) x BN-column tiles x a split of the
+    contraction, sized to give at least SMS CTAs.  TILE: BN = 128 (its w_d
+    pairs columns c and c + 128 inside a tile), no split.  MM: the widest
+    BN of 256, 128, 64, 32 dividing NO whose grid reaches SMS CTAs (else
+    the narrowest), no split (neither epilogue is linear).  ACC: BN = 128
+    and the smallest power-of-two split of its k-tiles that reaches SMS
+    CTAs (the split sums meet by atomics).  Returns bn, m_tiles (every
+    window's on TILE), n_tiles, split, k_tiles (a tile's whole sum) and
+    ctas."""
+    mode, NO, batches = cfg["mode"], cfg["NO"], cfg["batches"]
+    if NO % 128 and not (mode == 2 and NO % 64 == 0):
+        raise ValueError(f"NO={NO}: the step tiles need a multiple of 128 "
+                         "(64 for mm_mask)")
+    if cfg["seglen"] % BK:
+        raise ValueError(f"seglen={cfg['seglen']}: need a multiple of {BK}")
+    m = -(-cfg["rows"] // BM) * (cfg["nwin"] if mode == 0 else 1)
+    k_tiles = ((cfg["nwin"] if mode == 1 else 1) * cfg["nouter"]
+               * cfg["seglen"] // BK)
+    if mode == 2:
+        fits = [b for b in (256, 128, 64, 32) if NO % b == 0]
+        bn = next((b for b in fits if m * NO // b * batches >= SMS),
+                  fits[-1])
+    else:
+        bn = 128
+    split = 1
+    while (mode == 1 and m * NO // bn * batches * split < SMS
+           and 2 * split <= k_tiles):
+        split *= 2
+    return dict(bn=bn, m_tiles=m, n_tiles=NO // bn, split=split,
+                k_tiles=k_tiles, ctas=m * NO // bn * batches * split)
 
 
 def l2_bytes_per_step(cfg: dict) -> int:
-    """Bytes a step of the looped kernel brings from L2 into shared memory:
-    each 16-row block streams rhs once a pass (nouter passes of seglen
-    rows) and, for every 256-column chunk of a pass, its nwin LHS windows
-    (16 rows each)."""
-    chunks = -(-cfg["NO"] // 256)
-    k = cfg["nouter"] * cfg["seglen"]
-    return (cfg["rows"] // ROWS * cfg["batches"] * k
-            * (cfg["NO"] + ROWS * cfg["nwin"] * chunks))
+    """Bytes a step of the looped kernel brings from L2 into shared memory
+    (step_plan's tiling): every CTA loads a 128-row A tile and a BN-row B
+    tile of 128 bytes for each of its k-tiles."""
+    pl = step_plan(cfg)
+    return (pl["m_tiles"] * pl["n_tiles"] * cfg["batches"] * pl["k_tiles"]
+            * (BM + pl["bn"]) * BK)
 
 
 def _bind(lib):
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     cf = ctypes.c_float
     lib.micro_mm_loop.restype = ci
-    lib.micro_mm_loop.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ll,
-                                  ll] + [ci] * 11 + [vp]
+    lib.micro_mm_loop.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                  ll, ll] + [ci] * 12 + [vp]
     lib.micro_smallk.restype = ci
     lib.micro_smallk.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.micro_alu.restype = ci
@@ -210,26 +244,31 @@ def _operands(*ts: torch.Tensor, dtype=torch.int8):
 
 
 def _loop_kernel(cfg: dict, lhs, rhs, key: str):
-    """Launch the looped product; lhs is updated in place (TILE) or is the
-    first of two buffers (MM).  Returns (lhs2, acc, chk)."""
-    if cfg["rows"] % ROWS:
-        raise ValueError(f"{cfg['rows']} rows: need a multiple of {ROWS}")
+    """Launch the looped product (cfg["steps"] step launches after one
+    transpose of a row-major rhs): lhs is updated in place (ACC) or is the
+    first of two buffers (TILE, MM; the result is in lhs2 after an odd
+    number of steps).  Returns (lhs2, acc, chk)."""
+    plan = step_plan(cfg)
     lib = _lib()
     dev = lhs.device
-    lhs2 = torch.empty_like(lhs) if cfg["mode"] == 2 else lhs
+    lhs2 = lhs if cfg["mode"] == 1 else torch.empty_like(lhs)
     acc = torch.zeros((cfg["rows"], max(cfg["accw"], 1)), dtype=torch.int32,
                       device=dev)
-    chk = torch.empty((cfg["batches"], cfg["rows"]), dtype=torch.int32,
+    chk = torch.zeros((cfg["batches"], cfg["rows"]), dtype=torch.int32,
                       device=dev)
     rhs = rhs.contiguous()
+    rhs_t = None if cfg["bt"] else torch.empty(
+        (cfg["batches"] * cfg["NO"], cfg["seglen"]), dtype=torch.int8,
+        device=dev)
     rc = lib.micro_mm_loop(
         cfg["mode"], cfg["bt"], lhs.data_ptr(), lhs2.data_ptr(),
-        rhs.data_ptr(), acc.data_ptr(), chk.data_ptr(), cfg["batches"],
+        rhs.data_ptr(), None if rhs_t is None else rhs_t.data_ptr(),
+        acc.data_ptr(), chk.data_ptr(), cfg["batches"],
         cfg["rows"], cfg["lstride"], cfg["rows"] * cfg["lstride"],
         rhs[0].numel() if cfg["batches"] > 1 else 0, cfg["NO"],
         cfg["seglen"], cfg["nwin"], cfg["wstride"], cfg["nouter"],
-        cfg["ostride"], cfg["doff"], cfg["steps"], cfg["accw"], cfg["wrap"],
-        cfg["mask"], _stream(lhs))
+        cfg["ostride"], cfg["doff"], cfg["steps"], cfg["accw"], cfg["mask"],
+        plan["bn"], plan["split"], _stream(lhs))
     _check(rc, "micro_mm_loop", key)
     return lhs2, acc, chk
 
@@ -279,9 +318,11 @@ def tk_loop(x: torch.Tensor, rhs: torch.Tensor, steps: int, mode: str):
     if not _operands(x, rhs):
         return tk_loop_ref(x, rhs, steps, mode)
     lhs = x.contiguous().clone()
-    _, acc, chk = _loop_kernel(dict(cfg, steps=steps), lhs, rhs,
-                               launch_key("tk_loop", mode, x.shape[0]))
-    return (lhs if cfg["mode"] == 0 else acc), chk[0]
+    lhs2, acc, chk = _loop_kernel(dict(cfg, steps=steps), lhs, rhs,
+                                  launch_key("tk_loop", mode, x.shape[0]))
+    if cfg["mode"] == 1:
+        return acc, chk[0]
+    return (lhs2 if steps % 2 else lhs).reshape(x.shape), chk[0]
 
 
 # --------------------------------------------------------------------------- #

@@ -33,18 +33,30 @@ negation of the key's where a coefficient's dropped limb is -128, so it
 differs from the fat result there (pallas_tk's K-major branch, which reads
 the second copy only, gives the fat result instead).
 
+The slab lies on the device contraction-contiguous (`k_contiguous`):
+physical [n, C, RT] for fat and unrolled, [n, C, 2RT] for fat2 and
+[n, C, RR, N] for thin, exposed as a transposed view with the logical shape
+above, so `slab_config`, the twin and byte comparisons see the layouts as
+tkey_kernel_key builds them.  Both forms of the kernel read B K-major; the
+kernel path takes only that storage (`check_k_contiguous`) and never
+converts a slab per call (2.5 GB at cggi128).  The twin takes either.
+
 `blind_rotate_tkey` runs the hand-written Hopper kernel
 (csrc/tkey_blind_rotate.cu) for a CUDA tensor and the plain torch twin
 (`blind_rotate_tkey_ref`, each layout's own form above) for a CPU tensor;
-nothing else selects between them, and a slab it cannot place raises.
-LAUNCHES counts kernel launches (one per blind rotation run on the card),
-LAYOUT_LAUNCHES the same per layout.
+nothing else selects between them, and a slab it cannot place raises.  On
+the card, batches of at least WGMMA_MIN_G padded gates take the wgmma form
+of the step product (conv_wgmma_kernel), smaller ones the mma.sync form
+(conv_kernel, split contraction).  LAUNCHES counts kernel launches (one
+per blind rotation run on the card), LAYOUT_LAUNCHES the same per layout,
+FORM_LAUNCHES per form of the step product.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..crypto import ops as cops
@@ -53,7 +65,15 @@ from . import nvcc
 
 LAUNCHES = 0          # blind rotations launched on the card
 LAYOUT_LAUNCHES = {"fat": 0, "thin": 0, "fat2": 0, "unrolled": 0}
+FORM_LAUNCHES = {"wgmma": 0, "mma": 0}
 BLOCK_G = 16          # gate tile of the kernel; batches are padded to it
+# The route threshold: padded batches of at least this many gates take the
+# wgmma form (128-gate M tiles), smaller ones the mma.sync form.  Set from
+# H100 calls at G = 64, 128, 144, 192 and 256 (PERF.md section 5): the two
+# forms tie at 128; the wgmma form wins from 144 on, flat up to 256, while
+# the mma.sync form grows with the batch.
+WGMMA_MIN_G = 144
+WGMMA_BK = 128        # the wgmma form's k-tile: contraction rows
 SOURCE = "tkey_blind_rotate.cu"
 # the kernel's layout argument (the unrolled slab is fat at M = 3)
 _LAYOUT_ARG = {"fat": 0, "thin": 1, "fat2": 2, "unrolled": 0}
@@ -113,10 +133,12 @@ def _setup(tlwe0: torch.Tensor, testv: torch.Tensor, p: Params):
     return abar.t().contiguous(), acc.contiguous()
 
 
-def check_inputs(tlwe0, key, testv, p: Params, steps: int):
+def check_inputs(tlwe0, key, testv, p: Params, steps: int,
+                 slab: bool = False):
     """A blind rotation's inputs (every kernel route's): tlwe0 i32
-    [G, n+1], testv i32 [N] and a contiguous key of `steps` steps, on one
-    device."""
+    [G, n+1], testv i32 [N] and a key of `steps` steps, on one device: a
+    contiguous key, or for a tkey slab (slab=True) also a K-contiguous
+    one."""
     if tlwe0.dtype != torch.int32 or testv.dtype != torch.int32:
         raise ValueError("tlwe0 and testv must be int32 (u32 bit patterns)")
     if tlwe0.dim() != 2 or tlwe0.shape[1] != p.n + 1:
@@ -131,8 +153,45 @@ def check_inputs(tlwe0, key, testv, p: Params, steps: int):
         raise ValueError(
             f"device mismatch: tlwe0 {tlwe0.device}, key {key.device}, "
             f"testv {testv.device}")
-    if not key.is_contiguous():
-        raise ValueError("the key must be contiguous")
+    if not (key.is_contiguous() or (slab and is_k_contiguous(key))):
+        raise ValueError("the key must be contiguous"
+                         + (" or K-contiguous (k_contiguous)" if slab else ""))
+
+
+def is_k_contiguous(slab: torch.Tensor) -> bool:
+    """True for a slab whose storage keeps each column's contraction
+    contiguous: the view k_contiguous gives ([n, C, ...] storage, logical
+    [n, ..., C])."""
+    return slab.dim() >= 3 and slab.movedim(-1, 1).is_contiguous()
+
+
+def check_k_contiguous(slab: torch.Tensor) -> None:
+    """The kernel path's storage check: raises ValueError unless the slab
+    is K-contiguous (a row-major slab would need a 2.5 GB transpose per
+    call at cggi128; make it once with k_contiguous)."""
+    if not is_k_contiguous(slab):
+        raise ValueError(
+            f"the tkey kernel takes the slab K-contiguous (strides "
+            f"{tuple(slab.stride())} for shape {tuple(slab.shape)} are not):"
+            " build it with ops/tkey.py:k_contiguous")
+
+
+def k_contiguous(slab, device=None, chunk: int = 32) -> torch.Tensor:
+    """The slab (numpy or torch, logical layout [n, ..., C] as
+    tkey_kernel_key builds it) on `device` (default: the slab's) with the
+    contraction contiguous: storage [n, C, ...], returned as the view of
+    logical shape [n, ..., C].  Moved and transposed `chunk` steps at a
+    time, so the peak stays near one slab."""
+    src = torch.from_numpy(slab) if isinstance(slab, np.ndarray) else slab
+    if src.dtype != torch.int8 or src.dim() < 3:
+        raise ValueError(f"a tkey slab is int8 [n, ..., C], got "
+                         f"{src.dtype} {tuple(src.shape)}")
+    device = src.device if device is None else torch.device(device)
+    phys = torch.empty((src.shape[0], src.shape[-1], *src.shape[1:-1]),
+                       dtype=torch.int8, device=device)
+    for i in range(0, src.shape[0], chunk):
+        phys[i: i + chunk] = src[i: i + chunk].to(device).movedim(-1, 1)
+    return phys.movedim(1, -1)
 
 
 def _prepare(tlwe0, bk_tk, testv, p: Params):
@@ -142,7 +201,7 @@ def _prepare(tlwe0, bk_tk, testv, p: Params):
     cfg = slab_config(bk_tk, p)
     M = cfg[3]
     steps = (p.n + 1) // 2 if M == 3 else p.n
-    check_inputs(tlwe0, bk_tk, testv, p, steps)
+    check_inputs(tlwe0, bk_tk, testv, p, steps, slab=True)
     rows, acc = _setup(tlwe0, testv, p)
     if M == 3:
         rows = torch.stack(cops.pair_amounts(rows, steps, p.N), dim=1)
@@ -231,7 +290,7 @@ def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.tkey_blind_rotate.restype = ci
     lib.tkey_blind_rotate.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+        vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
         ctypes.c_uint32, ctypes.c_uint32, ci, vp]
     lib.tkey_error_string.restype = ctypes.c_char_p
     lib.tkey_error_string.argtypes = [ci]
@@ -255,49 +314,88 @@ def _split_k(Gp: int, k_tiles: int) -> int:
     return s
 
 
+def k_tile_order(K: int, layout: str, RT: int, N: int, RR: int,
+                 bk: int = WGMMA_BK) -> list:
+    """The wgmma form's k-tile schedule for output block K, in the order
+    the kernel runs it (csrc/tkey_blind_rotate.cu: wrap_order, conv_tile):
+    [(t, acol, bkc, wrap)] for the bk-row k-tiles t, where acol is the
+    digit extension's column of the tile's first row, bkc the K-contiguous
+    slab's contraction coordinate (fat2: RT + r0 for the second copy, r0
+    for the first copy's wrapped rows) and wrap says the rows wrap (a
+    minus sign, except on fat2).  Every segment's plain rows come first,
+    then the wrapped ones."""
+    seg = N if layout == "thin" else RT
+    shift = 128 if layout == "thin" else 128 * RR
+    TS, nseg = seg // bk, RT // seg
+    PS = (seg - (K + 1) * shift) // bk
+    order = ([j * TS + q for j in range(nseg) for q in range(PS)]
+             + [j * TS + q for j in range(nseg) for q in range(PS, TS)])
+    out = []
+    for t in order:
+        r0 = t * bk
+        t0 = r0 % seg
+        o = t0 + (K + 1) * shift
+        wrap = o >= seg
+        o -= seg if wrap else 0
+        bkc = (r0 if wrap else RT + r0) if layout == "fat2" else r0
+        out.append((t, r0 - t0 + o, bkc, wrap))
+    return out
+
+
 def _steps_kernel(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
-                  p: Params, cfg) -> torch.Tensor:
-    """All CMUX steps on the card; returns the new accumulator."""
+                  p: Params, cfg, form=None) -> torch.Tensor:
+    """All CMUX steps on the card; returns the new accumulator.  form:
+    "wgmma" or "mma", or None for the route threshold WGMMA_MIN_G."""
     global LAUNCHES
+    check_k_contiguous(bk_tk)
     layout, L, lb, M = cfg
-    lib = nvcc.load(SOURCE, _bind)
     G = acc.shape[0]
     pad = (-G) % BLOCK_G
+    Gp = G + pad
+    if form is None:
+        form = "wgmma" if Gp >= WGMMA_MIN_G else "mma"
+    if form not in FORM_LAUNCHES:
+        raise ValueError(f"form {form!r}: need one of {list(FORM_LAUNCHES)}")
+    lib = nvcc.load(SOURCE, _bind)
     if pad:
         acc = torch.cat([acc, acc.new_zeros((pad, 2, p.N))])
         rows = torch.cat([rows, rows.new_zeros((rows.shape[0], pad))], 1)
     acc = acc.contiguous()
     rows = rows.contiguous()
-    Gp = G + pad
     RT = M * (p.l + lb) * p.N
     ext = torch.empty((Gp, RT), dtype=torch.int8, device=acc.device)
     dev = acc.device.index if acc.device.index is not None else \
         torch.cuda.current_device()
     stream = torch.cuda.current_stream(acc.device).cuda_stream
+    wg = form == "wgmma"
     rc = lib.tkey_blind_rotate(
         rows.data_ptr(), acc.data_ptr(), bk_tk.data_ptr(), ext.data_ptr(),
         Gp, bk_tk.shape[0], p.N, p.l, lb, p.Bgbit, L, M, _LAYOUT_ARG[layout],
-        _split_k(Gp, RT // 64),
+        1 if wg else _split_k(Gp, RT // 64), int(wg),
         _round_off(p, p.l), _round_off(p, lb), dev, stream)
     if rc != 0:
         raise RuntimeError(
             f"tkey kernel launch failed: {lib.tkey_error_string(rc)}")
     LAUNCHES += 1
     LAYOUT_LAUNCHES[layout] += 1
+    FORM_LAUNCHES[form] += 1
     return acc[:G]
 
 
 def blind_rotate_tkey(tlwe0: torch.Tensor, bk_tk: torch.Tensor,
-                      testv: torch.Tensor, p: Params) -> torch.Tensor:
+                      testv: torch.Tensor, p: Params,
+                      form=None) -> torch.Tensor:
     """Blind rotation lvl0 -> TRLWE lvl1 against a tkey slab of any layout
-    (module docstring; crypto/polymul.tkey_kernel_key builds them).
+    (module docstring; crypto/polymul.tkey_kernel_key builds them, and
+    k_contiguous places them for the kernel).
 
     tlwe0: i32 [G, n+1]; bk_tk: int8 slab; testv: i32 [N].  Returns i32
-    [G, 2, N].  A CUDA input runs the Hopper kernel, a CPU input the plain
-    twin; there is no fallback between them."""
+    [G, 2, N].  A CUDA input runs the Hopper kernel, in the form the route
+    threshold picks unless `form` ("wgmma" or "mma") names one; a CPU input
+    the plain twin; there is no fallback between them."""
     cfg, rows, acc = _prepare(tlwe0, bk_tk, testv, p)
     if acc.is_cuda:
-        return _steps_kernel(rows, acc, bk_tk, p, cfg)
+        return _steps_kernel(rows, acc, bk_tk, p, cfg, form)
     if acc.device.type != "cpu":
         raise ValueError(f"unsupported device {acc.device}")
     return _steps_ref(rows, acc, bk_tk, p, cfg)

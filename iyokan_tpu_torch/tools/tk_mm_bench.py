@@ -3,9 +3,9 @@
     python3 -m iyokan_tpu_torch.tools.tk_mm_bench [BG] [STEPS] [reps] [case...]
 
 The port of tools/tk_mm_bench.py: the same argv, cases and lines.  Each
-case loops STEPS steps inside one launch of the looped int8 product
-(ops/micro.py tk_loop, csrc/micro.cu), every block owning 16 rows of the
-LHS across all steps, the right-hand side read from L2:
+case runs STEPS steps of the looped int8 product (ops/micro.py tk_loop,
+csrc/micro.cu mm_step_kernel: one wgmma launch a step over 128-row tiles,
+the right-hand side K-major, read from L2):
 
   fat    per step 8 dots [BG, 6144] x [6144, 768] (j folded into the
          contraction), w_K = (s[:, :128] + s[:, 128:256]) & 31 tiled 12x

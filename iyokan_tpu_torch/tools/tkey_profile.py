@@ -3,14 +3,18 @@
     python3 -m iyokan_tpu_torch.tools.tkey_profile [--G 1,64,2048] [--steps 635]
 
 For each gate batch G: the CUDA kernel's time per blind rotation (CUDA
-events, after a warm-up), and one torch.profiler trace of a blind rotation
-split by kernel (digits_kernel / conv_kernel) with the device's idle share
-over the traced window and conv_kernel's time per step.  Beside it, as a
-yardstick of the product alone (not a blind rotation, and never called by
-the port): torch._int_mm of one step's K-major product [NB*Gp, RT] x
-[RT, 2L*128] on random int8 operands made beforehand.  Uses a random int8
-slab of the cggi128 shape [steps, 5120, 768] (the kernel's cost depends on
-shapes only).  Needs a card; imports no JAX.
+events, after a warm-up) in the form the route threshold picks
+(ops/tkey.py WGMMA_MIN_G) and in the other form of the step product, and
+one torch.profiler trace of a blind rotation split by kernel
+(digits_kernel / conv_kernel or conv_wgmma_kernel) with the device's idle
+share over the traced window and the product's time per step.  Beside it,
+as a yardstick of the product alone (not a blind rotation, and never
+called by the port): torch._int_mm of one step's K-major product
+[NB*Gp, RT] x [RT, 2L*128] on random int8 operands made beforehand, B
+column-major (the slab's K-contiguous storage).  Uses a random int8 slab of
+the cggi128 shape [steps, 5120, 768], stored K-contiguous by
+ops/tkey.py:k_contiguous (the kernel's cost depends on shapes only).
+Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -35,9 +39,9 @@ def step_product_ms(G: int, p, L: int, lb: int, gen) -> float:
     RT, C = (p.l + lb) * p.N, 2 * L * 128
     a = torch.randint(-32, 33, (p.N // 128 * Gp, RT), dtype=torch.int8,
                       device="cuda", generator=gen)
-    b = torch.randint(-128, 128, (RT, C), dtype=torch.int8, device="cuda",
+    b = torch.randint(-128, 128, (C, RT), dtype=torch.int8, device="cuda",
                       generator=gen)
-    return int_mm_ms(a, b)
+    return int_mm_ms(a, b.t())
 
 
 def main(argv=None) -> int:
@@ -54,8 +58,9 @@ def main(argv=None) -> int:
     p = dataclasses.replace(params.CGGI128, n=args.steps)
     L, lb = 3, 2
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bk = torch.randint(-128, 128, (p.n, (p.l + lb) * p.N, 2 * L * 128),
-                       dtype=torch.int8, device="cuda", generator=gen)
+    bk = tkey.k_contiguous(torch.randint(
+        -128, 128, (p.n, (p.l + lb) * p.N, 2 * L * 128), dtype=torch.int8,
+        device="cuda", generator=gen))
     testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
     out = {"card": card, "steps": p.n, "rows": []}
     for G in (int(g) for g in args.G.split(",")):
@@ -66,6 +71,13 @@ def main(argv=None) -> int:
         rotate()
         torch.cuda.synchronize()
         ms = timed_ms(rotate, 3, "cuda")
+        form = "wgmma" if -(-G // 16) * 16 >= tkey.WGMMA_MIN_G else "mma"
+        other = "mma" if form == "wgmma" else "wgmma"
+
+        def rotate_other():
+            tkey.blind_rotate_tkey(tl, bk, testv, p, form=other)
+        rotate_other()
+        other_ms = timed_ms(rotate_other, 3, "cuda")
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -79,8 +91,9 @@ def main(argv=None) -> int:
                              getattr(ev, "cuda_time_total", 0))
             kern[ev.key[:80]] = {"device_us": dev_us, "calls": ev.count}
         busy = sum(v["device_us"] for v in kern.values())
-        conv = [v for k, v in kern.items() if "conv_kernel" in k]
-        row = {"G": G, "ms_per_blind_rotation": ms,
+        conv = [v for k, v in kern.items() if "conv_" in k]
+        row = {"G": G, "form": form, "ms_per_blind_rotation": ms,
+               f"{other}_ms_per_blind_rotation": other_ms,
                "us_per_step": ms * 1e3 / p.n,
                "conv_us_per_step": (sum(v["device_us"] for v in conv)
                                     / max(1, sum(v["calls"] for v in conv))),

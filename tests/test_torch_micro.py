@@ -268,12 +268,49 @@ def test_timing_marginal_is_the_difference_method(monkeypatch):
 
 
 def test_loop_kernel_l2_bytes_per_step():
-    """The looped kernel's L2 traffic a step, at T1 fat BG 512: 32 blocks x
-    6144 rows x (768 rhs columns + 8 windows x 16 rows x 3 chunks)."""
+    """The looped kernel's L2 traffic a step, at T1 fat BG 512: 32 M tiles
+    (8 windows x 4) x 6 column tiles, each bringing 48 k-tiles of a
+    128-row A tile and a 128-row B tile, 128 bytes deep."""
     x = torch.zeros((512, 12288), dtype=torch.int8)
     cfg = micro.tk_config(x, torch.zeros((6144, 768), dtype=torch.int8),
                           "fat")
-    assert micro.l2_bytes_per_step(cfg) == 32 * 6144 * (768 + 8 * 16 * 3)
+    assert micro.l2_bytes_per_step(cfg) == 32 * 6 * 48 * (128 + 128) * 128
+
+
+def _z(*shape):
+    return torch.zeros(shape, dtype=torch.int8)
+
+
+# every looped-product shape the tools run on the card (T1 at BG 512 and
+# 2048, T2's cases at BG 512, T3's matrix cases at G 1024)
+TOOL_SHAPES = (
+    [(f"tk_loop {m} BG={bg}", lambda m=m, bg=bg: micro.tk_config(
+        _z(bg, 6, 2048) if m == "thin" else _z(bg, 12288),
+        _z(*{"thin": (1024, 768), "puret": (768, 6144)}.get(m, (6144, 768))),
+        m)) for bg in (512, 2048) for m in micro.MODES]
+    + [(f"width_loop {n}", lambda k=k, no=no, nd=nd: micro.width_config(
+        _z(512, k + 128 * nd), _z(k, no), nd))
+       for n, (k, no, nd) in WIDTH.items()]
+    + [(f"mm_mask {a}", lambda a=a, b=b: micro.mm_config(_z(*a), _z(*b), 63))
+       for a, b in (((6144, 1024), (1024, 1024)), ((3072, 1024), (1024, 1024)),
+                    ((8, 768, 128), (8, 128, 128)))])
+
+
+@pytest.mark.parametrize("name,cfg", TOOL_SHAPES,
+                         ids=[n for n, _ in TOOL_SHAPES])
+def test_step_plan_covers_the_card(name, cfg):
+    """At every tool shape the step grid gives at least one CTA per SM
+    (132 on the H100), with the tiles the kernel takes: TILE 128 columns
+    and no split, MM no split, a split of at most the k-tiles."""
+    c = cfg()
+    pl = micro.step_plan(c)
+    assert pl["ctas"] >= micro.SMS, (name, pl)
+    assert c["NO"] % pl["bn"] == 0 and pl["bn"] in (32, 64, 128, 256)
+    assert pl["split"] <= pl["k_tiles"] and pl["split"] & (pl["split"] - 1) == 0
+    if c["mode"] != 1:
+        assert pl["split"] == 1
+    if c["mode"] == 0:
+        assert pl["bn"] == 128
 
 
 # --------------------------------------------------------------------------- #
@@ -344,3 +381,37 @@ def test_alu_kernel_equals_twin_on_card(body):
     _card()
     ins = [_t(a) for a in _alu_inputs(body, np.random.default_rng(7))]
     assert _same(*_both(micro.alu_loop, ins[0], body, 5, *ins[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg", TOOL_SHAPES,
+                         ids=[n for n, _ in TOOL_SHAPES])
+def test_loop_kernel_equals_twin_at_tool_shapes(name, cfg):
+    """Each looped product == its twin, both on the card, at the tools' own
+    shapes (2 steps or rounds), on seeded random inputs."""
+    _card()
+    rng = np.random.default_rng(len(name))
+    fn, args = name.split()[0], cfg()
+    if fn == "tk_loop":
+        mode = name.split()[1]
+        x = _i8(rng, (args["rows"], 6, 2048) if mode == "thin"
+                else (args["rows"], 12288))
+        rhs = _i8(rng, (768, 6144) if mode == "puret"
+                  else (args["seglen"], 768))
+        kern, ref, extra = micro.tk_loop, micro.tk_loop_ref, (2, mode)
+    elif fn == "width_loop":
+        nd = args["nwin"]
+        x = _i8(rng, (512, args["seglen"] + 128 * nd))
+        rhs = _i8(rng, (args["seglen"], args["NO"]))
+        kern, ref, extra = micro.width_loop, micro.width_loop_ref, (2, nd)
+    else:
+        K = args["NO"]
+        lead = (args["batches"],) if args["batches"] > 1 else ()
+        x, rhs = _i8(rng, lead + (args["rows"], K)), _i8(rng, lead + (K, K))
+        kern, ref, extra = micro.mm_mask, micro.mm_mask_ref, (63, 2)
+    x, rhs = _t(x).cuda(), _t(rhs).cuda()
+    got = kern(x, rhs, *extra)
+    torch.cuda.synchronize()
+    want = ref(x, rhs, *extra)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    assert all(torch.equal(g, w) for g, w in pairs)

@@ -7,8 +7,12 @@ On the CPU the wrapper runs its plain torch twin; it must equal
     1..3): the JAX Pallas kernel in interpret mode on the same slab, in each
     of the JAX package's forms of it (serial and pipelined kernels, split
     and full dots, K-major or not), and at an odd n on the unrolled slab,
-bit for bit, at awkward batch sizes.  The CUDA kernel itself is compared
-with the twin on the card (cuda-marked tests here, and chip_smoke.py).
+bit for bit, at awkward batch sizes.  The slab lies on the device
+K-contiguous (tkey.k_contiguous): DeviceKeys builds it so, the twin takes
+either storage, the kernel path refuses a row-major one, and a torch model
+of the wgmma form's k-tile schedule equals the twin.  The CUDA kernel
+itself is compared with the twin on the card (cuda-marked tests here, and
+chip_smoke.py).
 """
 
 import dataclasses
@@ -25,6 +29,7 @@ from iyokan_tpu.crypto import ops as jops
 from iyokan_tpu.ops import pallas_tk
 from iyokan_tpu_torch import params as tparams
 from iyokan_tpu_torch.crypto import ops as tops
+from iyokan_tpu_torch.crypto.ops import MASK32
 from iyokan_tpu_torch.crypto import polymul as tpm
 from iyokan_tpu_torch.ops import tkey
 
@@ -296,7 +301,7 @@ def test_kernel_equals_twin_on_card(toy_sk, toy_ek, G, limbs, lb):
         pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
     ct, testv = _inputs(toy_sk, G, 7 + G)
     slab = tpm.tkey_kernel_key(toy_ek.bk, P, limbs, "fat", lb=lb)
-    args = (tops.u32_tensor(ct, "cuda"), torch.from_numpy(slab).cuda(),
+    args = (tops.u32_tensor(ct, "cuda"), tkey.k_contiguous(slab, "cuda"),
             tops.u32_tensor(testv, "cuda"), P)
     before = tkey.LAUNCHES
     got = tkey.blind_rotate_tkey(*args)
@@ -317,7 +322,7 @@ def test_layout_kernel_equals_twin_on_card(toy_sk, slabs, form, G):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
     ct, testv = _inputs(toy_sk, G, 11 + G)
-    slab = torch.from_numpy(slabs[form]).cuda()
+    slab = tkey.k_contiguous(slabs[form], "cuda")
     layout = tkey.slab_config(slab, P)[0]
     args = (tops.u32_tensor(ct, "cuda"), slab,
             tops.u32_tensor(testv, "cuda"), P)
@@ -327,3 +332,196 @@ def test_layout_kernel_equals_twin_on_card(toy_sk, slabs, form, G):
     want = tkey.blind_rotate_tkey_ref(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# K-contiguous storage and the wgmma form's schedule
+# --------------------------------------------------------------------------- #
+
+# the layouts' forms in FORMS: fat (L=3, lb=2), thin, fat2, unrolled, fat L=4
+KC_FORMS = ["fat-dots-full", "thin", "fat2", "unrolled", "fat-L4-lb3"]
+# DeviceKeys knobs -> the layout of the slab they build
+KC_KNOBS = [({}, "fat"), ({"IYOKAN_TK_LAYOUT": "thin"}, "thin"),
+            ({"IYOKAN_TK_LAYOUT": "fat2"}, "fat2"),
+            ({"IYOKAN_TK_UNROLL": "1"}, "unrolled")]
+
+
+def _k_strides(shape):
+    """The strides of the K-contiguous view of a slab of logical shape
+    [n, ..., C]: storage [n, C, ...]."""
+    n, C, rest = shape[0], shape[-1], shape[1:-1]
+    inner = [int(np.prod(rest[i + 1:], dtype=np.int64))
+             for i in range(len(rest))]
+    return (C * int(np.prod(rest)), *inner, int(np.prod(rest)))
+
+
+@pytest.mark.parametrize("env,layout", KC_KNOBS,
+                         ids=[lay for _, lay in KC_KNOBS])
+def test_device_keys_store_the_slab_k_contiguous(toy_ek, monkeypatch, env,
+                                                 layout):
+    """DeviceKeys.from_evalkey places each layout's slab K-contiguous, with
+    tkey_kernel_key's logical shape and values."""
+    for k in ("IYOKAN_TK_LAYOUT", "IYOKAN_TK_UNROLL", "IYOKAN_TK_SMALL",
+              "IYOKAN_TKEY_LIMBS", "IYOKAN_TK_LB", "IYOKAN_EP"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "tkey")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    dk = tops.DeviceKeys.from_evalkey(toy_ek, "cpu", with_cb=False)
+    slab = dk.bk_tk
+    assert tkey.slab_config(slab, P)[0] == layout
+    assert tkey.is_k_contiguous(slab) and not slab.is_contiguous()
+    assert slab.stride() == _k_strides(tuple(slab.shape))
+    src = (toy_ek.bku.reshape(toy_ek.bku.shape[0], 6 * P.l, 2, P.N)
+           if layout == "unrolled" else toy_ek.bk)
+    want = tpm.tkey_kernel_key(src, P, 3, "fat" if layout == "unrolled"
+                               else layout, lb=2)
+    np.testing.assert_array_equal(slab.numpy(), want)
+
+
+@pytest.mark.parametrize("form", KC_FORMS)
+def test_twin_takes_either_storage(toy, toy_sk, slabs, form, monkeypatch):
+    """The twin on the K-contiguous slab == the twin on the row-major slab
+    == pallas_tk (interpret mode), at G = 5."""
+    monkeypatch.setenv("IYOKAN_PALLAS_INTERPRET", "1")
+    for k in FORM_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in FORMS[form][4].items():
+        monkeypatch.setenv(k, v)
+    ct, testv = _inputs(toy_sk, 5, 300)
+    args = (tops.u32_tensor(ct, "cpu"), tops.u32_tensor(testv, "cpu"))
+    kc = tkey.k_contiguous(slabs[form])
+    assert tkey.is_k_contiguous(kc)
+    got = tkey.blind_rotate_tkey(args[0], kc, args[1], P)
+    row_major = tkey.blind_rotate_tkey(
+        args[0], torch.from_numpy(slabs[form]), args[1], P)
+    assert torch.equal(got, row_major)
+    want = pallas_tk.blind_rotate_tkey(jnp.asarray(ct),
+                                       jnp.asarray(slabs[form]),
+                                       jnp.asarray(testv), toy)
+    np.testing.assert_array_equal(tops.u32_numpy(got), np.asarray(want))
+
+
+def test_kernel_path_refuses_a_row_major_slab(toy_sk, slab_default):
+    """The kernel path takes only the K-contiguous storage (no per-call
+    conversion) and raises on a row-major slab before it builds or
+    launches anything; check_inputs lets both through for a slab."""
+    row_major = torch.from_numpy(slab_default)
+    kc = tkey.k_contiguous(slab_default)
+    with pytest.raises(ValueError, match="K-contiguous"):
+        tkey.check_k_contiguous(row_major)
+    tkey.check_k_contiguous(kc)
+    ct, testv = _inputs(toy_sk, 3, 5)
+    tl, tv = tops.u32_tensor(ct, "cpu"), tops.u32_tensor(testv, "cpu")
+    cfg, rows, acc = tkey._prepare(tl, row_major, tv, P)
+    with pytest.raises(ValueError, match="K-contiguous"):
+        tkey._steps_kernel(rows, acc, row_major, P, cfg)
+    for slab in (row_major, kc):
+        tkey.check_inputs(tl, slab, tv, P, P.n, slab=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tkey.check_inputs(tl, kc, tv, P, P.n)
+
+
+def _model_steps(rows, acc, slab, p, cfg):
+    """The wgmma form of the step product in plain torch, tile by tile as
+    the kernel runs it: for each output block K, 128-gate M tile (gates
+    past G read as zeros) and (part u, 64-coefficient block cb) N tile of
+    L x 64 slab columns, the k-tiles in tkey.k_tile_order, the accumulator
+    negated on entering and leaving the wrapped ones (not on fat2, which
+    reads the first copy instead), then the limb recombination.  Returns
+    the final accumulator and the most sign flips a tile made."""
+    layout, L, lb, M = cfg
+    N, NB = p.N, p.N // 128
+    RR = M * (p.l + lb)
+    RT = RR * N
+    phys = slab.movedim(-1, 1).reshape(slab.shape[0], slab.shape[-1], -1)
+    G = acc.shape[0]
+    Gp = -(-G // 128) * 128
+    a = tops.to_u64(acc)
+    most_flips = 0
+    for i in range(phys.shape[0]):
+        d = tkey._digits_ref(a, rows[M * i: M * (i + 1)], p, lb)
+        ext = (d.reshape(G, RT) if layout == "thin" else
+               d.reshape(G, RR, NB, 128).permute(0, 2, 1, 3).reshape(G, RT))
+        ext = torch.cat([ext, ext.new_zeros((Gp - G, RT))]).double()
+        bk = phys[i].double()                            # [C, KT]
+        upd = torch.zeros((Gp, 2, N), dtype=torch.int64)
+        for K in range(NB):
+            order = tkey.k_tile_order(K, layout, RT, N, RR)
+            assert sorted(t for t, *_ in order) == list(range(RT // 128))
+            for g0 in range(0, Gp, 128):
+                for u in range(2):
+                    for cb in range(2):
+                        cols = [(u * L + li) * 128 + cb * 64 + c
+                                for li in range(L) for c in range(64)]
+                        b = bk[cols]
+                        s = torch.zeros((128, L * 64), dtype=torch.float64)
+                        neg, flips = False, 0
+                        for _, acol, bkc, wrap in order:
+                            w = wrap and layout != "fat2"
+                            if w != neg:
+                                s, neg, flips = -s, w, flips + 1
+                            s = s + (ext[g0: g0 + 128, acol: acol + 128]
+                                     @ b[:, bkc: bkc + 128].t())
+                        if neg:
+                            s = -s
+                        most_flips = max(most_flips, flips)
+                        s = s.to(torch.int64).reshape(128, L, 64)
+                        v = sum(s[:, li] << (8 * (4 - L + li))
+                                for li in range(L))
+                        upd[g0: g0 + 128, u,
+                            K * 128 + cb * 64: K * 128 + cb * 64 + 64] += v
+        a = (a + upd[:G]) & MASK32
+    return tops.from_u64(a), most_flips
+
+
+@pytest.mark.parametrize("G", [5, 130])
+@pytest.mark.parametrize("form", KC_FORMS)
+def test_wgmma_schedule_model_equals_twin(form, G):
+    """The wgmma form's k-tile schedule (plain rows first, the wrapped
+    ones under a negated accumulator; thin's segments; fat2's copy
+    switch; M tiles of one block K), modelled in torch on a random
+    K-contiguous slab at toy parameters (n = 6, every layout), equals the
+    twin bit for bit, with at most two sign flips a tile."""
+    _, limbs, layout, lb, _ = FORMS[form]
+    tp = dataclasses.replace(P, n=6)
+    rng = np.random.default_rng(len(form) * 1000 + G)
+    unrolled = form == "unrolled"
+    keyrows = rng.integers(0, 1 << 32, (3, 6 * P.l, 2, P.N) if unrolled
+                           else (6, 2 * P.l, 2, P.N), dtype=np.uint32)
+    slab = tkey.k_contiguous(tpm.tkey_kernel_key(keyrows, tp, limbs, layout,
+                                                 lb=lb))
+    tlwe0 = tops.u32_tensor(rng.integers(0, 1 << 32, (G, tp.n + 1),
+                                         dtype=np.uint32), "cpu")
+    tv = tops.u32_tensor(rng.integers(0, 1 << 32, P.N, dtype=np.uint32),
+                         "cpu")
+    cfg, rows, acc = tkey._prepare(tlwe0, slab, tv, tp)
+    assert cfg[0] == ("unrolled" if unrolled else layout)
+    got, flips = _model_steps(rows, acc, slab, tp, cfg)
+    assert flips <= 2
+    assert torch.equal(got, tkey._steps_ref(rows, acc, slab, tp, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [16, 112, 128, 144, 2048])
+@pytest.mark.parametrize("form", KC_FORMS)
+def test_both_forms_equal_twin_on_card(toy_sk, slabs, form, G):
+    """Each layout's kernel == its twin at Gp = 16, 112, 128, 144, 2048,
+    in the form the route threshold picks and in the other one, one
+    launch counted under each form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
+    rng = np.random.default_rng(G)
+    ct = jhost.encrypt_bits(toy_sk, rng.integers(0, 2, G, dtype=np.uint8),
+                            rng)
+    slab = tkey.k_contiguous(slabs[form], "cuda")
+    args = (tops.u32_tensor(ct, "cuda"), slab,
+            tops.u32_tensor(np.full(P.N, P.mu, np.uint32), "cuda"), P)
+    want = tkey.blind_rotate_tkey_ref(*args)
+    picked = "wgmma" if G >= tkey.WGMMA_MIN_G else "mma"
+    for f in (None, "mma" if picked == "wgmma" else "wgmma"):
+        before = dict(tkey.FORM_LAUNCHES)
+        got = tkey.blind_rotate_tkey(*args, form=f)
+        torch.cuda.synchronize()
+        assert tkey.FORM_LAUNCHES[f or picked] == before[f or picked] + 1
+        assert torch.equal(got, want), (form, G, f)
