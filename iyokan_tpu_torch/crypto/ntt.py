@@ -20,6 +20,7 @@ residues below 2^31, so (x * s) % p fits int64; torch's `%` is `remainder`
 from __future__ import annotations
 
 import functools
+import typing
 
 import numpy as np
 import torch
@@ -87,20 +88,58 @@ def psi_powers(N: int) -> np.ndarray:
     return np.array(out, np.int64)
 
 
+def shoup_companion(w, p: int):
+    """floor(w * 2^32 / p) of fixed multipliers w in [0, p) (int or int64
+    array): the kernels' a * w mod p is a*w - umulhi(a, w') * p, then one
+    conditional subtract (csrc/ntt.cuh:shoup_mul)."""
+    return (np.asarray(w, np.int64) << 32) // p
+
+
+def key_factor(N: int) -> tuple:
+    """Per prime N^-1 * 2^32 mod p: the NTT kernels' key form carries it
+    (ops/br.py:kernel_key), so a Montgomery reduction of a key product
+    (times 2^-32) leaves the product times N^-1 and the inverse transform
+    needs no scaling pass; K5 and K6 scale their inverse by it instead."""
+    return tuple((pow(N, -1, p) << 32) % p for p in PRIMES)
+
+
+class KernelTables(typing.NamedTuple):
+    """The NTT kernels' (csrc/ntt.cuh) tables on one device.
+
+    tw     int32 [2 primes, 2, N, 2]: psirev (forward) and psiinvrev
+           (inverse) of each prime, each entry (w, its Shoup companion) as
+           u32 bit patterns
+    pw     int32 [2 primes, 2N, 2]: (psi^e - 1 mod p, its companion) for e
+           in [0, 2N): K3's X^a - 1 at slot k is psi^(a(2k+1)) - 1
+    scale  (w, w') of key_factor for P1, then P2, as Python ints
+    """
+    tw: torch.Tensor
+    pw: torch.Tensor
+    scale: tuple
+
+
 _KERNEL_TABLES = {}
 
 
-def kernel_tables(N: int, device) -> tuple:
-    """The NTT kernels' (csrc/ntt.cuh) tables on `device`, cached: int32
-    [4, N] = psirev (P1, P2), psiinvrev (P1, P2), and int32 [2, 2N] =
-    psi_powers (every entry is below 2^31)."""
+def _with_companion(w: np.ndarray, p: int) -> np.ndarray:
+    return np.stack([w, shoup_companion(w, p)], axis=-1)
+
+
+def kernel_tables(N: int, device) -> KernelTables:
+    """kernel tables of ring size N on `device`, cached per device."""
     key = (N, str(device))
     if key not in _KERNEL_TABLES:
-        t = tables(N)
-        tab = np.concatenate([t["psirev"], t["psiinvrev"]])
-        _KERNEL_TABLES[key] = tuple(
-            torch.from_numpy(a.astype(np.int32)).to(device).contiguous()
-            for a in (tab, psi_powers(N)))
+        t, pows = tables(N), psi_powers(N)
+        tw = np.stack([np.stack([_with_companion(t["psirev"][i], p),
+                                 _with_companion(t["psiinvrev"][i], p)])
+                       for i, p in enumerate(PRIMES)])
+        pw = np.stack([_with_companion((pows[i] - 1) % p, p)
+                       for i, p in enumerate(PRIMES)])
+        scale = tuple(int(v) for f, p in zip(key_factor(N), PRIMES)
+                      for v in (f, shoup_companion(f, p)))
+        _KERNEL_TABLES[key] = KernelTables(
+            *(torch.from_numpy(a.astype(np.uint32).view(np.int32))
+              .to(device).contiguous() for a in (tw, pw)), scale)
     return _KERNEL_TABLES[key]
 
 

@@ -588,7 +588,10 @@ class DeviceKeys:
     bk_ntt    i32  [n, 2l, 2, P, N]        CRT64-prepared bk (non-tkey
                                            routes; None on tkey)
     bk_ntt_u  i32  [nh, 3*2l, 2, P, N]     CRT64-prepared 2-bit-unrolled bk
-                                           (bku, nh = ceil(n/2)), or None
+                                           (bku, nh = ceil(n/2)), or None;
+                                           each NTT key carries its K3/K4
+                                           kernel form (ops/br.py:
+                                           attach_kernel_key), built here
     bk2       i64  [nh, 3*2l2, 2, 4, N2]   prepared 2-bit-unrolled CB key
                                            (bk2u; [n, 2l2, ...] from bk2
                                            when the key has no bk2u or
@@ -689,6 +692,12 @@ class DeviceKeys:
         if (bku is not None and not no_unroll
                 and (not tkey or unroll_max(True) > 0)):
             bk_ntt_u = polymul.prep1(u32_tensor(bku, device), p)
+        # K3/K4 read the NTT keys in their kernel form, built once here
+        from ..ops.br import attach_kernel_key
+
+        for key in (bk_ntt, bk_ntt_u):
+            if key is not None:
+                attach_kernel_key(key, p)
         ksk_mat = u32_tensor(ek.ksk.reshape(p.N * p.ks_t, p.n + 1), device)
         dk = DeviceKeys(p, device, bk_tk, ksk_mat, ksk_mat.to(torch.float64),
                         bk_ntt, bk_ntt_u, bk_tk_small)

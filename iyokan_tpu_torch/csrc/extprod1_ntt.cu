@@ -17,26 +17,26 @@
 // integer multiply.  Hopper multiplies 32 x 32 -> 64 bits natively, so the
 // plain design is two 31-bit primes and a radix-2 NTT in shared memory.
 //
-// Design: one block per row g, N/2 threads (one butterfly each per stage).
-// Per prime: the RR digit polynomials are reduced into shared memory and
-// transformed together (one barrier per stage for all RR), multiplied
-// pointwise against key[idx[g]] and summed over r (RR products below 2^62
-// each reduced mod p, the sum below 2^36), and the two sums run through the
-// Gentleman-Sande inverse.  The first prime's result waits in shared memory
-// for the second's; then the CRT writes the row.  Shared memory
-// (extprod1_ntt_smem): (RR + 4) * N * 4 bytes = 40 KB at RR = 6, N = 1024,
-// 88 KB at the unrolled key's RR = 18, which raises the kernel's limit once
-// per card (ntt.cuh).
+// Design: one block per row g, N/2 threads.  Per prime: the RR digit
+// polynomials are reduced into shared memory and transformed together
+// (ntt.cuh: one barrier per shared-memory stage for all RR, the last six
+// stages in registers), multiplied pointwise against key[idx[g]] and summed
+// over r (each run of four products below 2^62 reduced once by
+// mont_reduce, which leaves a factor 2^-32), and the two sums run through
+// the Gentleman-Sande inverse, whose last stage scales by N^-1 2^32.  The
+// first prime's result waits in shared memory for the second's; then the
+// CRT writes the row.  Shared memory (extprod1_ntt_smem): (RR + 4) * N * 4
+// bytes = 40 KB at RR = 6, N = 1024, 88 KB at the unrolled key's RR = 18,
+// which raises the kernel's limit once per card (ntt.cuh).
 //
-// What bounds it on the H100: integer multiply-modulo throughput.  Each row
-// costs 2 primes x ((RR + 2) * N/2 * log2 N butterflies + 2*RR*N pointwise
-// products + 2N scalings) = 110,592 mulmods at cggi128, each a 64-bit
-// product and a reduction by a compile-time prime (the compiler's
-// multiply-high sequence).
-// The key (RR*2*2*N*4 = 96 KB per TRGSW) is read from L2 by every row.
-// Speed work (Shoup/Montgomery products, warp-shuffle butterflies for the
-// last stages, several rows per block, the decomposition fused in) is later.
-//
+// What bounds it on the H100: 32-bit integer multiplies.  Each row costs
+// 2 primes x ((RR + 2) * N/2 * log2 N butterflies + 2*RR*N pointwise
+// products) + 2N CRT products at cggi128, about three multiplies each in
+// the Shoup and Montgomery forms of ntt.cuh.  The key (RR*2*2*N*4 = 96 KB
+// per TRGSW) is read from L2 by every row.  This kernel keeps its PR-2
+// structure (one block per row, the prep1 key as it is): K3/K4's cluster
+// form (br_cluster.cuh) is not applied to it yet.
+
 // Built by iyokan_tpu_torch/ops/nvcc.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libextprod1_ntt-<hash>.so extprod1_ntt.cu
@@ -55,10 +55,8 @@ namespace {
 template <uint32_t P>
 __device__ void one_prime(const int32_t* __restrict__ dg,
                           const int32_t* __restrict__ key, int pi,
-                          uint32_t* dig, uint32_t* acc,
-                          const uint32_t* __restrict__ psirev,
-                          const uint32_t* __restrict__ psiinvrev,
-                          uint32_t ninv, int RR, int N, int logN) {
+                          uint32_t* dig, uint32_t* acc, const uint2* tw,
+                          uint2 scale, int RR, int N, int logN) {
   const int k = threadIdx.x;
   const int H = N >> 1;
   for (int r = 0; r < RR; ++r)
@@ -67,27 +65,31 @@ __device__ void one_prime(const int32_t* __restrict__ dg,
       dig[r * N + c] = (uint32_t)(v < 0 ? v + P : v);
     }
   __syncthreads();
-  ntt_fwd<P>(dig, RR, psirev, N, logN);
+  ntt_fwd<P>(dig, RR, tw, N, logN);
   for (int u = 0; u < 2; ++u)
     for (int c = k; c < N; c += H) {
-      uint64_t s = 0;
-      for (int r = 0; r < RR; ++r)
-        s += mulmod<P>(dig[r * N + c],
-                       (uint32_t)key[((r * 2 + u) * 2 + pi) * N + c]);
-      acc[u * N + c] = (uint32_t)(s % P);
+      uint32_t s = 0;
+      for (int r0 = 0; r0 < RR; r0 += 4) {
+        uint64_t T = 0;
+        for (int r = r0; r < min(r0 + 4, RR); ++r)
+          T += (uint64_t)dig[r * N + c] *
+               (uint32_t)key[((r * 2 + u) * 2 + pi) * N + c];
+        s = addmod<P>(s, mont_reduce<P>(T));
+      }
+      acc[u * N + c] = s;
     }
   __syncthreads();
-  ntt_inv<P>(acc, 2, psiinvrev, ninv, N, logN);
+  ntt_inv<P>(acc, 2, tw + N, N, logN, nullptr, 0, scale);
 }
 
 __global__ void __launch_bounds__(1024)
 extprod1_kernel(const int32_t* __restrict__ digits,  // [G, RR, N]
                 const int32_t* __restrict__ keys,    // [K, RR, 2, 2, N]
                 const int32_t* __restrict__ idx,     // [G] or null
-                const uint32_t* __restrict__ tab,    // [4, N]
                 int32_t* __restrict__ out,           // [G, 2, N]
-                int RR, int N, int logN, uint32_t ninv1, uint32_t ninv2) {
+                int RR, Ring ring) {
   extern __shared__ uint32_t sm[];
+  const int N = ring.N, logN = ring.logN;
   uint32_t* dig = sm;              // [RR, N]
   uint32_t* acc = sm + RR * N;     // [2, N]
   uint32_t* res1 = acc + 2 * N;    // [2, N]: the first prime's result
@@ -97,11 +99,11 @@ extprod1_kernel(const int32_t* __restrict__ digits,  // [G, RR, N]
   const int32_t* dg = digits + (size_t)g * RR * N;
   const int32_t* key = keys + (size_t)(idx ? idx[g] : 0) * RR * 2 * 2 * N;
 
-  one_prime<P1>(dg, key, 0, dig, acc, tab, tab + 2 * N, ninv1, RR, N, logN);
+  one_prime<P1>(dg, key, 0, dig, acc, ring.tw, ring.scale[0], RR, N, logN);
   for (int c = k; c < 2 * N; c += H) res1[c] = acc[c];
   __syncthreads();
-  one_prime<P2>(dg, key, 1, dig, acc, tab + N, tab + 3 * N, ninv2, RR, N,
-                logN);
+  one_prime<P2>(dg, key, 1, dig, acc, ring.tw + 2 * N, ring.scale[1], RR,
+                N, logN);
 
   // Garner (ntt.cuh: crt_mod32): the centred integer, mod 2^32
   int32_t* o = out + (size_t)g * 2 * N;
@@ -121,23 +123,23 @@ extern "C" size_t extprod1_ntt_smem(int N, int RR) {
 
 // One external product per row, launched on `stream`.
 //   digits int32 [G, RR, N]; keys int32 [K, RR, 2, 2, N]; idx int32 [G] with
-//   values in [0, K), or null for key 0; tab uint32 [4, N] = psirev (P1, P2),
-//   psiinvrev (P1, P2); out int32 [G, 2, N].  N a power of two in
-//   [64, 2048].  Returns 0 or the first CUDA error.
+//   values in [0, K), or null for key 0; tw uint32 [2, 2, N, 2] = psirev,
+//   psiinvrev of P1, P2 with companions; scale uint32 [4] = N^-1 2^32 mod
+//   P1, companion, the same mod P2; out int32 [G, 2, N].  N a power of two
+//   in [64, 2048].  Returns 0 or the first CUDA error.
 extern "C" int extprod1_ntt(const void* digits, const void* keys,
-                            const void* idx, const void* tab, void* out,
-                            int G, int RR, int N, int K, uint32_t ninv1,
-                            uint32_t ninv2, int device, void* stream) {
-  const int logN = log2_ring(N);
+                            const void* idx, const void* tw,
+                            const uint32_t* scale, void* out, int G, int RR,
+                            int N, int K, int device, void* stream) {
+  const Ring r = ring(tw, scale, N, 1, 1, 0u);
   const size_t smem = extprod1_ntt_smem(N, RR);
-  if (G <= 0 || RR <= 0 || K <= 0 || logN < 0)
+  if (G <= 0 || RR <= 0 || K <= 0 || r.logN < 0)
     return (int)cudaErrorInvalidValue;
   const int e = limit.prepare(extprod1_kernel, device, smem);
   if (e) return e;
   extprod1_kernel<<<G, N / 2, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(digits), static_cast<const int32_t*>(keys),
-      static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(tab),
-      static_cast<int32_t*>(out), RR, N, logN, ninv1, ninv2);
+      static_cast<const int32_t*>(idx), static_cast<int32_t*>(out), RR, r);
   return (int)cudaGetLastError();
 }
 

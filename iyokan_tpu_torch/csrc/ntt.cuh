@@ -1,20 +1,33 @@
 // Two-prime negacyclic NTT device functions shared by the port's NTT kernels
-// (extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu).
+// (extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu through br_cluster.cuh).
 //
 // The primes, tables and transforms are those of crypto/ntt.py: residues mod
 // P1 = 2013265921 and P2 = 1811939329, a merged-psi Cooley-Tukey forward
 // transform with bit-reversed output and a Gentleman-Sande inverse consuming
 // bit-reversed input.  Slot `pos` of a forward transform holds the
-// polynomial's value at psi^(2k+1) with k = bit-reverse(pos).  Every product
-// is of two residues below 2^31: one 32 x 32 -> 64-bit multiply and a
-// reduction by a compile-time prime.
+// polynomial's value at psi^(2k+1) with k = bit-reverse(pos).
 //
-// The transforms are called by all N/2 threads of a block, one butterfly per
-// thread per stage, on polynomials in shared memory.  The host side holds
-// what every launch of these kernels checks and sets up: the ring's
-// arguments (Ring) and the kernel's shared-memory limit (SmemLimit).  A
-// library that includes this header is rebuilt when it changes (ops/nvcc.py
-// hashes both).
+// The products are 32-bit (both primes are below 2^31):
+// * a fixed multiplier w (a twiddle, a psi power, a scale, Garner's
+//   P1^-1 mod P2) comes with its Shoup companion w' = floor(w 2^32 / P)
+//   from the host table (crypto/ntt.py:kernel_tables): q = umulhi(a, w'),
+//   a w - q P lies in [0, 2P), one conditional subtract -- three 32-bit
+//   multiplies and no division;
+// * a sum of at most four products of residues (below 4 P^2 < 2^64) is
+//   reduced once, by Montgomery: mont_reduce(T) = T 2^-32 mod P, two 32-bit
+//   multiplies.  The kernels fold the 2^32 into what they multiply: the
+//   NTT kernels' key form (ops/br.py:kernel_key) or the inverse
+//   transform's final scale (K5, K6).
+//
+// The transforms are called by every thread of a block (any multiple of 32
+// threads) on npoly polynomials of N residues in shared memory.  Stages of
+// span 64 and more go through shared memory, one barrier each; the six of
+// span 32 down to 1 run in registers, a warp on 64 consecutive residues
+// (two a lane, one butterfly a lane a stage, the pairs re-formed between
+// stages by one warp shuffle).  The host side holds what every launch
+// checks and sets up: the ring's arguments (Ring) and the kernel's
+// shared-memory limit (SmemLimit).  A library that includes this header is
+// rebuilt when it changes (ops/nvcc.py hashes both).
 
 #pragma once
 
@@ -29,20 +42,60 @@ constexpr uint32_t P2 = 1811939329u;            // 27 * 2^26 + 1
 constexpr uint64_t P1P2 = (uint64_t)P1 * P2;
 constexpr uint32_t INV_P1_MOD_P2 = 1811939320u;  // P1^-1 mod P2
 
-template <uint32_t P>
-__device__ __forceinline__ uint32_t mulmod(uint32_t a, uint32_t b) {
-  return (uint32_t)(((uint64_t)a * b) % P);
+// floor(w 2^32 / P): the Shoup companion of a fixed multiplier w < P.
+__host__ __device__ constexpr uint32_t shoup_companion(uint32_t w,
+                                                       uint32_t P) {
+  return (uint32_t)(((uint64_t)w << 32) / P);
 }
 
+// P^-1 mod 2^32 by Newton's iteration (P odd).
+__host__ __device__ constexpr uint32_t inv_mod_2_32(uint32_t P) {
+  uint32_t x = P;  // correct to 3 bits
+  for (int i = 0; i < 5; ++i) x *= 2u - P * x;
+  return x;
+}
+
+constexpr uint32_t INV_P1_MOD_P2_S = shoup_companion(INV_P1_MOD_P2, P2);
+
+// a + b mod P for a, b < P: the sum is below 2P < 2^32, and s - P wraps
+// above s exactly when s < P.
 template <uint32_t P>
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;  // a, b < P < 2^31: no wrap
-  return s >= P ? s - P : s;
+  const uint32_t s = a + b;
+  return min(s, s - P);
 }
 
 template <uint32_t P>
 __device__ __forceinline__ uint32_t submod(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + (P - b);
+  const uint32_t d = a - b + P;  // in (0, 2P)
+  return min(d, d - P);
+}
+
+// a w mod P for a < 2^32 and a fixed w < P with its companion ws.
+template <uint32_t P>
+__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
+                                              uint32_t ws) {
+  const uint32_t q = __umulhi(a, ws);
+  const uint32_t r = a * w - q * P;  // in [0, 2P), exact mod 2^32
+  return min(r, r - P);
+}
+
+template <uint32_t P>
+__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint2 w) {
+  return shoup_mul<P>(a, w.x, w.y);
+}
+
+// T 2^-32 mod P for T < 2P 2^32 (a sum of up to four products of residues).
+// m P has the low word of T, so (T - m P) / 2^32 = T_hi - umulhi(m, P),
+// exact, in (-P, 2P).
+template <uint32_t P>
+__device__ __forceinline__ uint32_t mont_reduce(uint64_t T) {
+  constexpr uint32_t PINV = inv_mod_2_32(P);
+  const uint32_t hi = (uint32_t)(T >> 32);
+  const uint32_t mh = __umulhi((uint32_t)T * PINV, P);
+  uint32_t r = hi - mh;
+  if (hi < mh) r += P;
+  return min(r, r - P);
 }
 
 // A signed value with |v| < P as its residue in [0, P).
@@ -61,56 +114,115 @@ __device__ __forceinline__ int32_t gadget_digit(uint32_t xp, int j,
          (int32_t)(Bg >> 1);
 }
 
+// Between two register stages: lane pairs (a, b) of span bit `bit` become
+// the pairs of the next stage.  The lane whose bit is clear keeps a and
+// takes the partner's a; the other keeps b and takes the partner's b
+// (the same exchange serves the forward and the inverse order).
+__device__ __forceinline__ void next_pairs(uint32_t& a, uint32_t& b,
+                                           int bit) {
+  const int lane = threadIdx.x & 31;
+  const bool hi = (lane >> bit) & 1;
+  const uint32_t got = __shfl_xor_sync(0xffffffffu, hi ? a : b, 1 << bit);
+  if (hi) a = got; else b = got;
+}
+
 // Forward negacyclic NTT of npoly polynomials x[r*N ..] in shared memory,
-// natural order in, bit-reversed out (crypto/ntt.py:ntt_fwd).
+// natural order in, bit-reversed out (crypto/ntt.py:ntt_fwd); tw: this
+// prime's psirev with companions.  Ends with a barrier.
 template <uint32_t P>
-__device__ void ntt_fwd(uint32_t* x, int npoly,
-                        const uint32_t* __restrict__ psirev, int N,
+__device__ void ntt_fwd(uint32_t* x, int npoly, const uint2* tw, int N,
                         int logN) {
-  const int k = threadIdx.x;
-  for (int lm = 0; lm < logN; ++lm) {
-    const int lt = logN - 1 - lm;  // t = N / (2m), m = 2^lm
-    const int t = 1 << lt;
-    const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
-    const uint32_t s = psirev[(1 << lm) + (k >> lt)];
-    for (int r = 0; r < npoly; ++r) {
-      uint32_t* y = x + r * N;
+  const int nt = blockDim.x, H = N >> 1;
+  for (int lt = logN - 1; lt >= 6; --lt) {  // span t = 2^lt >= 64
+    const int t = 1 << lt, base = 1 << (logN - 1 - lt);
+    for (int idx = threadIdx.x; idx < npoly * H; idx += nt) {
+      const int k = idx & (H - 1);
+      uint32_t* y = x + (idx >> (logN - 1)) * N;
+      const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
       const uint32_t u = y[i0];
-      const uint32_t v = mulmod<P>(y[i0 + t], s);
+      const uint32_t v = shoup_mul<P>(y[i0 + t], tw[base + (k >> lt)]);
       y[i0] = addmod<P>(u, v);
       y[i0 + t] = submod<P>(u, v);
     }
     __syncthreads();
   }
-}
-
-// Inverse (Gentleman-Sande), bit-reversed in, natural out, times N^-1
-// (crypto/ntt.py:ntt_inv).
-template <uint32_t P>
-__device__ void ntt_inv(uint32_t* x, int npoly,
-                        const uint32_t* __restrict__ psiinvrev, uint32_t ninv,
-                        int N, int logN) {
-  const int k = threadIdx.x;
-  for (int lh = logN - 1; lh >= 0; --lh) {
-    const int lt = logN - 1 - lh;  // t = N / m, h = m / 2 = 2^lh
-    const int t = 1 << lt;
-    const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
-    const uint32_t s = psiinvrev[(1 << lh) + (k >> lt)];
-    for (int r = 0; r < npoly; ++r) {
-      uint32_t* y = x + r * N;
-      const uint32_t u = y[i0];
-      const uint32_t v = y[i0 + t];
-      y[i0] = addmod<P>(u, v);
-      y[i0 + t] = mulmod<P>(submod<P>(u, v), s);
+  const int lane = threadIdx.x & 31, nw = nt >> 5;
+  for (int blk = threadIdx.x >> 5; blk < npoly * (N >> 6); blk += nw) {
+    uint32_t* y = x + blk * 64;  // 64 residues, all in one polynomial
+    const int k = ((blk & ((N >> 6) - 1)) << 5) + lane;
+    uint32_t a = y[lane], b = y[lane + 32];
+#pragma unroll
+    for (int lt = 5; lt >= 0; --lt) {
+      if (lt < 5) next_pairs(a, b, lt);
+      const uint32_t v =
+          shoup_mul<P>(b, tw[(1 << (logN - 1 - lt)) + (k >> lt)]);
+      b = submod<P>(a, v);
+      a = addmod<P>(a, v);
     }
-    __syncthreads();
-  }
-  const int H = N >> 1;
-  for (int r = 0; r < npoly; ++r) {
-    x[r * N + k] = mulmod<P>(x[r * N + k], ninv);
-    x[r * N + k + H] = mulmod<P>(x[r * N + k + H], ninv);
+    reinterpret_cast<uint2*>(y)[lane] = make_uint2(a, b);
   }
   __syncthreads();
+}
+
+// Inverse (Gentleman-Sande), bit-reversed in, natural out, unscaled
+// (crypto/ntt.py:ntt_inv without its N^-1; the kernels fold that into
+// their key or pass it as `scale`).  add (or null): polynomial r of the
+// input is x[r*N ..] + add[r*add_stride ..] mod P, read as the first stage
+// loads x.  scale (.x = 0: none): every output times scale.  Ends with a
+// barrier unless sync_end is false (a cluster barrier follows).
+template <uint32_t P>
+__device__ void ntt_inv(uint32_t* x, int npoly, const uint2* tw, int N,
+                        int logN, const uint32_t* add = nullptr,
+                        int add_stride = 0, uint2 scale = {0u, 0u},
+                        bool sync_end = true) {
+  const int nt = blockDim.x, H = N >> 1;
+  const int lane = threadIdx.x & 31, nw = nt >> 5;
+  for (int blk = threadIdx.x >> 5; blk < npoly * (N >> 6); blk += nw) {
+    const int r = blk / (N >> 6), off = (blk & ((N >> 6) - 1)) * 64;
+    uint32_t* y = x + r * N + off;
+    const int k = (off >> 1) + lane;
+    uint2 ab = reinterpret_cast<const uint2*>(y)[lane];
+    if (add) {
+      const uint2 c =
+          reinterpret_cast<const uint2*>(add + r * add_stride + off)[lane];
+      ab.x = addmod<P>(ab.x, c.x);
+      ab.y = addmod<P>(ab.y, c.y);
+    }
+    uint32_t a = ab.x, b = ab.y;
+#pragma unroll
+    for (int lt = 0; lt <= 5; ++lt) {
+      if (lt > 0) next_pairs(a, b, lt - 1);
+      const uint32_t d = submod<P>(a, b);
+      a = addmod<P>(a, b);
+      b = shoup_mul<P>(d, tw[(1 << (logN - 1 - lt)) + (k >> lt)]);
+    }
+    if (logN == 6 && scale.x) {
+      a = shoup_mul<P>(a, scale);
+      b = shoup_mul<P>(b, scale);
+    }
+    y[lane] = a;
+    y[lane + 32] = b;
+  }
+  for (int lt = 6; lt < logN; ++lt) {  // span t = 2^lt >= 64
+    __syncthreads();
+    const int t = 1 << lt, base = 1 << (logN - 1 - lt);
+    const bool last = lt == logN - 1 && scale.x;
+    for (int idx = threadIdx.x; idx < npoly * H; idx += nt) {
+      const int k = idx & (H - 1);
+      uint32_t* y = x + (idx >> (logN - 1)) * N;
+      const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
+      const uint32_t u = y[i0], v = y[i0 + t];
+      uint32_t s = addmod<P>(u, v);
+      uint32_t d = shoup_mul<P>(submod<P>(u, v), tw[base + (k >> lt)]);
+      if (last) {
+        s = shoup_mul<P>(s, scale);
+        d = shoup_mul<P>(d, scale);
+      }
+      y[i0] = s;
+      y[i0 + t] = d;
+    }
+  }
+  if (sync_end) __syncthreads();
 }
 
 // Garner: the integer x = r1 + P1 * ((r2 - r1) * P1^-1 mod P2) in
@@ -118,7 +230,9 @@ __device__ void ntt_inv(uint32_t* x, int npoly,
 // (crypto/ntt.py:crt_center).
 __device__ __forceinline__ uint32_t crt_mod32(uint32_t r1, uint32_t r2) {
   const uint32_t diff = submod<P2>(r2, r1 >= P2 ? r1 - P2 : r1);
-  const uint64_t x = r1 + (uint64_t)P1 * mulmod<P2>(diff, INV_P1_MOD_P2);
+  const uint64_t x =
+      r1 + (uint64_t)P1 *
+               shoup_mul<P2>(diff, INV_P1_MOD_P2, INV_P1_MOD_P2_S);
   return (uint32_t)(x >= P1P2 / 2 ? x - P1P2 : x);
 }
 
@@ -129,21 +243,23 @@ inline int log2_ring(int N) {
   return (N >= 64 && N <= 2048 && (1 << logN) == N) ? logN : -1;
 }
 
-// The lvl1 ring and gadget of a blind-rotation launch (the arguments
-// ops/br.py:ring_args passes): tables, N, l, Bgbit, decompose1's offset.
+// The lvl1 ring and gadget of a launch (the arguments ops/br.py:ring_args
+// passes): twiddle tables, the inverse's scale, N, l, Bgbit, decompose1's
+// offset.
 struct Ring {
-  const uint32_t* tab;  // [4, N]: psirev P1, psirev P2, psiinvrev P1, P2
-  uint32_t ninv1, ninv2;
+  const uint2* tw;  // [2 primes][forward, inverse][N] (w, w')
+  uint2 scale[2];   // per prime: N^-1 2^32 mod P and its companion
   int N, logN, l, Bgbit;
-  uint32_t offset;      // decompose1's centring + rounding offset
+  uint32_t offset;  // decompose1's centring + rounding offset
 };
 
 // The Ring of the arguments, or one with logN = -1 if they are out of range.
-inline Ring ring(const void* tab, int N, int l, int Bgbit, uint32_t offset,
-                 uint32_t ninv1, uint32_t ninv2) {
+inline Ring ring(const void* tw, const uint32_t* scale, int N, int l,
+                 int Bgbit, uint32_t offset) {
   const bool ok = l >= 1 && l <= 4 && Bgbit >= 1 && l * Bgbit <= 31;
-  return Ring{static_cast<const uint32_t*>(tab), ninv1, ninv2, N,
-              ok ? log2_ring(N) : -1, l, Bgbit, offset};
+  return Ring{static_cast<const uint2*>(tw),
+              {make_uint2(scale[0], scale[1]), make_uint2(scale[2], scale[3])},
+              N, ok ? log2_ring(N) : -1, l, Bgbit, offset};
 }
 
 // A kernel's dynamic shared-memory limit per card, raised with

@@ -15,9 +15,19 @@ plain key int32 [n, 2l, 2, P=2, N] (crypto/polymul.prep1).  The integer
 before the mod-2^32 reduction is exact in both packages, so the result is
 the JAX kernels' bit for bit (csrc/br_ntt.cu has the bound).
 
+K4 (and K3, ops/br3.py) run in the cluster form of csrc/br_cluster.cuh:
+four CTAs (prime, part) per group of R rows, `plan(G)` gives R and the
+cluster count (R = 1 below R2_MIN_G rows, 2 below R4_MIN_G, else 4;
+`cluster_rows` is the kernel's row mapping).  They read the key in its
+kernel form (`kernel_key`: a reordered copy of the prep1 residues times
+N^-1 2^32 mod p), built once beside the prep1 key and kept as its
+attribute (`attach_kernel_key`; crypto/ops.py:DeviceKeys.from_evalkey
+does it for bk_ntt and bk_ntt_u); a launch on a key without one raises.
+
 `br_step` (K5) and `br_loop` (K4) launch csrc/br_ntt.cu for CUDA tensors
 and run the plain twin `cmux_steps_ref` for CPU tensors; nothing else
-selects between them.  STEP_LAUNCHES and LOOP_LAUNCHES count the launches.
+selects between them.  STEP_LAUNCHES and LOOP_LAUNCHES count the launches,
+LAST_PLAN holds the (R, clusters) of the last cluster launch.
 """
 
 from __future__ import annotations
@@ -33,7 +43,13 @@ from . import nvcc
 
 STEP_LAUNCHES = 0     # K5 launches: one per CMUX step
 LOOP_LAUNCHES = 0     # K4 launches: one per blind rotation
+LAST_PLAN = None      # (R, clusters) of the last K3 or K4 launch
 SOURCE = "br_ntt.cu"
+
+CLUSTER = 4           # CTAs a row group in K3/K4: (prime p, part u)
+ROWS = (1, 2, 4)      # rows a CTA, the kernels' instances
+R2_MIN_G = 512        # from this many rows a CTA carries 2 rows
+R4_MIN_G = 1024       # and from this many, 4
 
 
 # --------------------------------------------------------------------------- #
@@ -68,14 +84,87 @@ def check_steps(amounts, acc, bk, RR: int, p: Params):
 
 def ring_args(acc: torch.Tensor, p: Params) -> tuple:
     """The csrc/ntt.cuh kernels' ring arguments for a launch on acc's card:
-    (tables, psi powers, offset, ninv1, ninv2, device index, stream)."""
-    tab, psipow = ntt.kernel_tables(p.N, acc.device)
-    ninv = ntt.tables(p.N)["ninv"]
-    dev = acc.device.index if acc.device.index is not None else \
-        torch.cuda.current_device()
+    (ntt.KernelTables, decompose1's offset, device index, stream)."""
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    return (tab, psipow, cops.decompose1_offset(p), int(ninv[0]),
-            int(ninv[1]), dev, stream)
+    return (ntt.kernel_tables(p.N, acc.device), cops.decompose1_offset(p),
+            device_index(acc.device), stream)
+
+
+def scale_arg(tabs: ntt.KernelTables):
+    """The inverse's scale (ntt.key_factor with companions) as the
+    uint32[4] the K5 and K6 launchers take."""
+    return (ctypes.c_uint32 * 4)(*tabs.scale)
+
+
+# --------------------------------------------------------------------------- #
+# the cluster form's plan and key form (K4 here, K3 in ops/br3.py)
+# --------------------------------------------------------------------------- #
+
+
+def rows_per_cta(G: int) -> int:
+    """R: the rows a CTA of K3/K4 carries at a batch of G rows.  Narrow
+    batches keep R = 1 (4G CTAs, as many SMs as they can get); wide ones
+    share each key step among R rows of a CTA."""
+    return 4 if G >= R4_MIN_G else 2 if G >= R2_MIN_G else 1
+
+
+def plan(G: int, R: int = None) -> tuple:
+    """(R, clusters) of a K3/K4 launch over G rows: R from rows_per_cta
+    unless given, ceil(G / R) clusters of CLUSTER CTAs."""
+    R = rows_per_cta(G) if R is None else R
+    if R not in ROWS:
+        raise ValueError(f"rows a CTA must be one of {ROWS}, got {R}")
+    return R, -(-G // R)
+
+
+def cluster_rows(G: int, R: int = None) -> torch.Tensor:
+    """The kernel's row mapping: int64 [clusters, R], cluster c's rows
+    c*R .. c*R + R - 1, -1 where that passes G (the last cluster's idle
+    slots: they compute on zeros and write nothing)."""
+    R, n = plan(G, R)
+    rows = torch.arange(n * R).reshape(n, R)
+    return torch.where(rows < G, rows, -1)
+
+
+def kernel_key(bk: torch.Tensor, p: Params) -> torch.Tensor:
+    """The K3/K4 kernel form of a prep1 key bk int32 [S, M*2l, 2, P, N]
+    (rows m*2l + u*l + j): int32 [S, P, 2 (u), M, l, 2 (v), N], the residue
+    k * N^-1 * 2^32 mod p of bk[s, m*2l + u*l + j, v, p] (ntt.key_factor),
+    so CTA (p, u) reads one contiguous slice a step.  Built on bk's device,
+    32 steps at a time."""
+    S, RR = bk.shape[:2]
+    M = RR // (2 * p.l)
+    shape = (len(ntt.PRIMES), 1, 1, 1, 1, 1)
+    f = torch.tensor(ntt.key_factor(p.N), dtype=torch.int64,
+                     device=bk.device).reshape(shape)
+    primes = torch.tensor(ntt.PRIMES, dtype=torch.int64,
+                          device=bk.device).reshape(shape)
+    out = torch.empty((S, len(ntt.PRIMES), 2, M, p.l, 2, p.N),
+                      dtype=torch.int32, device=bk.device)
+    for s0 in range(0, S, 32):
+        k = bk[s0: s0 + 32].reshape(-1, M, 2, p.l, 2, len(ntt.PRIMES), p.N)
+        out[s0: s0 + 32] = (k.permute(0, 5, 2, 1, 3, 4, 6).to(torch.int64)
+                            * f % primes).to(torch.int32)
+    return out
+
+
+def attach_kernel_key(bk: torch.Tensor, p: Params) -> torch.Tensor:
+    """Build bk's kernel form once and keep it as bk.kernel_key (a view or
+    slice of bk is another tensor and has none); returns bk."""
+    if getattr(bk, "kernel_key", None) is None:
+        bk.kernel_key = kernel_key(bk, p)
+    return bk
+
+
+def kernel_key_of(bk: torch.Tensor) -> torch.Tensor:
+    """bk's kernel form; raises for a key without one (the kernels never
+    build it per launch)."""
+    kk = getattr(bk, "kernel_key", None)
+    if kk is None:
+        raise ValueError("this key has no kernel form: build it once with "
+                         "ops.br.attach_kernel_key (DeviceKeys.from_evalkey "
+                         "does)")
+    return kk
 
 
 # --------------------------------------------------------------------------- #
@@ -105,11 +194,14 @@ def cmux_steps_ref(rows: torch.Tensor, acc: torch.Tensor, bk: torch.Tensor,
 def _bind(lib):
     vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.br_ntt_step.restype = ci
-    lib.br_ntt_step.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, u32, u32,
-                                u32, ci, vp]
+    lib.br_ntt_step.argtypes = [vp, vp, vp, vp, ctypes.POINTER(u32), ci, ci,
+                                ci, ci, u32, ci, vp]
     lib.br_ntt_loop.restype = ci
-    lib.br_ntt_loop.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, u32, u32,
-                                u32, ci, vp]
+    lib.br_ntt_loop.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, u32, ci,
+                                ci, vp]
+    lib.br_ntt_loop_plan.restype = ci
+    lib.br_ntt_loop_plan.argtypes = [ci, ci, ci, ci,
+                                     ctypes.POINTER(ctypes.c_longlong)]
     lib.br_ntt_error_string.restype = ctypes.c_char_p
     lib.br_ntt_error_string.argtypes = [ci]
     lib.br_ntt_smem.restype = ctypes.c_size_t
@@ -117,42 +209,67 @@ def _bind(lib):
 
 
 def smem_bytes(p: Params) -> int:
-    """Dynamic shared memory of a K5 or K4 block at p, as the launcher
-    sizes it (builds and loads the library)."""
+    """Dynamic shared memory of a K5 block at p, as the launcher sizes it
+    (builds and loads the library)."""
     return nvcc.load(SOURCE, _bind).br_ntt_smem(p.N, p.l)
 
 
-def _launch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
-    global STEP_LAUNCHES, LOOP_LAUNCHES
+def check_plan(rc: int, out, err) -> tuple:
+    """(smem, clusters) from a *_plan call's out, or raise its error."""
+    if rc != 0:
+        raise RuntimeError(f"the card refuses the cluster launch: {err(rc)}")
+    return int(out[0]), int(out[1])
+
+
+def device_index(device) -> int:
+    dev = torch.device(device if device is not None else "cuda")
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def cluster_plan(p: Params, R: int, device=None) -> tuple:
+    """(dynamic shared memory bytes a CTA, clusters the card holds at once)
+    of K4 at R rows a CTA on `device`'s card; raises where the card refuses
+    (builds and loads the library)."""
+    lib = nvcc.load(SOURCE, _bind)
+    out = (ctypes.c_longlong * 2)()
+    return check_plan(lib.br_ntt_loop_plan(p.N, p.l, R, device_index(device),
+                                           out), out, lib.br_ntt_error_string)
+
+
+def _launch(rows, acc, bk, p: Params, loop: bool, R=None) -> torch.Tensor:
+    global STEP_LAUNCHES, LOOP_LAUNCHES, LAST_PLAN
     lib = nvcc.load(SOURCE, _bind)
     out = acc.clone(memory_format=torch.contiguous_format)  # updated in place
     rows = rows.contiguous()
-    tab, _, off, ninv1, ninv2, dev, stream = ring_args(acc, p)
+    tabs, off, dev, stream = ring_args(acc, p)
     G = acc.shape[0]
     if loop:
-        rc = lib.br_ntt_loop(out.data_ptr(), rows.data_ptr(), bk.data_ptr(),
-                             tab.data_ptr(), G, bk.shape[0], p.N, p.l,
-                             p.Bgbit, off, ninv1, ninv2, dev, stream)
+        kk = kernel_key_of(bk)
+        R, clusters = plan(G, R)
+        rc = lib.br_ntt_loop(out.data_ptr(), rows.data_ptr(), kk.data_ptr(),
+                             tabs.tw.data_ptr(), G, bk.shape[0], p.N, p.l,
+                             p.Bgbit, off, R, dev, stream)
     else:
         rc = lib.br_ntt_step(out.data_ptr(), rows.data_ptr(), bk.data_ptr(),
-                             tab.data_ptr(), G, p.N, p.l, p.Bgbit, off,
-                             ninv1, ninv2, dev, stream)
+                             tabs.tw.data_ptr(), scale_arg(tabs), G, p.N,
+                             p.l, p.Bgbit, off, dev, stream)
     if rc != 0:
         raise RuntimeError(f"br_ntt {'loop' if loop else 'step'} kernel "
                            f"launch failed: {lib.br_ntt_error_string(rc)}")
     if loop:
         LOOP_LAUNCHES += 1
+        LAST_PLAN = (R, clusters)
     else:
         STEP_LAUNCHES += 1
     return out
 
 
-def _dispatch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
+def _dispatch(rows, acc, bk, p: Params, loop: bool, R=None) -> torch.Tensor:
     check_steps(rows, acc, bk, 2 * p.l, p)
     if acc.shape[0] == 0:
         return acc.clone()
     if acc.is_cuda:
-        return _launch(rows, acc, bk, p, loop)
+        return _launch(rows, acc, bk, p, loop, R)
     if acc.device.type != "cpu":
         raise ValueError(f"unsupported device {acc.device}")
     return cmux_steps_ref(rows, acc, bk, p)
@@ -167,11 +284,13 @@ def br_step(acc: torch.Tensor, a: torch.Tensor, key: torch.Tensor,
 
 
 def br_loop(rows: torch.Tensor, acc: torch.Tensor, bk: torch.Tensor,
-            p: Params) -> torch.Tensor:
+            p: Params, R: int = None) -> torch.Tensor:
     """K4: all CMUX steps, rows int32 [n, G] against bk int32
-    [n, 2l, 2, P, N], in one launch; returns the new acc.  A CUDA input
-    runs the kernel, a CPU input the twin."""
-    return _dispatch(rows, acc, bk, p, loop=True)
+    [n, 2l, 2, P, N] (with its kernel form), in one launch of plan(G, R)'s
+    clusters; returns the new acc.  A CUDA input runs the kernel, a CPU
+    input the twin (R is then only checked)."""
+    plan(max(acc.shape[0], 1), R)
+    return _dispatch(rows, acc, bk, p, loop=True, R=R)
 
 
 # --------------------------------------------------------------------------- #

@@ -28,6 +28,7 @@ import torch
 from ..crypto import ntt, polymul
 from ..params import Params
 from . import nvcc
+from .br import device_index, scale_arg
 
 LAUNCHES = 0          # external-product kernels launched on the card
 SOURCE = "extprod1_ntt.cu"
@@ -77,8 +78,9 @@ def extprod1_ref(digits: torch.Tensor, keys: torch.Tensor, idx,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.extprod1_ntt.restype = ci
-    lib.extprod1_ntt.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                 ctypes.c_uint32, ctypes.c_uint32, ci, vp]
+    lib.extprod1_ntt.argtypes = [vp, vp, vp, vp,
+                                 ctypes.POINTER(ctypes.c_uint32), vp, ci, ci,
+                                 ci, ci, ci, vp]
     lib.extprod1_error_string.restype = ctypes.c_char_p
     lib.extprod1_error_string.argtypes = [ci]
     lib.extprod1_ntt_smem.restype = ctypes.c_size_t
@@ -100,14 +102,12 @@ def _launch(digits, keys, idx, p: Params) -> torch.Tensor:
         idx = idx.to(torch.int32).contiguous()
     G, RR, N = digits.shape
     out = torch.empty((G, 2, N), dtype=torch.int32, device=digits.device)
-    ninv = ntt.tables(N)["ninv"]
-    dev = digits.device.index if digits.device.index is not None else \
-        torch.cuda.current_device()
+    tabs = ntt.kernel_tables(N, digits.device)
     rc = lib.extprod1_ntt(
         digits.data_ptr(), keys.data_ptr(),
-        None if idx is None else idx.data_ptr(),
-        ntt.kernel_tables(N, digits.device)[0].data_ptr(), out.data_ptr(),
-        G, RR, N, keys.shape[0], int(ninv[0]), int(ninv[1]), dev,
+        None if idx is None else idx.data_ptr(), tabs.tw.data_ptr(),
+        scale_arg(tabs), out.data_ptr(), G, RR, N, keys.shape[0],
+        device_index(digits.device),
         torch.cuda.current_stream(digits.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("extprod1_ntt kernel launch failed: "

@@ -215,8 +215,9 @@ def test_rotation_steps(port_keys):
 def test_library_hash_covers_headers(tmp_path, monkeypatch):
     """A kernel library is named by its source and every csrc/ header the
     source includes, directly or through another header."""
-    assert nvcc.sources(br.SOURCE) == [br.SOURCE, "ntt.cuh"]
-    assert nvcc.sources(br3.SOURCE) == [br3.SOURCE, "ntt.cuh"]
+    assert nvcc.sources(br.SOURCE) == [br.SOURCE, "br_cluster.cuh", "ntt.cuh"]
+    assert nvcc.sources(br3.SOURCE) == [br3.SOURCE, "br_cluster.cuh",
+                                        "ntt.cuh"]
     assert nvcc.sources("extprod1_ntt.cu") == ["extprod1_ntt.cu", "ntt.cuh"]
     (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n #include "b.cuh"\n')
@@ -239,11 +240,12 @@ def _card():
 
 
 def _random_case(p, G, steps, rr, seed):
-    """Random accumulators, amounts and a prepared random key on the card."""
+    """Random accumulators, amounts and a prepared random key (with its
+    kernel form) on the card."""
     rng = np.random.default_rng(seed)
     acc = _t32(rng.integers(0, 1 << 32, (G, 2, p.N), dtype=np.uint32)).cuda()
     rows = rng.integers(0, 1 << 32, (steps, rr, 2, p.N), dtype=np.uint32)
-    key = tpm.prep1(_t32(rows).cuda(), p)
+    key = br.attach_kernel_key(tpm.prep1(_t32(rows).cuda(), p), p)
     amounts = torch.from_numpy(
         rng.integers(0, 2 * p.N, (steps, G), dtype=np.int32)).cuda()
     return acc, amounts, key
@@ -285,6 +287,47 @@ def test_v3_kernel_equals_twin_on_card(params, G, steps, M):
     torch.cuda.synchronize()
     assert br3.LAUNCHES == before + 1
     assert torch.equal(got, want)
+
+
+# G = 1, 2, each rows-a-CTA threshold +- 1, 64, 256, 2048
+CARD_SIZES = sorted({1, 2, 64, 256, 2048} | {
+    g + d for g in (br.R2_MIN_G, br.R4_MIN_G) for d in (-1, 0, 1)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", CARD_SIZES)
+@pytest.mark.parametrize("kernel,M", [("K4", 1), ("K3", 1), ("K3", 3)])
+def test_cluster_kernels_equal_twin_at_cggi128(kernel, M, G):
+    """K4 and K3 (M = 1, 3) at the plan's R for G, a cluster of four CTAs
+    a row group, == their twins on random keys (3 steps)."""
+    _card()
+    p = tparams.CGGI128
+    acc, a, key = _random_case(p, G, 3, 2 * p.l * M, G + M)
+    before = (br.LOOP_LAUNCHES, br3.LAUNCHES)
+    if kernel == "K4":
+        want = br.cmux_steps_ref(a, acc, key, p)
+        got = br.br_loop(a, acc, key, p)
+    else:
+        st = torch.from_numpy(np.random.default_rng(G).integers(
+            0, 2 * p.N, (3, M, G), dtype=np.int32)).cuda()
+        want = br3.br3_ref(st, acc, key, p)
+        got = br3.br3(st, acc, key, p)
+    torch.cuda.synchronize()
+    assert (br.LOOP_LAUNCHES - before[0]) + (br3.LAUNCHES - before[1]) == 1
+    assert br.LAST_PLAN == br.plan(G)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cluster_kernels_refuse_a_key_without_kernel_form():
+    _card()
+    p = tparams.TOY
+    acc, a, key = _random_case(p, 2, 2, 2 * p.l, 3)
+    bare = key.clone()
+    with pytest.raises(ValueError, match="no kernel form"):
+        br.br_loop(a, acc, bare, p)
+    with pytest.raises(ValueError, match="no kernel form"):
+        br3.br3(a[:, None], acc, bare, p)
 
 
 @pytest.mark.cuda
