@@ -6,9 +6,14 @@ Phases, one line each or more:
   1. device     -- nvidia-smi name + power limit, torch.cuda device name;
   2. build      -- the five kernel sources, csrc/tkey_blind_rotate.cu,
                    extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu and micro.cu (the
-                   first and last include csrc/wgmma_s8.cuh), one nvcc each,
-                   started together (sm_90a), with ptxas's register lines
-                   and each kernel's dynamic shared memory; then the SASS
+                   first and last include csrc/wgmma_s8.cuh, the NTT ones
+                   csrc/ntt.cuh, K3/K4 through csrc/br_cluster.cuh), one
+                   nvcc each, started together (sm_90a), with ptxas's
+                   register lines and each kernel's dynamic shared memory;
+                   the cluster shape of K3 and K4 (4 CTAs a row: prime x
+                   part) with each one's shared memory a CTA and the
+                   clusters the card holds at once
+                   (cudaOccupancyMaxActiveClusters); then the SASS
                    opcode mix (cuobjdump -sass) of every int8 product
                    kernel: conv_wgmma_kernel, conv_kernel and mm_step_kernel,
                    raising where a wgmma form has no warpgroup MMA (GMMA)
@@ -63,24 +68,29 @@ Phases, one line each or more:
                    during the encrypted run; s/cycle and one synced cycle's
                    seconds per stage;
  11. br-kernels -- the NTT blind-rotation kernels against their plain twins
-                   at cggi128 on the CRT64 keys of phase 3's eval key: K5
-                   (br_ntt_step, n launches a rotation), K4 (br_ntt_loop), K3
-                   (br3_ntt) at M = 1 on the plain key and M = 3 on the
-                   2-bit-unrolled key (one launch each), max |diff| 0 and
-                   kernel ms vs twin ms at G = 1, 64, 256 and 2048 (the
-                   br-gates phase's batch); and the exact unrolled route
+                   at cggi128 on the CRT64 keys of phase 3's eval key (the
+                   time to build their K3/K4 kernel form, ops/br.py:
+                   kernel_key, is printed): K5 (br_ntt_step, n launches a
+                   rotation), K4 (br_ntt_loop), K3 (br3_ntt) at M = 1 on the
+                   plain key and M = 3 on the 2-bit-unrolled key (one launch
+                   each, G clusters of 4 CTAs as the launcher reports it),
+                   max |diff| 0 and kernel ms vs twin ms at G = 1, 64, 256
+                   and 2048 (the br-gates phase's batch); and the exact
+                   unrolled route
                    (one extprod1_ntt launch at 3*2l rows per key-bit pair,
                    318 in all) at G = 64 against its twin;
  12. br-gates   -- 2048 NANDs through the pallas (K5), pallas2 (K4) and v3
                    (K3, M = 1) routes of DeviceKeys.bk_for, each kernel's
-                   launches counted from 0 over the run, 0 wrong, the max
+                   launches counted from 0 over the run (K3/K4: 2048
+                   clusters of 4), 0 wrong, the max
                    phase error of the 2048 outputs in units of 1/16 of the
                    torus, ms per batch and gate_bootstraps_per_sec beside
                    the tkey route's;
  13. br-slice   -- phase 7's MAC-16 run again with IYOKAN_BR_IMPL=v3 (every
                    level takes the unrolled key: K3 at M = 3); the result
                    equals plain mode and the integers, and K3's launch count
-                   grew from 0 during the encrypted run;
+                   grew from 0 during the encrypted run, its last launch a
+                   grid of clusters of 4;
  14. micro      -- the microbenchmark tools T1-T3 (csrc/micro.cu): the SASS
                    opcodes of each elementwise and small-K inner loop; the
                    tools' entry points as a user runs them (tk_mm_bench at
@@ -98,7 +108,8 @@ Phases, one line each or more:
 The line before the last is the kernels' JSON record (each kernel's launches
 on its path, max |diff| against its twin, ms, twin ms, the bound of the
 same work on the card and what sets it; K1's wgmma form, its mma.sync
-form (small batches) and one record per K2 layout; no PyTorch call
+form (small batches) and one record per K2 layout; K3 at the batch its
+MAC-16 path runs, G = 64, and at G = 256; no PyTorch call
 computes a blind rotation or an external product,
 so their library_ms is null; the micro records time torch._int_mm on the
 same per-step product where it takes it, per step or round like their
@@ -145,6 +156,7 @@ SEED = 20261016
 MEM_CYCLES = 3
 SLICE_CYCLES = 3
 BR_SIZES = (1, 64, 256, 2048)
+BR_THREADS = 256      # a K3/K4 CTA (csrc/br_cluster.cuh)
 
 # The card's peaks for the bounds (H100 SXM, NVIDIA's data sheet at the
 # 700 W limit): int8 tensor-core operations, device-memory bytes, and 32-bit
@@ -215,8 +227,8 @@ def phase_build(p):
     smem = {extprod.SOURCE: f"{extprod.smem_bytes(p, 2 * p.l)} B at 2l "
                             f"rows, {extprod.smem_bytes(p, 6 * p.l)} B at "
                             "3*2l rows",
-            br.SOURCE: f"{br.smem_bytes(p)} B",
-            br3.SOURCE: f"{br3.smem_bytes(p)} B"}
+            br.SOURCE: f"K5 {br.smem_bytes(p)} B",
+            br3.SOURCE: "see the cluster line"}
     for src, path in zip(sources, paths):
         regs = [ln.split(":", 1)[1].strip()
                 for ln in nvcc.LOGS.get(src, "").splitlines()
@@ -224,6 +236,14 @@ def phase_build(p):
         say("build", f"{os.path.relpath(path, ROOT)} (all {len(sources)} "
             f"nvcc in parallel: {dt:.2f} s); ptxas per kernel: {regs}; "
             f"dynamic shared memory: {smem.get(src, 'see the source')}")
+    (k4_smem, k4_n), k3 = br.cluster_plan(p), {
+        m: br3.cluster_plan(p, m) for m in (1, 3)}
+    say("build", f"K3/K4 launch one cluster of {br.CLUSTER} CTAs (prime x "
+        f"part) per row, {BR_THREADS} threads a CTA: K4 {k4_smem} B a CTA, "
+        f"{k4_n} clusters at once; K3 M=1 {k3[1][0]} B, {k3[1][1]} at once; "
+        f"K3 M=3 {k3[3][0]} B, {k3[3][1]} at once; at G = "
+        f"{', '.join(map(str, BR_SIZES))}: "
+        + ", ".join(f"{G} clusters ({4 * G} CTAs)" for G in BR_SIZES))
     for src in (tkey.SOURCE, micro.SOURCE):
         for label, mix in sass_products(nvcc.lib_path(src)).items():
             say("build", f"SASS of {src} {label}: {sum(mix.values())} "
@@ -404,14 +424,27 @@ def max_diff(got, want):
     return int((ops.to_u64(got) - ops.to_u64(want)).abs().max())
 
 
-def br_keys(ek):
+def br_keys(ek, p):
     """The run's eval key as the CRT64 plain and 2-bit-unrolled keys on the
-    card (DeviceKeys on the v3 route: no tkey slab)."""
+    card (DeviceKeys on the v3 route: no tkey slab), each with its K3/K4
+    kernel form; prints the time to build the two kernel forms."""
     with knobs(IYOKAN_BR_IMPL="v3", IYOKAN_EP=None):
         dk = ops.DeviceKeys.from_evalkey(ek, "cuda", with_cb=False)
     if dk.bk_tk is not None or dk.bk_ntt_u is None:
         raise AssertionError("the v3 route did not build both NTT keys")
-    return dk
+    torch.cuda.synchronize()
+    t0 = time.time()
+    forms = [br.kernel_key(k, p) for k in (dk.bk_ntt, dk.bk_ntt_u)]
+    torch.cuda.synchronize()
+    t_key = time.time() - t0
+    for k, f in zip((dk.bk_ntt, dk.bk_ntt_u), forms):
+        if not torch.equal(br.kernel_key_of(k), f):
+            raise AssertionError("DeviceKeys' kernel form != kernel_key")
+    say("br-kernels", f"kernel forms of the plain and unrolled NTT keys "
+        f"({sum(f.numel() for f in forms) * 4 / 1e6:.1f} MB int32) built on "
+        f"the card in {t_key:.3f} s (key set-up, once per DeviceKeys)")
+    del forms
+    return dk, t_key
 
 
 def phase_br_kernels(p, sk, dk, rng, smi):
@@ -444,6 +477,8 @@ def phase_br_kernels(p, sk, dk, rng, smi):
                 raise AssertionError(f"{name}: {n_launch} launches for one "
                                      "blind rotation")
             rec = {"kernel": name, "G": G, "launches": n_launch}
+            if name in CLUSTER_GRIDS:
+                rec["grid"] = check_clusters(name, G)
             rows, acc = tkey._setup(ct, testv, p)
             want, rec["twin_ms"] = timed(lambda: twin(rows, acc))
             err = max_diff(got, want)
@@ -483,6 +518,22 @@ def phase_br_kernels(p, sk, dk, rng, smi):
     return rows_out, worst, unrolled
 
 
+# the cluster kernels: record name prefix -> the launcher's last grid
+CLUSTER_GRIDS = {"br_ntt_loop": br.last_launch, "br3_ntt M=1": br3.last_launch,
+                 "br3_ntt M=3": br3.last_launch, "br3_ntt": br3.last_launch}
+
+
+def check_clusters(name, G):
+    """The (CTAs, cluster size) of the kernel's last launch, as its C
+    launcher reports it; raises unless G clusters of br.CLUSTER CTAs."""
+    grid = CLUSTER_GRIDS[name]()
+    if grid != (br.CLUSTER * G, br.CLUSTER):
+        raise AssertionError(f"{name} at G={G} launched {grid} (CTAs, "
+                             f"cluster size), not {G} clusters of "
+                             f"{br.CLUSTER}")
+    return list(grid)
+
+
 def phase_br_gates(p, sk, dk, rng, smi, tkey_rate):
     """2048 NANDs through each NTT blind-rotation route of bk_for."""
     G = 2048
@@ -507,6 +558,8 @@ def phase_br_gates(p, sk, dk, rng, smi, tkey_rate):
                       "br3_ntt": br3.LAUNCHES}
             if counts[name] != expect or sum(counts.values()) != expect:
                 raise AssertionError(f"{impl}: launches {counts}")
+            if name in CLUSTER_GRIDS:
+                check_clusters(name, G)
             wrong = int((host.decrypt_bits(sk, ops.u32_numpy(res))
                          != want).sum())
             if wrong:
@@ -720,6 +773,9 @@ def phase_slice(smi, phase="slice"):
         raise AssertionError(
             f"the encrypted {phase} run launched {launches} of its route's "
             f"kernel and {others} others")
+    if phase == "br-slice" and br3.last_launch()[1] != br.CLUSTER:
+        raise AssertionError(f"K3's last launch {br3.last_launch()} is not "
+                             f"in clusters of {br.CLUSTER}")
 
     packet_cli.main(["dec", "--key", f["sk"], "--in", f["res.enc"],
                      "--out", f["res.plain"]])
@@ -1236,7 +1292,8 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
     for K5 and K4, the br-slice run for K3, the tk-layouts NAND runs for
     K2's thin, fat2 and L=4 slabs, the tk-slice run for its unrolled slab),
     max |diff| against the twin over every compared shape, ms and twin ms
-    at one shape of that path (G = 2048; K3 at M = 3 and G = 256, MAC-16's
+    at one shape of that path (G = 2048; K3 at M = 3 and G = 64, the batch
+    its MAC-16 path runs, and a second K3 record at G = 256, MAC-16's
     widest level), and the bound of that shape's work."""
     i32 = 4
     G = 2048
@@ -1275,10 +1332,13 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
              br_gates["br_ntt_loop"]["launches"], "br_ntt_loop", 2048, p.n,
              0),
             ("br3_ntt", "br3_ntt.cu", "iyokan_tpu/ops/pallas_br3.py:168",
-             k3_launches, "br3_ntt M=3", 256, nh, 3)):
+             k3_launches, "br3_ntt M=3", 64, nh, 3),
+            ("br3_ntt G=256", "br3_ntt.cu",
+             "iyokan_tpu/ops/pallas_br3.py:168", k3_launches, "br3_ntt M=3",
+             256, nh, 3)):
         io = G * (p.n + 1) * i32 + p.N * i32 + G * 2 * p.N * i32
         errs = [r["max_abs_diff"] for r in br_rows
-                if r["kernel"].split()[0] == name]
+                if r["kernel"].split()[0] == name.split()[0]]
         key_bytes = steps * RR * max(m, 1) * 2 * 2 * p.N * i32
         recs.append((name, src, rep, n_launch, max(errs),
                      next(r for r in br_rows
@@ -1349,7 +1409,7 @@ def main() -> int:
     ep_rows, ep_worst, t_cb = phase_extprod(p, files, smi)
     launches, mem_s_cycle, stages = phase_memory(files, data, smi)
 
-    bdk = br_keys(ek)
+    bdk, t_key = br_keys(ek, p)
     br_rows, _, unrolled = phase_br_kernels(p, sk, bdk, rng, smi)
     br_gates = phase_br_gates(p, sk, bdk, rng, smi, rate)
     del bdk
@@ -1363,6 +1423,7 @@ def main() -> int:
         "mac16_s_per_cycle": s_cycle, "extprod_ms": ep_rows,
         "cb_8bits_s": t_cb, "memmac_s_per_cycle": mem_s_cycle,
         "memmac_stage_s": stages, "br_kernels": br_rows,
+        "br_kernel_key_s": t_key,
         "ntt_unrolled_route": unrolled, "br_gates": br_gates,
         "mac16_v3_s_per_cycle": v3_s_cycle, "tk_layouts": tk_layouts,
         "mac16_tk_small_s_per_cycle": tk_s_cycle,

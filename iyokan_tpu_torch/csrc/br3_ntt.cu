@@ -28,7 +28,7 @@
 // arithmetic variant with the same result) served its matrix unit.
 //
 // Design: the cluster form of br_cluster.cuh, four CTAs (prime p, part u)
-// per group of R rows.  Slot pos of a forward transform holds the value at
+// per row.  Slot pos of a forward transform holds the value at
 // psi^(2k+1), k = bit-reverse(pos) (crypto/ntt.py's order), where X^a - 1
 // is the scalar psi^(a(2k+1)) - 1: CTA (p, u) reads it, with its Shoup
 // companion, from a table of psi^e - 1 mod p for e in [0, 2N)
@@ -44,8 +44,8 @@
 // unrolled, both larger than the 50 MB L2).  The design answers the first
 // with 32-bit Shoup and Montgomery products, N^-1 folded into the key and
 // the psi power's - 1 into the table, and a serial chain per step of l
-// forward and one inverse transform; the second with R rows per CTA
-// sharing each key step read (ops/br.py:plan).
+// forward and one inverse transform; the second by reading each CTA's
+// slice of a step once, with the next step's slice prefetched into L2.
 //
 // Built by iyokan_tpu_torch/ops/nvcc.py (hash of this file and the headers
 // it includes):
@@ -60,68 +60,56 @@
 
 namespace {
 
-ClusterPlan<true, 1, 1> m1_r1;
-ClusterPlan<true, 1, 2> m1_r2;
-ClusterPlan<true, 1, 4> m1_r4;
-ClusterPlan<true, 3, 1> m3_r1;
-ClusterPlan<true, 3, 2> m3_r2;
-ClusterPlan<true, 3, 4> m3_r4;
+ClusterPlans<true, 1> m1_plans;
+ClusterPlans<true, 3> m3_plans;
 
 }  // namespace
 
-// K3's dynamic shared memory per CTA at R rows (br_cluster_smem) and the
-// clusters the card holds at once into out[0], out[1]; 0 or a CUDA error
-// (M not 1, 3 or R not 1, 2, 4: invalid value).
-extern "C" int br3_ntt_plan(int N, int l, int M, int R, int device,
+// K3's dynamic shared memory per CTA (br_cluster_smem) and the clusters the
+// card holds at once into out[0], out[1]; 0 or a CUDA error (M not 1 or 3:
+// invalid value).
+extern "C" int br3_ntt_plan(int N, int l, int M, int device,
                             long long* out) {
-  const size_t smem = br_cluster_smem(N, l, R, true);
-  int n = 0, e;
-  switch (M * 8 + R) {
-    case 9: e = m1_r1.prepare(device, smem, &n); break;
-    case 10: e = m1_r2.prepare(device, smem, &n); break;
-    case 12: e = m1_r4.prepare(device, smem, &n); break;
-    case 25: e = m3_r1.prepare(device, smem, &n); break;
-    case 26: e = m3_r2.prepare(device, smem, &n); break;
-    case 28: e = m3_r4.prepare(device, smem, &n); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  size_t smem = 0;
+  int n = 0;
+  const int e = M == 1   ? m1_plans.prepare(device, N, l, &smem, &n)
+                : M == 3 ? m3_plans.prepare(device, N, l, &smem, &n)
+                         : (int)cudaErrorInvalidValue;
   out[0] = (long long)smem;
   out[1] = n;
   return e;
 }
 
 // K3: all n_steps decompose-first CMUX steps of every row in one launch,
-// ceil(G / R) clusters of four CTAs.
+// one cluster of four CTAs per row.
 //   acc int32 [G, 2, N] (updated in place); steps int32 [n_steps, M, G],
 //   rotation amounts in [0, 2N); kkey int32 [n_steps, 2, 2, M, l, 2, N],
 //   the key's kernel form; tw uint32 [2, 2, N, 2] = psirev, psiinvrev of
 //   P1, P2 with companions; pw uint32 [2, 2N, 2] = psi^e - 1 mod P1, P2
 //   with companions; offset = decompose1's offset mod 2^32; M in {1, 3};
-//   R in {1, 2, 4}; N a power of two in [64, 2048].  Returns 0 or the
-//   first CUDA error; a card that cannot hold one cluster refuses
+//   N a power of two in [64, 2048].  Returns 0 or the first CUDA error; a
+//   card that cannot hold one cluster refuses
 //   (cudaErrorLaunchOutOfResources).
 extern "C" int br3_ntt(void* acc, const void* steps, const void* kkey,
                        const void* tw, const void* pw, int G, int n_steps,
                        int M, int N, int l, int Bgbit, uint32_t offset,
-                       int R, int device, void* stream) {
+                       int device, void* stream) {
   const uint32_t none[4] = {0u, 0u, 0u, 0u};
   const BrArgs A{static_cast<int32_t*>(acc),
                  static_cast<const int32_t*>(steps),
                  static_cast<const uint32_t*>(kkey),
                  static_cast<const uint2*>(pw), n_steps, G,
                  ring(tw, none, N, l, Bgbit, offset)};
-  if (G <= 0 || n_steps <= 0 || A.r.logN < 0)
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (M * 8 + R) {
-    case 9: return m1_r1.launch(A, device, s);
-    case 10: return m1_r2.launch(A, device, s);
-    case 12: return m1_r4.launch(A, device, s);
-    case 25: return m3_r1.launch(A, device, s);
-    case 26: return m3_r2.launch(A, device, s);
-    case 28: return m3_r4.launch(A, device, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return M == 1   ? m1_plans.launch(A, device, s)
+         : M == 3 ? m3_plans.launch(A, device, s)
+                  : (int)cudaErrorInvalidValue;
+}
+
+// The grid (CTAs) and cluster size of this library's last cluster launch.
+extern "C" void br3_ntt_last_launch(int* out) {
+  out[0] = last_launch[0];
+  out[1] = last_launch[1];
 }
 
 extern "C" const char* br3_error_string(int e) {

@@ -1,14 +1,15 @@
 // The cluster form of the NTT blind rotations K4 (br_ntt.cu) and K3
 // (br3_ntt.cu): the whole step loop in one launch, a cluster of four CTAs
-// per group of R rows.
+// per row.
 //
-// CTA rank 2p + u of a cluster owns prime p and part u of the accumulator
-// for its R rows, with acc[u] in its shared memory for every step.  Part
-// u's gadget digit rows depend on acc[u] alone (the rotated difference
+// CTA rank 2p + u of a cluster owns prime p and part u of the row's
+// accumulator, with acc[u] in its shared memory for every step.  Part u's
+// gadget digit rows depend on acc[u] alone (the rotated difference
 // X^a acc[u] - acc[u] for K4, acc[u] itself for K3's decompose-first form),
 // so a step in CTA (p, u) is:
-//   1. the l digit rows of each row, as residues mod p, and their forward
-//      transforms (R*l polynomials together);
+//   1. the l digit rows, as residues mod p, computed inside the first
+//      butterfly stage of their forward transforms (l polynomials
+//      together);
 //   2. the partial key products of both outputs v = 0, 1 in the NTT domain:
 //      sum_j dig[j] * key[u*l + j, v] (K3: sum_m (psi^(a_m(2k+1)) - 1) *
 //      sum_j dig[j] * key[m, u*l + j, v]), each sum of l products reduced
@@ -20,23 +21,22 @@
 //   5. after cluster barrier 2, Garner's CRT with the residues of CTA
 //      (1 - p, u), and acc[u] += the centred integer mod 2^32 (both CTAs of
 //      part u keep the same acc[u]).
-// So a step's serial chain is l forward and one inverse transform (not
-// 2 primes x (2l + 2)) with two cluster barriers, on four times the SMs.
+// So a step's serial chain is l forward transforms (together) and one
+// inverse, not 2 primes x (2l + 2), with two cluster barriers, on four
+// times the SMs.
 //
 // The key comes in its kernel form (ops/br.py:kernel_key): int32
 // [S, 2 (p), 2 (u), M, l, 2 (v), N], residues k N^-1 2^32 mod p, so that
 // mont_reduce of a row sum leaves sum_j dig_j k_j N^-1: the inverse has no
 // scaling pass.  CTA (p, u) reads its contiguous M*l*2*N slice of a step
-// once, into registers, for all R of its rows (the rows share each key
-// step: R times fewer key reads from L2).  Rows past G (the last group's
-// tail) compute on zeros and are not written.
+// straight from L2 into registers, and asks L2 for the next step's slice
+// (prefetch.global.L2) at the start of each step.
 //
 // Shared memory (br_cluster_smem): this prime's forward and inverse
 // twiddles with companions (2N uint2), K3's psi powers minus one with
-// companions (2N uint2), and per row acc[u] (N), the digits (l*N; row 0 of
-// each row's digits then holds the outgoing partial) and two sum buffers
-// (2N: a step writes the one of its parity while the other prime's CTA may
-// still read the other one).
+// companions (2N uint2), acc[u] (N), the digits (l*N; row 0 then holds the
+// outgoing partial) and two sum buffers (2N: a step writes the one of its
+// parity while the other prime's CTA may still read the other one).
 
 #pragma once
 
@@ -50,7 +50,6 @@ namespace cg = cooperative_groups;
 
 constexpr int BR_THREADS = 256;
 constexpr int BR_CLUSTER = 4;  // CTA rank 2p + u: prime p, part u
-constexpr int MAX_L = 4;
 
 struct BrArgs {
   int32_t* acc;            // [G, 2, N], updated in place
@@ -61,181 +60,190 @@ struct BrArgs {
   Ring r;
 };
 
-inline size_t br_cluster_smem(int N, int l, int R, bool v3) {
+inline size_t br_cluster_smem(int N, int l, bool v3) {
   return (size_t)(v3 ? 4 : 2) * N * sizeof(uint2) +
-         (size_t)R * (3 + l) * N * sizeof(uint32_t);
+         (size_t)(3 + l) * N * sizeof(uint32_t);
 }
 
-template <uint32_t P, bool V3, int M, int R>
+// Gadget digits j < L of coefficient c of part u, as residues mod P: of
+// X^a x - x (K4) or of x (K3).
+template <uint32_t P, bool V3, int L>
+__device__ __forceinline__ void digits_at(const uint32_t* x, int c, int a,
+                                          const Ring& r, uint32_t* out) {
+  uint32_t xp;
+  if (V3) {
+    xp = x[c] + r.offset;
+  } else {  // coefficient c of X^a x is x[c - a], negated past N
+    int m = c - a;
+    if (m < 0) m += 2 * r.N;
+    const uint32_t rot = m < r.N ? x[m] : 0u - x[m - r.N];
+    xp = rot - x[c] + r.offset;
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    out[j] = residue<P>(gadget_digit(xp, j, r.Bgbit));
+}
+
+template <uint32_t P, bool V3, int M, int L>
 __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
                                 uint32_t* sm) {
   cg::cluster_group cluster = cg::this_cluster();
   const Ring& r = A.r;
-  const int N = r.N, logN = r.logN, l = r.l, nt = blockDim.x;
+  const int N = r.N, H = N >> 1, logN = r.logN, nt = blockDim.x;
   const int tid = threadIdx.x, p = rank >> 1, u = rank & 1;
-  const int g0 = (blockIdx.x / BR_CLUSTER) * R, G = A.G;
+  const int g = blockIdx.x / BR_CLUSTER, G = A.G;
   uint2* twf = reinterpret_cast<uint2*>(sm);
   uint2* twi = twf + N;
   uint2* pw = twi + N;  // K3 only
   uint32_t* acc = reinterpret_cast<uint32_t*>(pw + (V3 ? 2 * N : 0));
-  uint32_t* dig = acc + R * N;      // [R][l][N]
-  uint32_t* sum = dig + R * l * N;  // [2][R][N]
+  uint32_t* dig = acc + N;      // [L][N]
+  uint32_t* sum = dig + L * N;  // [2][N]
 
   for (int i = tid; i < N; i += nt) {
     twf[i] = r.tw[(2 * p) * N + i];
     twi[i] = r.tw[(2 * p + 1) * N + i];
+    acc[i] = (uint32_t)A.acc[((size_t)g * 2 + u) * N + i];
   }
   if (V3)
     for (int i = tid; i < 2 * N; i += nt) pw[i] = A.pw[p * 2 * N + i];
-  for (int idx = tid; idx < R * N; idx += nt) {
-    const int g = g0 + (idx >> logN), c = idx & (N - 1);
-    acc[idx] =
-        g < G ? (uint32_t)A.acc[((size_t)g * 2 + u) * N + c] : 0u;
-  }
   // every CTA of the cluster runs before one reads another's shared memory
   cluster.sync();
   const uint32_t* dig_pu = cluster.map_shared_rank(dig, rank ^ 1);
   const uint32_t* sum_pp = cluster.map_shared_rank(sum, rank ^ 2);
-  const size_t kstep = (size_t)4 * M * l * 2 * N;
+  const int slice = M * L * 2 * N;  // int32 of this CTA's key a step
+  const uint32_t* key = A.key + (size_t)(2 * p + u) * slice;
 
-  for (int i = 0; i < A.S; ++i) {
-    int am[R][M];
+  for (int i = 0; i < A.S; ++i, key += 4 * (size_t)slice) {
+    if (i + 1 < A.S)
+      for (int o = tid * 32; o < slice; o += nt * 32)  // 128-byte lines
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(key + 4 * slice + o));
+    int am[M];
 #pragma unroll
-    for (int rr = 0; rr < R; ++rr)
-#pragma unroll
-      for (int m = 0; m < M; ++m)
-        am[rr][m] = g0 + rr < G
-                        ? A.amounts[((size_t)i * M + m) * G + g0 + rr]
-                        : 0;
+    for (int m = 0; m < M; ++m)
+      am[m] = A.amounts[((size_t)i * M + m) * G + g];
 
-    // 1. the digit rows of part u, then their forward transforms
+    // 1. the digit rows inside the first forward stage (pairs c, c + N/2),
+    // then the rest of their forward transforms
+    const uint2 w1 = twf[1];
+    for (int c = tid; c < H; c += nt) {
+      uint32_t x0[L], x1[L];
+      digits_at<P, V3, L>(acc, c, am[0], r, x0);
+      digits_at<P, V3, L>(acc, c + H, am[0], r, x1);
 #pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      const uint32_t* x = acc + rr * N;
-      for (int c = tid; c < N; c += nt) {
-        uint32_t xp;
-        if (V3) {
-          xp = x[c] + r.offset;
-        } else {  // X^a acc[u] - acc[u]: coefficient c of X^a x is x[c - a]
-          int mm = c - am[rr][0];
-          if (mm < 0) mm += 2 * N;
-          const uint32_t rot = mm < N ? x[mm] : 0u - x[mm - N];
-          xp = rot - x[c] + r.offset;
-        }
-        for (int j = 0; j < l; ++j)
-          dig[(rr * l + j) * N + c] =
-              residue<P>(gadget_digit(xp, j, r.Bgbit));
+      for (int j = 0; j < L; ++j) {
+        const uint32_t wv = shoup_mul<P>(x1[j], w1);
+        dig[j * N + c] = addmod<P>(x0[j], wv);
+        dig[j * N + c + H] = submod<P>(x0[j], wv);
       }
     }
     __syncthreads();
-    ntt_fwd<P>(dig, R * l, twf, N, logN);
+    ntt_fwd<P, L>(dig, L, twf, N, logN, logN - 2);
 
     // 2. the partial key products of both outputs
-    const int par = i & 1;
-    uint32_t* own = sum + par * R * N;
-    const uint32_t* key =
-        A.key + (size_t)i * kstep + (size_t)(2 * p + u) * M * l * 2 * N;
+    uint32_t* own = sum + (i & 1) * N;
     for (int c = tid; c < N; c += nt) {
-      uint32_t kv[M][MAX_L][2];
+      uint32_t kv[M][L][2], d[L];
 #pragma unroll
       for (int m = 0; m < M; ++m)
 #pragma unroll
-        for (int j = 0; j < MAX_L; ++j)
+        for (int j = 0; j < L; ++j)
 #pragma unroll
           for (int v = 0; v < 2; ++v)
-            if (j < l)
-              kv[m][j][v] = __ldg(key + ((m * l + j) * 2 + v) * N + c);
+            kv[m][j][v] = __ldg(key + ((m * L + j) * 2 + v) * N + c);
+#pragma unroll
+      for (int j = 0; j < L; ++j) d[j] = dig[j * N + c];
       const int odd =
           V3 ? 2 * (int)(__brev((unsigned)c) >> (32 - logN)) + 1 : 0;
+      uint32_t s[2];
 #pragma unroll
-      for (int rr = 0; rr < R; ++rr) {
-        uint32_t d[MAX_L];
+      for (int v = 0; v < 2; ++v) {
+        uint32_t sv = 0;
 #pragma unroll
-        for (int j = 0; j < MAX_L; ++j)
-          if (j < l) d[j] = dig[(rr * l + j) * N + c];
-        uint32_t s[2];
+        for (int m = 0; m < M; ++m) {
+          uint64_t T = 0;  // at most 4 products below P^2: < 2P 2^32
 #pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          uint32_t sv = 0;
-#pragma unroll
-          for (int m = 0; m < M; ++m) {
-            uint64_t T = 0;  // at most 4 products below P^2: < 2P 2^32
-#pragma unroll
-            for (int j = 0; j < MAX_L; ++j)
-              if (j < l) T += (uint64_t)d[j] * kv[m][j][v];
-            const uint32_t t = mont_reduce<P>(T);
-            sv = V3 ? addmod<P>(sv, shoup_mul<P>(
-                                        t, pw[(am[rr][m] * odd) &
-                                              (2 * N - 1)]))
-                    : t;
-          }
-          s[v] = sv;
+          for (int j = 0; j < L; ++j) T += (uint64_t)d[j] * kv[m][j][v];
+          const uint32_t t = mont_reduce<P>(T);
+          sv = V3 ? addmod<P>(sv, shoup_mul<P>(
+                                      t, pw[(am[m] * odd) & (2 * N - 1)]))
+                  : t;
         }
-        dig[rr * l * N + c] = u ? s[0] : s[1];  // read by CTA (p, 1 - u)
-        own[rr * N + c] = u ? s[1] : s[0];
+        s[v] = sv;
       }
+      dig[c] = u ? s[0] : s[1];  // read by CTA (p, 1 - u)
+      own[c] = u ? s[1] : s[0];
     }
     cluster.sync();  // 1: both parts' partials are in place
 
     // 3, 4. output u: own partial + the other part's, inverse transform
-    ntt_inv<P>(own, R, twi, N, logN, dig_pu, l * N, make_uint2(0u, 0u),
-               false);
+    ntt_inv<P, 1>(own, 1, twi, N, logN, dig_pu, 0, make_uint2(0u, 0u),
+                  false);
     cluster.sync();  // 2: both primes' residues of part u are in place
 
     // 5. Garner with the other prime's CTA, into acc[u]
-    const uint32_t* other = sum_pp + par * R * N;
-    for (int idx = tid; idx < R * N; idx += nt) {
-      const uint32_t mine = own[idx], theirs = other[idx];
-      acc[idx] += p == 0 ? crt_mod32(mine, theirs) : crt_mod32(theirs, mine);
+    const uint32_t* other = sum_pp + (i & 1) * N;
+    for (int c = tid; c < N; c += nt) {
+      const uint32_t mine = own[c], theirs = other[c];
+      acc[c] += p == 0 ? crt_mod32(mine, theirs) : crt_mod32(theirs, mine);
     }
     __syncthreads();
   }
   cluster.sync();  // the other CTAs' last reads of this one are done
   if (p == 0)
-    for (int idx = tid; idx < R * N; idx += nt) {
-      const int g = g0 + (idx >> logN), c = idx & (N - 1);
-      if (g < G) A.acc[((size_t)g * 2 + u) * N + c] = (int32_t)acc[idx];
-    }
+    for (int c = tid; c < N; c += nt)
+      A.acc[((size_t)g * 2 + u) * N + c] = (int32_t)acc[c];
 }
 
-template <bool V3, int M, int R>
+template <bool V3, int M, int L>
 __global__ void __launch_bounds__(BR_THREADS)
     br_cluster_kernel(const BrArgs A) {
   extern __shared__ __align__(16) uint32_t br_sm[];
   const unsigned rank = cg::this_cluster().block_rank();
   if (rank >> 1)
-    br_cluster_body<P2, V3, M, R>(A, rank, br_sm);
+    br_cluster_body<P2, V3, M, L>(A, rank, br_sm);
   else
-    br_cluster_body<P1, V3, M, R>(A, rank, br_sm);
+    br_cluster_body<P1, V3, M, L>(A, rank, br_sm);
 }
 
 // Dynamic shared memory and cluster checks of one instantiation, per card:
 // the limit raised once, and cudaOccupancyMaxActiveClusters read once (a
 // card that can hold no cluster of this kernel refuses the launch).
-template <bool V3, int M, int R>
+// The grid and cluster sizes of the last K3 or K4 launch of a library, as
+// launched (br_ntt_last_launch, br3_ntt_last_launch report them).
+int last_launch[2] = {0, 0};
+
+template <bool V3, int M, int L>
 struct ClusterPlan {
   SmemLimit limit;
   int clusters[MAX_DEVICES] = {};
 
+  static cudaLaunchConfig_t config(int n_clusters, size_t smem,
+                                   cudaStream_t stream,
+                                   cudaLaunchAttribute* at) {
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = BR_CLUSTER;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(BR_CLUSTER * n_clusters);
+    cfg.blockDim = dim3(BR_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    return cfg;
+  }
+
   // 0 or a CUDA error; *max_clusters: clusters the card holds at once.
   int prepare(int device, size_t smem, int* max_clusters) {
-    const int e = limit.prepare(br_cluster_kernel<V3, M, R>, device, smem);
+    const int e = limit.prepare(br_cluster_kernel<V3, M, L>, device, smem);
     if (e) return e;
     if (!clusters[device]) {
-      cudaLaunchConfig_t cfg = {};
       cudaLaunchAttribute at[1];
-      at[0].id = cudaLaunchAttributeClusterDimension;
-      at[0].val.clusterDim.x = BR_CLUSTER;
-      at[0].val.clusterDim.y = 1;
-      at[0].val.clusterDim.z = 1;
-      cfg.gridDim = dim3(BR_CLUSTER);
-      cfg.blockDim = dim3(BR_THREADS);
-      cfg.dynamicSmemBytes = smem;
-      cfg.attrs = at;
-      cfg.numAttrs = 1;
+      const cudaLaunchConfig_t cfg = config(1, smem, nullptr, at);
       int n = 0;
       const cudaError_t q = cudaOccupancyMaxActiveClusters(
-          &n, br_cluster_kernel<V3, M, R>, &cfg);
+          &n, br_cluster_kernel<V3, M, L>, &cfg);
       if (q != cudaSuccess) return (int)q;
       if (n < 1) return (int)cudaErrorLaunchOutOfResources;
       clusters[device] = n;
@@ -244,28 +252,53 @@ struct ClusterPlan {
     return 0;
   }
 
-  // Launches ceil(G / R) clusters of BR_CLUSTER CTAs on `stream`.
+  // Launches one cluster of BR_CLUSTER CTAs per row on `stream`.
   int launch(const BrArgs& A, int device, cudaStream_t stream) {
-    const size_t smem = br_cluster_smem(A.r.N, A.r.l, R, V3);
+    const size_t smem = br_cluster_smem(A.r.N, L, V3);
     int n = 0;
     const int e = prepare(device, smem, &n);
     if (e) return e;
-    cudaLaunchConfig_t cfg = {};
     cudaLaunchAttribute at[1];
-    at[0].id = cudaLaunchAttributeClusterDimension;
-    at[0].val.clusterDim.x = BR_CLUSTER;
-    at[0].val.clusterDim.y = 1;
-    at[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(BR_CLUSTER * ((A.G + R - 1) / R));
-    cfg.blockDim = dim3(BR_THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = at;
-    cfg.numAttrs = 1;
+    const cudaLaunchConfig_t cfg = config(A.G, smem, stream, at);
     const cudaError_t q =
-        cudaLaunchKernelEx(&cfg, br_cluster_kernel<V3, M, R>, A);
+        cudaLaunchKernelEx(&cfg, br_cluster_kernel<V3, M, L>, A);
     if (q != cudaSuccess) return (int)q;
+    last_launch[0] = (int)cfg.gridDim.x;
+    last_launch[1] = (int)at[0].val.clusterDim.x;
     return (int)cudaGetLastError();
+  }
+};
+
+// The instances of one kernel (V3, M) for l = 1..4, chosen by l.
+template <bool V3, int M>
+struct ClusterPlans {
+  ClusterPlan<V3, M, 1> l1;
+  ClusterPlan<V3, M, 2> l2;
+  ClusterPlan<V3, M, 3> l3;
+  ClusterPlan<V3, M, 4> l4;
+
+  // 0 or a CUDA error; *smem: bytes a CTA; *n: clusters the card holds.
+  int prepare(int device, int N, int l, size_t* smem, int* n) {
+    *smem = br_cluster_smem(N, l, V3);
+    switch (l) {
+      case 1: return l1.prepare(device, *smem, n);
+      case 2: return l2.prepare(device, *smem, n);
+      case 3: return l3.prepare(device, *smem, n);
+      case 4: return l4.prepare(device, *smem, n);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+
+  int launch(const BrArgs& A, int device, cudaStream_t stream) {
+    if (A.G <= 0 || A.S <= 0 || A.r.logN < 0)
+      return (int)cudaErrorInvalidValue;
+    switch (A.r.l) {
+      case 1: return l1.launch(A, device, stream);
+      case 2: return l2.launch(A, device, stream);
+      case 3: return l3.launch(A, device, stream);
+      case 4: return l4.launch(A, device, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 };
 

@@ -23,7 +23,7 @@
 // TPU's matrix unit; Hopper multiplies 32 x 32 bits natively.
 //
 // K4 is the cluster form of br_cluster.cuh: four CTAs (prime, part) per
-// group of R rows, over the key's kernel form (ops/br.py:kernel_key).
+// row, over the key's kernel form (ops/br.py:kernel_key).
 // What bounds it on the H100: 32-bit integer multiplies (per row and step
 // 2 primes x ((2l + 2) N/2 log2 N butterflies + 2 * 2l * N key products)
 // + 2N Garner products at cggi128: about three multiplies each in Shoup or
@@ -32,8 +32,10 @@
 // every step of it.  The design answers the first with 32-bit Shoup and
 // Montgomery products (ntt.cuh), N^-1 folded into the key, and a serial
 // chain per step of l forward and one inverse transform (four CTAs work
-// on a row); the second with R rows per CTA sharing each key step read
-// (ops/br.py:plan picks R from G).
+// on a row); the second by reading each CTA's slice of a step once, into
+// registers, with the next step's slice prefetched into L2.  (Rows sharing
+// a key step, R rows a CTA, were measured slower at every batch on the
+// H100 and left out: PERF.md, PR 7.)
 //
 // K5 keeps its PR-3 structure and key layout: one block of N/2 threads per
 // row and launch, both primes in turn, the prep1 key read as it is; it
@@ -102,10 +104,10 @@ __device__ void one_prime(const uint32_t* acc, int a,
                           uint32_t* dig, uint32_t* out, const Ring& r) {
   rotated_digits<P>(acc, a, dig, r);
   __syncthreads();
-  ntt_fwd<P>(dig, 2 * r.l, r.tw + 2 * pi * r.N, r.N, r.logN);
+  ntt_fwd<P, 2>(dig, 2 * r.l, r.tw + 2 * pi * r.N, r.N, r.logN);
   key_product<P>(dig, key, pi, out, r);
   __syncthreads();
-  ntt_inv<P>(out, 2, r.tw + (2 * pi + 1) * r.N, r.N, r.logN, nullptr, 0,
+  ntt_inv<P, 2>(out, 2, r.tw + (2 * pi + 1) * r.N, r.N, r.logN, nullptr, 0,
              r.scale[pi]);
 }
 
@@ -131,9 +133,7 @@ br_step_kernel(int32_t* acc_g, const int32_t* __restrict__ a_row,  // [G]
 }
 
 SmemLimit step_limit;
-ClusterPlan<false, 1, 1> loop_r1;
-ClusterPlan<false, 1, 2> loop_r2;
-ClusterPlan<false, 1, 4> loop_r4;
+ClusterPlans<false, 1> loop_plans;
 
 }  // namespace
 
@@ -165,47 +165,40 @@ extern "C" int br_ntt_step(void* acc, const void* a_row, const void* key,
   return (int)cudaGetLastError();
 }
 
-// K4's dynamic shared memory per CTA at R rows (br_cluster_smem) and the
-// clusters the card holds at once (cudaOccupancyMaxActiveClusters) into
-// out[0], out[1]; 0 or a CUDA error (R not 1, 2, 4: invalid value).
-extern "C" int br_ntt_loop_plan(int N, int l, int R, int device,
-                                long long* out) {
-  const size_t smem = br_cluster_smem(N, l, R, false);
-  int n = 0, e;
-  switch (R) {
-    case 1: e = loop_r1.prepare(device, smem, &n); break;
-    case 2: e = loop_r2.prepare(device, smem, &n); break;
-    case 4: e = loop_r4.prepare(device, smem, &n); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+// K4's dynamic shared memory per CTA (br_cluster_smem) and the clusters the
+// card holds at once (cudaOccupancyMaxActiveClusters) into out[0], out[1];
+// 0 or a CUDA error.
+extern "C" int br_ntt_loop_plan(int N, int l, int device, long long* out) {
+  size_t smem = 0;
+  int n = 0;
+  const int e = loop_plans.prepare(device, N, l, &smem, &n);
   out[0] = (long long)smem;
   out[1] = n;
   return e;
 }
 
-// K4: all n CMUX steps of every row in one launch, ceil(G / R) clusters of
-// four CTAs (R = 1, 2 or 4 rows a CTA).
+// K4: all n CMUX steps of every row in one launch, one cluster of four
+// CTAs per row.
 //   acc int32 [G, 2, N] (updated in place); abar_t int32 [n, G] (row i:
 //   step i's amounts); kkey int32 [n, 2, 2, 1, l, 2, N], the key's kernel
 //   form; tw, offset as br_ntt_step.  Returns 0 or the first CUDA error; a
 //   card that cannot hold one cluster refuses (cudaErrorLaunchOutOfResources).
 extern "C" int br_ntt_loop(void* acc, const void* abar_t, const void* kkey,
                            const void* tw, int G, int n, int N, int l,
-                           int Bgbit, uint32_t offset, int R, int device,
+                           int Bgbit, uint32_t offset, int device,
                            void* stream) {
   const uint32_t none[4] = {0u, 0u, 0u, 0u};
   const BrArgs A{static_cast<int32_t*>(acc),
                  static_cast<const int32_t*>(abar_t),
                  static_cast<const uint32_t*>(kkey), nullptr, n, G,
                  ring(tw, none, N, l, Bgbit, offset)};
-  if (G <= 0 || n <= 0 || A.r.logN < 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (R) {
-    case 1: return loop_r1.launch(A, device, s);
-    case 2: return loop_r2.launch(A, device, s);
-    case 4: return loop_r4.launch(A, device, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return loop_plans.launch(A, device, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The grid (CTAs) and cluster size of this library's last cluster launch.
+extern "C" void br_ntt_last_launch(int* out) {
+  out[0] = last_launch[0];
+  out[1] = last_launch[1];
 }
 
 extern "C" const char* br_ntt_error_string(int e) {

@@ -65,7 +65,7 @@ __device__ void one_prime(const int32_t* __restrict__ dg,
       dig[r * N + c] = (uint32_t)(v < 0 ? v + P : v);
     }
   __syncthreads();
-  ntt_fwd<P>(dig, RR, tw, N, logN);
+  ntt_fwd<P, 2>(dig, RR, tw, N, logN);
   for (int u = 0; u < 2; ++u)
     for (int c = k; c < N; c += H) {
       uint32_t s = 0;
@@ -79,7 +79,7 @@ __device__ void one_prime(const int32_t* __restrict__ dg,
       acc[u * N + c] = s;
     }
   __syncthreads();
-  ntt_inv<P>(acc, 2, tw + N, N, logN, nullptr, 0, scale);
+  ntt_inv<P, 2>(acc, 2, tw + N, N, logN, nullptr, 0, scale);
 }
 
 __global__ void __launch_bounds__(1024)

@@ -20,11 +20,12 @@
 //   transform's final scale (K5, K6).
 //
 // The transforms are called by every thread of a block (any multiple of 32
-// threads) on npoly polynomials of N residues in shared memory.  Stages of
-// span 64 and more go through shared memory, one barrier each; the six of
-// span 32 down to 1 run in registers, a warp on 64 consecutive residues
+// threads) on npoly polynomials of N residues in shared memory, NP of them
+// through each butterfly position together.  Stages of span 64 and more go
+// through shared memory, one barrier each; the six of span 32 down to 1
+// run in registers, a warp on 64 consecutive residues of each polynomial
 // (two a lane, one butterfly a lane a stage, the pairs re-formed between
-// stages by one warp shuffle).  The host side holds what every launch
+// stages by one warp shuffle), with no barrier.  The host side holds what every launch
 // checks and sets up: the ring's arguments (Ring) and the kernel's
 // shared-memory limit (SmemLimit).  A library that includes this header is
 // rebuilt when it changes (ops/nvcc.py hashes both).
@@ -128,98 +129,152 @@ __device__ __forceinline__ void next_pairs(uint32_t& a, uint32_t& b,
 
 // Forward negacyclic NTT of npoly polynomials x[r*N ..] in shared memory,
 // natural order in, bit-reversed out (crypto/ntt.py:ntt_fwd); tw: this
-// prime's psirev with companions.  Ends with a barrier.
-template <uint32_t P>
+// prime's psirev with companions.  NP polynomials go through each
+// butterfly position together (one twiddle load, NP independent chains);
+// stages from span 2^first_lt down (a caller that ran the first stage
+// itself passes logN - 2).  Ends with a barrier.
+template <uint32_t P, int NP>
 __device__ void ntt_fwd(uint32_t* x, int npoly, const uint2* tw, int N,
-                        int logN) {
-  const int nt = blockDim.x, H = N >> 1;
-  for (int lt = logN - 1; lt >= 6; --lt) {  // span t = 2^lt >= 64
+                        int logN, int first_lt = -1) {
+  const int nt = blockDim.x, H = N >> 1, ng = (npoly + NP - 1) / NP;
+  for (int lt = first_lt < 0 ? logN - 1 : first_lt; lt >= 6; --lt) {
     const int t = 1 << lt, base = 1 << (logN - 1 - lt);
-    for (int idx = threadIdx.x; idx < npoly * H; idx += nt) {
-      const int k = idx & (H - 1);
-      uint32_t* y = x + (idx >> (logN - 1)) * N;
+    for (int idx = threadIdx.x; idx < ng * H; idx += nt) {
+      const int k = idx & (H - 1), q0 = (idx >> (logN - 1)) * NP;
       const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
-      const uint32_t u = y[i0];
-      const uint32_t v = shoup_mul<P>(y[i0 + t], tw[base + (k >> lt)]);
-      y[i0] = addmod<P>(u, v);
-      y[i0 + t] = submod<P>(u, v);
+      const uint2 w = tw[base + (k >> lt)];
+      uint32_t u[NP], v[NP];
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        if (q0 + q < npoly) {
+          u[q] = x[(q0 + q) * N + i0];
+          v[q] = x[(q0 + q) * N + i0 + t];
+        }
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        if (q0 + q < npoly) {
+          const uint32_t wv = shoup_mul<P>(v[q], w);
+          x[(q0 + q) * N + i0] = addmod<P>(u[q], wv);
+          x[(q0 + q) * N + i0 + t] = submod<P>(u[q], wv);
+        }
     }
     __syncthreads();
   }
-  const int lane = threadIdx.x & 31, nw = nt >> 5;
-  for (int blk = threadIdx.x >> 5; blk < npoly * (N >> 6); blk += nw) {
-    uint32_t* y = x + blk * 64;  // 64 residues, all in one polynomial
-    const int k = ((blk & ((N >> 6) - 1)) << 5) + lane;
-    uint32_t a = y[lane], b = y[lane + 32];
+  const int lane = threadIdx.x & 31, nb = N >> 6;
+  const int top = first_lt < 0 ? 5 : min(5, first_lt);  // N = 64
+  for (int it = threadIdx.x >> 5; it < ng * nb; it += nt >> 5) {
+    const int b = it & (nb - 1), q0 = (it >> (logN - 6)) * NP;
+    const int k = (b << 5) + lane;  // 64 residues of each polynomial
+    uint32_t a[NP], c[NP];
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      if (q0 + q < npoly) {
+        a[q] = x[(q0 + q) * N + b * 64 + lane];
+        c[q] = x[(q0 + q) * N + b * 64 + lane + 32];
+      }
 #pragma unroll
     for (int lt = 5; lt >= 0; --lt) {
-      if (lt < 5) next_pairs(a, b, lt);
-      const uint32_t v =
-          shoup_mul<P>(b, tw[(1 << (logN - 1 - lt)) + (k >> lt)]);
-      b = submod<P>(a, v);
-      a = addmod<P>(a, v);
+      const uint2 w = tw[(1 << (logN - 1 - lt)) + (k >> lt)];
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        if (q0 + q < npoly) {
+          if (lt < 5) next_pairs(a[q], c[q], lt);
+          if (lt > top) continue;
+          const uint32_t wv = shoup_mul<P>(c[q], w);
+          c[q] = submod<P>(a[q], wv);
+          a[q] = addmod<P>(a[q], wv);
+        }
     }
-    reinterpret_cast<uint2*>(y)[lane] = make_uint2(a, b);
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      if (q0 + q < npoly)
+        reinterpret_cast<uint2*>(x + (q0 + q) * N + b * 64)[lane] =
+            make_uint2(a[q], c[q]);
   }
   __syncthreads();
 }
 
 // Inverse (Gentleman-Sande), bit-reversed in, natural out, unscaled
 // (crypto/ntt.py:ntt_inv without its N^-1; the kernels fold that into
-// their key or pass it as `scale`).  add (or null): polynomial r of the
-// input is x[r*N ..] + add[r*add_stride ..] mod P, read as the first stage
-// loads x.  scale (.x = 0: none): every output times scale.  Ends with a
+// their key or pass it as `scale`), NP polynomials together as ntt_fwd.
+// add (or null): polynomial r of the input is x[r*N ..] +
+// add[r*add_stride ..] mod P, read as the first stage loads x.  scale
+// (.x = 0: none): every output times scale, in the last stage.  Ends with a
 // barrier unless sync_end is false (a cluster barrier follows).
-template <uint32_t P>
+template <uint32_t P, int NP>
 __device__ void ntt_inv(uint32_t* x, int npoly, const uint2* tw, int N,
                         int logN, const uint32_t* add = nullptr,
                         int add_stride = 0, uint2 scale = {0u, 0u},
                         bool sync_end = true) {
-  const int nt = blockDim.x, H = N >> 1;
-  const int lane = threadIdx.x & 31, nw = nt >> 5;
-  for (int blk = threadIdx.x >> 5; blk < npoly * (N >> 6); blk += nw) {
-    const int r = blk / (N >> 6), off = (blk & ((N >> 6) - 1)) * 64;
-    uint32_t* y = x + r * N + off;
+  const int nt = blockDim.x, H = N >> 1, ng = (npoly + NP - 1) / NP;
+  const int lane = threadIdx.x & 31, nb = N >> 6;
+  for (int it = threadIdx.x >> 5; it < ng * nb; it += nt >> 5) {
+    const int off = (it & (nb - 1)) * 64, q0 = (it >> (logN - 6)) * NP;
     const int k = (off >> 1) + lane;
-    uint2 ab = reinterpret_cast<const uint2*>(y)[lane];
-    if (add) {
-      const uint2 c =
-          reinterpret_cast<const uint2*>(add + r * add_stride + off)[lane];
-      ab.x = addmod<P>(ab.x, c.x);
-      ab.y = addmod<P>(ab.y, c.y);
-    }
-    uint32_t a = ab.x, b = ab.y;
+    uint32_t a[NP], c[NP];
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      if (q0 + q < npoly) {
+        uint2 ab = reinterpret_cast<const uint2*>(x + (q0 + q) * N + off)[lane];
+        if (add) {
+          const uint2 e = reinterpret_cast<const uint2*>(
+              add + (q0 + q) * add_stride + off)[lane];
+          ab.x = addmod<P>(ab.x, e.x);
+          ab.y = addmod<P>(ab.y, e.y);
+        }
+        a[q] = ab.x;
+        c[q] = ab.y;
+      }
 #pragma unroll
     for (int lt = 0; lt <= 5; ++lt) {
-      if (lt > 0) next_pairs(a, b, lt - 1);
-      const uint32_t d = submod<P>(a, b);
-      a = addmod<P>(a, b);
-      b = shoup_mul<P>(d, tw[(1 << (logN - 1 - lt)) + (k >> lt)]);
+      const uint2 w = tw[(1 << (logN - 1 - lt)) + (k >> lt)];
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        if (q0 + q < npoly) {
+          if (lt > 0) next_pairs(a[q], c[q], lt - 1);
+          const uint32_t d = submod<P>(a[q], c[q]);
+          a[q] = addmod<P>(a[q], c[q]);
+          c[q] = shoup_mul<P>(d, w);
+        }
     }
-    if (logN == 6 && scale.x) {
-      a = shoup_mul<P>(a, scale);
-      b = shoup_mul<P>(b, scale);
-    }
-    y[lane] = a;
-    y[lane + 32] = b;
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      if (q0 + q < npoly) {
+        if (logN == 6 && scale.x) {
+          a[q] = shoup_mul<P>(a[q], scale);
+          c[q] = shoup_mul<P>(c[q], scale);
+        }
+        x[(q0 + q) * N + off + lane] = a[q];
+        x[(q0 + q) * N + off + lane + 32] = c[q];
+      }
   }
   for (int lt = 6; lt < logN; ++lt) {  // span t = 2^lt >= 64
     __syncthreads();
     const int t = 1 << lt, base = 1 << (logN - 1 - lt);
     const bool last = lt == logN - 1 && scale.x;
-    for (int idx = threadIdx.x; idx < npoly * H; idx += nt) {
-      const int k = idx & (H - 1);
-      uint32_t* y = x + (idx >> (logN - 1)) * N;
+    for (int idx = threadIdx.x; idx < ng * H; idx += nt) {
+      const int k = idx & (H - 1), q0 = (idx >> (logN - 1)) * NP;
       const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
-      const uint32_t u = y[i0], v = y[i0 + t];
-      uint32_t s = addmod<P>(u, v);
-      uint32_t d = shoup_mul<P>(submod<P>(u, v), tw[base + (k >> lt)]);
-      if (last) {
-        s = shoup_mul<P>(s, scale);
-        d = shoup_mul<P>(d, scale);
-      }
-      y[i0] = s;
-      y[i0 + t] = d;
+      const uint2 w = tw[base + (k >> lt)];
+      uint32_t u[NP], v[NP];
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        if (q0 + q < npoly) {
+          u[q] = x[(q0 + q) * N + i0];
+          v[q] = x[(q0 + q) * N + i0 + t];
+        }
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+        if (q0 + q < npoly) {
+          uint32_t s = addmod<P>(u[q], v[q]);
+          uint32_t d = shoup_mul<P>(submod<P>(u[q], v[q]), w);
+          if (last) {
+            s = shoup_mul<P>(s, scale);
+            d = shoup_mul<P>(d, scale);
+          }
+          x[(q0 + q) * N + i0] = s;
+          x[(q0 + q) * N + i0 + t] = d;
+        }
     }
   }
   if (sync_end) __syncthreads();

@@ -16,18 +16,17 @@ before the mod-2^32 reduction is exact in both packages, so the result is
 the JAX kernels' bit for bit (csrc/br_ntt.cu has the bound).
 
 K4 (and K3, ops/br3.py) run in the cluster form of csrc/br_cluster.cuh:
-four CTAs (prime, part) per group of R rows, `plan(G)` gives R and the
-cluster count (R = 1 below R2_MIN_G rows, 2 below R4_MIN_G, else 4;
-`cluster_rows` is the kernel's row mapping).  They read the key in its
-kernel form (`kernel_key`: a reordered copy of the prep1 residues times
-N^-1 2^32 mod p), built once beside the prep1 key and kept as its
+one cluster of CLUSTER = 4 CTAs (prime, part) per row.  They read the key
+in its kernel form (`kernel_key`: a reordered copy of the prep1 residues
+times N^-1 2^32 mod p), built once beside the prep1 key and kept as its
 attribute (`attach_kernel_key`; crypto/ops.py:DeviceKeys.from_evalkey
-does it for bk_ntt and bk_ntt_u); a launch on a key without one raises.
+does it for bk_ntt and bk_ntt_u); a launch on a key without one raises,
+and so does a card that cannot hold a cluster (there is no other form).
 
 `br_step` (K5) and `br_loop` (K4) launch csrc/br_ntt.cu for CUDA tensors
 and run the plain twin `cmux_steps_ref` for CPU tensors; nothing else
-selects between them.  STEP_LAUNCHES and LOOP_LAUNCHES count the launches,
-LAST_PLAN holds the (R, clusters) of the last cluster launch.
+selects between them.  STEP_LAUNCHES and LOOP_LAUNCHES count the launches;
+`last_launch` reads the grid and cluster size the C launcher last used.
 """
 
 from __future__ import annotations
@@ -43,13 +42,8 @@ from . import nvcc
 
 STEP_LAUNCHES = 0     # K5 launches: one per CMUX step
 LOOP_LAUNCHES = 0     # K4 launches: one per blind rotation
-LAST_PLAN = None      # (R, clusters) of the last K3 or K4 launch
 SOURCE = "br_ntt.cu"
-
-CLUSTER = 4           # CTAs a row group in K3/K4: (prime p, part u)
-ROWS = (1, 2, 4)      # rows a CTA, the kernels' instances
-R2_MIN_G = 512        # from this many rows a CTA carries 2 rows
-R4_MIN_G = 1024       # and from this many, 4
+CLUSTER = 4           # CTAs a row in K3/K4: (prime p, part u)
 
 
 # --------------------------------------------------------------------------- #
@@ -97,33 +91,8 @@ def scale_arg(tabs: ntt.KernelTables):
 
 
 # --------------------------------------------------------------------------- #
-# the cluster form's plan and key form (K4 here, K3 in ops/br3.py)
+# the cluster form's key (K4 here, K3 in ops/br3.py)
 # --------------------------------------------------------------------------- #
-
-
-def rows_per_cta(G: int) -> int:
-    """R: the rows a CTA of K3/K4 carries at a batch of G rows.  Narrow
-    batches keep R = 1 (4G CTAs, as many SMs as they can get); wide ones
-    share each key step among R rows of a CTA."""
-    return 4 if G >= R4_MIN_G else 2 if G >= R2_MIN_G else 1
-
-
-def plan(G: int, R: int = None) -> tuple:
-    """(R, clusters) of a K3/K4 launch over G rows: R from rows_per_cta
-    unless given, ceil(G / R) clusters of CLUSTER CTAs."""
-    R = rows_per_cta(G) if R is None else R
-    if R not in ROWS:
-        raise ValueError(f"rows a CTA must be one of {ROWS}, got {R}")
-    return R, -(-G // R)
-
-
-def cluster_rows(G: int, R: int = None) -> torch.Tensor:
-    """The kernel's row mapping: int64 [clusters, R], cluster c's rows
-    c*R .. c*R + R - 1, -1 where that passes G (the last cluster's idle
-    slots: they compute on zeros and write nothing)."""
-    R, n = plan(G, R)
-    rows = torch.arange(n * R).reshape(n, R)
-    return torch.where(rows < G, rows, -1)
 
 
 def kernel_key(bk: torch.Tensor, p: Params) -> torch.Tensor:
@@ -198,10 +167,12 @@ def _bind(lib):
                                 ci, ci, u32, ci, vp]
     lib.br_ntt_loop.restype = ci
     lib.br_ntt_loop.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, u32, ci,
-                                ci, vp]
+                                vp]
     lib.br_ntt_loop_plan.restype = ci
-    lib.br_ntt_loop_plan.argtypes = [ci, ci, ci, ci,
+    lib.br_ntt_loop_plan.argtypes = [ci, ci, ci,
                                      ctypes.POINTER(ctypes.c_longlong)]
+    lib.br_ntt_last_launch.restype = None
+    lib.br_ntt_last_launch.argtypes = [ctypes.POINTER(ci)]
     lib.br_ntt_error_string.restype = ctypes.c_char_p
     lib.br_ntt_error_string.argtypes = [ci]
     lib.br_ntt_smem.restype = ctypes.c_size_t
@@ -226,29 +197,36 @@ def device_index(device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def cluster_plan(p: Params, R: int, device=None) -> tuple:
+def cluster_plan(p: Params, device=None) -> tuple:
     """(dynamic shared memory bytes a CTA, clusters the card holds at once)
-    of K4 at R rows a CTA on `device`'s card; raises where the card refuses
-    (builds and loads the library)."""
+    of K4 on `device`'s card; raises where the card refuses (builds and
+    loads the library)."""
     lib = nvcc.load(SOURCE, _bind)
     out = (ctypes.c_longlong * 2)()
-    return check_plan(lib.br_ntt_loop_plan(p.N, p.l, R, device_index(device),
+    return check_plan(lib.br_ntt_loop_plan(p.N, p.l, device_index(device),
                                            out), out, lib.br_ntt_error_string)
 
 
-def _launch(rows, acc, bk, p: Params, loop: bool, R=None) -> torch.Tensor:
-    global STEP_LAUNCHES, LOOP_LAUNCHES, LAST_PLAN
+def last_launch() -> tuple:
+    """(CTAs, cluster size) of the last K4 launch, as the C launcher made
+    it."""
+    out = (ctypes.c_int * 2)()
+    nvcc.load(SOURCE, _bind).br_ntt_last_launch(out)
+    return int(out[0]), int(out[1])
+
+
+def _launch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
+    global STEP_LAUNCHES, LOOP_LAUNCHES
     lib = nvcc.load(SOURCE, _bind)
     out = acc.clone(memory_format=torch.contiguous_format)  # updated in place
     rows = rows.contiguous()
     tabs, off, dev, stream = ring_args(acc, p)
     G = acc.shape[0]
     if loop:
-        kk = kernel_key_of(bk)
-        R, clusters = plan(G, R)
-        rc = lib.br_ntt_loop(out.data_ptr(), rows.data_ptr(), kk.data_ptr(),
-                             tabs.tw.data_ptr(), G, bk.shape[0], p.N, p.l,
-                             p.Bgbit, off, R, dev, stream)
+        rc = lib.br_ntt_loop(out.data_ptr(), rows.data_ptr(),
+                             kernel_key_of(bk).data_ptr(), tabs.tw.data_ptr(),
+                             G, bk.shape[0], p.N, p.l, p.Bgbit, off, dev,
+                             stream)
     else:
         rc = lib.br_ntt_step(out.data_ptr(), rows.data_ptr(), bk.data_ptr(),
                              tabs.tw.data_ptr(), scale_arg(tabs), G, p.N,
@@ -258,18 +236,17 @@ def _launch(rows, acc, bk, p: Params, loop: bool, R=None) -> torch.Tensor:
                            f"launch failed: {lib.br_ntt_error_string(rc)}")
     if loop:
         LOOP_LAUNCHES += 1
-        LAST_PLAN = (R, clusters)
     else:
         STEP_LAUNCHES += 1
     return out
 
 
-def _dispatch(rows, acc, bk, p: Params, loop: bool, R=None) -> torch.Tensor:
+def _dispatch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
     check_steps(rows, acc, bk, 2 * p.l, p)
     if acc.shape[0] == 0:
         return acc.clone()
     if acc.is_cuda:
-        return _launch(rows, acc, bk, p, loop, R)
+        return _launch(rows, acc, bk, p, loop)
     if acc.device.type != "cpu":
         raise ValueError(f"unsupported device {acc.device}")
     return cmux_steps_ref(rows, acc, bk, p)
@@ -284,13 +261,12 @@ def br_step(acc: torch.Tensor, a: torch.Tensor, key: torch.Tensor,
 
 
 def br_loop(rows: torch.Tensor, acc: torch.Tensor, bk: torch.Tensor,
-            p: Params, R: int = None) -> torch.Tensor:
+            p: Params) -> torch.Tensor:
     """K4: all CMUX steps, rows int32 [n, G] against bk int32
-    [n, 2l, 2, P, N] (with its kernel form), in one launch of plan(G, R)'s
-    clusters; returns the new acc.  A CUDA input runs the kernel, a CPU
-    input the twin (R is then only checked)."""
-    plan(max(acc.shape[0], 1), R)
-    return _dispatch(rows, acc, bk, p, loop=True, R=R)
+    [n, 2l, 2, P, N] (with its kernel form), in one launch of G clusters;
+    returns the new acc.  A CUDA input runs the kernel, a CPU input the
+    twin."""
+    return _dispatch(rows, acc, bk, p, loop=True)
 
 
 # --------------------------------------------------------------------------- #

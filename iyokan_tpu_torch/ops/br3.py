@@ -25,9 +25,10 @@ and block knobs) are not ported.
 
 `br3` launches csrc/br3_ntt.cu for CUDA tensors and runs the plain twin
 `br3_ref` for CPU tensors; nothing else selects between them.  The kernel
-is the cluster form of csrc/br_cluster.cuh, as K4's (ops/br.py: `plan`,
-the key's kernel form `kernel_key`, which the launch reads and never
-builds).  LAUNCHES counts the launches (one per blind rotation).
+is the cluster form of csrc/br_cluster.cuh, as K4's (ops/br.py: one
+cluster of four CTAs a row; the key's kernel form `kernel_key`, which the
+launch reads and never builds).  LAUNCHES counts the launches (one per
+blind rotation).
 """
 
 from __future__ import annotations
@@ -98,56 +99,63 @@ def _bind(lib):
     vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.br3_ntt.restype = ci
     lib.br3_ntt.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, u32,
-                            ci, ci, vp]
+                            ci, vp]
     lib.br3_ntt_plan.restype = ci
-    lib.br3_ntt_plan.argtypes = [ci, ci, ci, ci, ci,
+    lib.br3_ntt_plan.argtypes = [ci, ci, ci, ci,
                                  ctypes.POINTER(ctypes.c_longlong)]
+    lib.br3_ntt_last_launch.restype = None
+    lib.br3_ntt_last_launch.argtypes = [ctypes.POINTER(ci)]
     lib.br3_error_string.restype = ctypes.c_char_p
     lib.br3_error_string.argtypes = [ci]
 
 
-def cluster_plan(p: Params, M: int, R: int, device=None) -> tuple:
+def cluster_plan(p: Params, M: int, device=None) -> tuple:
     """(dynamic shared memory bytes a CTA, clusters the card holds at once)
-    of K3 at M and R rows a CTA on `device`'s card; raises where the card
-    refuses (builds and loads the library)."""
+    of K3 at M on `device`'s card; raises where the card refuses (builds
+    and loads the library)."""
     lib = nvcc.load(SOURCE, _bind)
     out = (ctypes.c_longlong * 2)()
-    return br.check_plan(lib.br3_ntt_plan(p.N, p.l, M, R,
+    return br.check_plan(lib.br3_ntt_plan(p.N, p.l, M,
                                           br.device_index(device), out),
                          out, lib.br3_error_string)
 
 
-def _launch(steps, acc, bk, M: int, p: Params, R=None) -> torch.Tensor:
+def last_launch() -> tuple:
+    """(CTAs, cluster size) of the last K3 launch, as the C launcher made
+    it."""
+    out = (ctypes.c_int * 2)()
+    nvcc.load(SOURCE, _bind).br3_ntt_last_launch(out)
+    return int(out[0]), int(out[1])
+
+
+def _launch(steps, acc, bk, M: int, p: Params) -> torch.Tensor:
     global LAUNCHES
     lib = nvcc.load(SOURCE, _bind)
     kk = br.kernel_key_of(bk)
     out = acc.clone(memory_format=torch.contiguous_format)  # updated in place
     steps = steps.contiguous()
     tabs, off, dev, stream = ring_args(acc, p)
-    R, clusters = br.plan(acc.shape[0], R)
     rc = lib.br3_ntt(out.data_ptr(), steps.data_ptr(), kk.data_ptr(),
                      tabs.tw.data_ptr(), tabs.pw.data_ptr(), acc.shape[0],
-                     bk.shape[0], M, p.N, p.l, p.Bgbit, off, R, dev, stream)
+                     bk.shape[0], M, p.N, p.l, p.Bgbit, off, dev, stream)
     if rc != 0:
         raise RuntimeError("br3_ntt kernel launch failed: "
                            f"{lib.br3_error_string(rc)}")
     LAUNCHES += 1
-    br.LAST_PLAN = (R, clusters)
     return out
 
 
 def br3(steps: torch.Tensor, acc: torch.Tensor, bk: torch.Tensor,
-        p: Params, R: int = None) -> torch.Tensor:
+        p: Params) -> torch.Tensor:
     """K3: every decompose-first step, steps int32 [S, M, G] against bk
-    int32 [S, M*2l, 2, P, N] (with its kernel form), in one launch of
-    br.plan(G, R)'s clusters; returns the new acc.  A CUDA input runs the
-    kernel, a CPU input the twin (R is then only checked)."""
+    int32 [S, M*2l, 2, P, N] (with its kernel form), in one launch of G
+    clusters; returns the new acc.  A CUDA input runs the kernel, a CPU
+    input the twin."""
     M = _check(steps, acc, bk, p)
-    br.plan(max(acc.shape[0], 1), R)
     if acc.shape[0] == 0:
         return acc.clone()
     if acc.is_cuda:
-        return _launch(steps, acc, bk, M, p, R)
+        return _launch(steps, acc, bk, M, p)
     if acc.device.type != "cpu":
         raise ValueError(f"unsupported device {acc.device}")
     return br3_ref(steps, acc, bk, p)

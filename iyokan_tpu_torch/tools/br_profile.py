@@ -3,18 +3,16 @@
 K6 (ops/extprod.py:extprod1).
 
     python3 -m iyokan_tpu_torch.tools.br_profile [--params cggi128]
-        [--check-only] [--sizes 1,64,256,2048] [--rows 1,2,4]
+        [--check-only] [--sizes 1,64,256,2048]
 
 Builds the three NTT libraries (nvcc in parallel) and prints each
-kernel's ptxas line and each cluster instance's shared memory and
+kernel's ptxas line and each cluster kernel's shared memory and
 cudaOccupancyMaxActiveClusters.  Then every kernel against its plain twin
-on seeded random accumulators, amounts and prep1 keys (a few steps; K3/K4
-at every rows-a-CTA value R and batches around each), raising on any
-difference.  Unless --check-only: K3/K4 at the full step count, one
-launch a rotation, timed by CUDA events at each batch and each R (the
-figures behind ops/br.py's R2_MIN_G and R4_MIN_G), beside the card's
-nvidia-smi name and power limit; the last line is a JSON record.  Needs
-a card.
+on seeded random accumulators, amounts and prep1 keys (a few steps),
+raising on any difference.  Unless --check-only: K4, K3 (M = 1, 3) and
+K5 at the full step count on random keys, and K6 at 2l rows, K = 2,
+timed by CUDA events at each batch, beside the card's nvidia-smi name and
+power limit; the last line is a JSON record.  Needs a card.
 """
 
 from __future__ import annotations
@@ -61,60 +59,69 @@ def same(got, want, what):
 def check(p, rng, dev="cuda"):
     """Every kernel == its twin on random inputs; returns the cases run."""
     cases = 0
-    for R in br.ROWS:
-        for G in sorted({1, 2, R - 1, R, R + 1, 2 * R + 1, 13} - {0}):
-            acc = random_acc(p, G, rng, dev)
-            key = random_key(p, 3, 2 * p.l, rng, dev)
-            rows = amounts(p, (3, G), rng, dev)
-            same(br.br_loop(rows, acc, key, p, R=R),
-                 br.cmux_steps_ref(rows, acc, key, p), f"K4 R={R} G={G}")
-            for M in (1, 3):
-                keym = random_key(p, 2, 2 * p.l * M, rng, dev)
-                st = amounts(p, (2, M, G), rng, dev)
-                same(br3.br3(st, acc, keym, p, R=R),
-                     br3.br3_ref(st, acc, keym, p), f"K3 M={M} R={R} G={G}")
-            cases += 3
-    acc = random_acc(p, 5, rng, dev)
-    key = random_key(p, 1, 2 * p.l, rng, dev)
-    rows = amounts(p, (1, 5), rng, dev)
-    same(br.br_step(acc, rows[0], key[0], p),
-         br.cmux_steps_ref(rows, acc, key, p), "K5")
-    for K in (1, 2):
-        d = torch.from_numpy(rng.integers(-32, 32, (5, 2 * p.l, p.N),
-                                          dtype=np.int32)).to(dev)
-        keys = random_key(p, K, 2 * p.l, rng, dev)
-        idx = None if K == 1 else torch.tensor([0, 1, 1, 0, 1],
-                                               dtype=torch.int32, device=dev)
-        same(extprod.extprod1(d, keys, idx, p),
-             extprod.extprod1_ref(d, keys, idx, p), f"K6 K={K}")
-    return cases + 3
+    for G in (1, 2, 5, 13):
+        acc = random_acc(p, G, rng, dev)
+        key = random_key(p, 3, 2 * p.l, rng, dev)
+        rows = amounts(p, (3, G), rng, dev)
+        same(br.br_loop(rows, acc, key, p),
+             br.cmux_steps_ref(rows, acc, key, p), f"K4 G={G}")
+        if br.last_launch() != (br.CLUSTER * G, br.CLUSTER):
+            raise AssertionError(f"K4 launched {br.last_launch()}")
+        for M in (1, 3):
+            keym = random_key(p, 2, 2 * p.l * M, rng, dev)
+            st = amounts(p, (2, M, G), rng, dev)
+            same(br3.br3(st, acc, keym, p), br3.br3_ref(st, acc, keym, p),
+                 f"K3 M={M} G={G}")
+        same(br.br_step(acc, rows[0], key[0], p),
+             br.cmux_steps_ref(rows[:1], acc, key[:1], p), f"K5 G={G}")
+        for K in (1, 2):
+            d = torch.from_numpy(rng.integers(-32, 32, (G, 2 * p.l, p.N),
+                                              dtype=np.int32)).to(dev)
+            keys = random_key(p, K, 2 * p.l, rng, dev)
+            idx = None if K == 1 else torch.from_numpy(
+                rng.integers(0, 2, G).astype(np.int32)).to(dev)
+            same(extprod.extprod1(d, keys, idx, p),
+                 extprod.extprod1_ref(d, keys, idx, p), f"K6 K={K} G={G}")
+        cases += 6
+    return cases
 
 
-def sweep(p, sizes, rows, rng, dev="cuda"):
-    """ms a blind rotation of K4 and K3 (M = 1, 3) at full depth per
-    (kernel, G, R)."""
+def sweep(p, sizes, rng, dev="cuda"):
+    """ms of a blind rotation at full depth of K4, K3 (M = 1, 3) and K5
+    (n launches), and of one K6 call (2l rows, K = 2), per batch."""
     nh = (p.n + 1) // 2
-    keys = {"br_ntt_loop": random_key(p, p.n, 2 * p.l, rng, dev),
-            "br3_ntt M=1": None, "br3_ntt M=3": random_key(
-                p, nh, 6 * p.l, rng, dev)}
-    keys["br3_ntt M=1"] = keys["br_ntt_loop"]
+    plain = random_key(p, p.n, 2 * p.l, rng, dev)
+    unrolled = random_key(p, nh, 6 * p.l, rng, dev)
+    keys2 = random_key(p, 2, 2 * p.l, rng, dev)
     out = []
     for G in sizes:
         acc = random_acc(p, G, rng, dev)
         a = amounts(p, (p.n, G), rng, dev)
-        for name, key in keys.items():
-            for R in rows:
-                if name == "br_ntt_loop":
-                    fn = lambda: br.br_loop(a, acc, key, p, R=R)  # noqa
-                else:
-                    st = br3.rotation_steps(a, key, p)
-                    fn = lambda: br3.br3(st, acc, key, p, R=R)  # noqa
-                fn()
-                ms = timing.timed_ms(fn, 2 if G >= 1024 else 3, dev)
-                rec = {"kernel": name, "G": G, "R": R, "ms": ms,
-                       "picked": br.plan(G)[0] == R}
-                out.append(rec)
-                print(json.dumps(rec), flush=True)
+        st1 = br3.rotation_steps(a, plain, p)
+        st3 = br3.rotation_steps(a, unrolled, p)
+        d = torch.from_numpy(rng.integers(-32, 32, (G, 2 * p.l, p.N),
+                                          dtype=np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, 2, G).astype(np.int32)).to(dev)
+
+        def k5():
+            x = acc
+            for i in range(p.n):
+                x = br.br_step(x, a[i], plain[i], p)
+            return x
+
+        for name, fn in (
+                ("br_ntt_loop", lambda: br.br_loop(a, acc, plain, p)),
+                ("br3_ntt M=1", lambda: br3.br3(st1, acc, plain, p)),
+                ("br3_ntt M=3", lambda: br3.br3(st3, acc, unrolled, p)),
+                ("br_ntt_step", k5),
+                ("extprod1_ntt K=2",
+                 lambda: extprod.extprod1(d, keys2, idx, p))):
+            fn()
+            reps = 20 if name.startswith("extprod") else 2 if G >= 1024 else 3
+            rec = {"kernel": name, "G": G, "ms": timing.timed_ms(fn, reps,
+                                                                 dev)}
+            out.append(rec)
+            print(json.dumps(rec), flush=True)
     return out
 
 
@@ -123,7 +130,6 @@ def main(argv=None) -> int:
     ap.add_argument("--params", default="cggi128")
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--sizes", default="1,64,256,2048")
-    ap.add_argument("--rows", default="1,2,4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("br_profile needs an NVIDIA card")
@@ -136,17 +142,16 @@ def main(argv=None) -> int:
         for ln in nvcc.LOGS.get(src, "").splitlines():
             if "Used" in ln or "spill" in ln:
                 print(f"[ptxas {src}] {ln.strip()}", flush=True)
-    for R in br.ROWS:
-        print(f"[plan] R={R}: K4 (smem B, max clusters) "
-              f"{br.cluster_plan(p, R)}, K3 M=1 {br3.cluster_plan(p, 1, R)}"
-              f", K3 M=3 {br3.cluster_plan(p, 3, R)}", flush=True)
+    print(f"[plan] clusters of {br.CLUSTER} CTAs, (smem B a CTA, clusters "
+          f"the card holds): K4 {br.cluster_plan(p)}, K3 M=1 "
+          f"{br3.cluster_plan(p, 1)}, K3 M=3 {br3.cluster_plan(p, 3)}",
+          flush=True)
     rng = np.random.default_rng(7)
     n = check(p, rng)
     print(f"[check] {n} kernel == twin cases at {p.name} on {smi}",
           flush=True)
     recs = [] if args.check_only else sweep(
-        p, [int(x) for x in args.sizes.split(",")],
-        [int(x) for x in args.rows.split(",")], rng)
+        p, [int(x) for x in args.sizes.split(",")], rng)
     print(smi)
     print(json.dumps({"card": smi, "params": p.name, "checked": n,
                       "sweep": recs}))

@@ -30,6 +30,7 @@ from iyokan_tpu.crypto import ops as jops
 from iyokan_tpu.crypto import polymul as jpm
 from iyokan_tpu.ops import pallas_br, pallas_br2, pallas_br3
 from iyokan_tpu_torch import params as tparams
+from iyokan_tpu_torch.crypto import ntt as tntt
 from iyokan_tpu_torch.crypto import ops as tops
 from iyokan_tpu_torch.crypto import polymul as tpm
 from iyokan_tpu_torch.ops import br, br3, nvcc
@@ -212,6 +213,153 @@ def test_rotation_steps(port_keys):
     assert not st[1, 1].any() and torch.equal(st[1, 2], rows[2])
 
 
+# --------------------------------------------------------------------------- #
+# the cluster form of K3/K4 (csrc/br_cluster.cuh), modelled in torch
+# --------------------------------------------------------------------------- #
+
+
+def _key_back(kk, p):
+    """The kernel form [S, P, 2, M, l, 2, N] read back to prep1's
+    [S, M*2l, 2, P, N]: times N 2^-32 mod p, rows m*2l + u*l + j."""
+    S, P, _, M = kk.shape[:4]
+    back = torch.stack([kk[:, i].to(torch.int64) * pow(
+        tntt.key_factor(p.N)[i], -1, prime) % prime
+        for i, prime in enumerate(tntt.PRIMES)], dim=1)
+    return back.permute(0, 3, 2, 4, 5, 1, 6).reshape(
+        S, M * 2 * p.l, 2, P, p.N).to(torch.int32)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_kernel_key_reads_back_to_prep1(port_keys, which):
+    """The kernel form of the plain (M = 1) and the unrolled (M = 3) key
+    reads back to polymul.prep1's key bit for bit."""
+    key = port_keys[which]
+    kk = br.kernel_key(key, TP)
+    M = 1 if which == 0 else 3
+    assert kk.shape == (key.shape[0], 2, 2, M, TP.l, 2, TP.N)
+    assert kk.dtype == torch.int32 and int(kk.min()) >= 0
+    assert torch.equal(_key_back(kk, TP), key)
+
+
+def test_device_keys_carry_kernel_forms(toy_ek, monkeypatch):
+    """DeviceKeys builds each NTT key's kernel form once, beside it; a view
+    of a key has none, and the launcher's lookup refuses it."""
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "v3")
+    dk = tops.DeviceKeys.from_evalkey(toy_ek, "cpu", with_cb=False)
+    for key in (dk.bk_ntt, dk.bk_ntt_u):
+        assert torch.equal(br.kernel_key_of(key), br.kernel_key(key, TP))
+        assert br.attach_kernel_key(key, TP).kernel_key is \
+            br.kernel_key_of(key)                     # not rebuilt
+    with pytest.raises(ValueError, match="no kernel form"):
+        br.kernel_key_of(dk.bk_ntt[:2])
+
+
+def _cluster_steps(amounts, acc, bk, p, v3):
+    """A torch model of the kernels' step loop in the cluster form: CTA
+    (prime pi, part u) transforms part u's digit rows, forms the partial key
+    products of both outputs from the kernel-form key (Montgomery sums of
+    l products, K3's psi^(a(2k+1)) - 1 applied per m by Shoup), takes the
+    other part's partial of its output, runs the unscaled inverse, and
+    Garner with the other prime's CTA updates acc[u]."""
+    from tests.test_torch_ntt import mont_sum, shoup_mul
+
+    kk = br.kernel_key(bk, p).to(torch.int64)
+    tabs = tntt.kernel_tables(p.N, "cpu")
+    pw = tabs.pw.to(torch.int64) & tops.MASK32
+    l, N, M = p.l, p.N, kk.shape[3]
+    odd = 2 * torch.from_numpy(tntt._bit_reverse(
+        np.arange(N), N.bit_length() - 1)) + 1
+    acc = acc.clone()
+    for i in range(kk.shape[0]):
+        a = amounts[i].to(torch.int64)                     # [M, G]
+        x = acc if v3 else tops.to_u64(tops.rot_poly(
+            acc, amounts[i, 0][:, None], N)) - tops.to_u64(acc)
+        d_all = tops.decompose1(x, p).to(torch.int64)      # [G, 2l, N]
+        res = {}
+        for pi, P in enumerate(tntt.PRIMES):
+            part = {}
+            for u in range(2):
+                d = d_all[:, u * l: (u + 1) * l]           # part u's rows
+                dig = tntt.ntt_fwd(d % P, N, pi)           # [G, l, N]
+                out = []
+                for v in range(2):
+                    sv = 0
+                    for m in range(M):
+                        t = mont_sum(dig.transpose(1, 2),
+                                     kk[i, pi, u, m, :, v].T[None], P)
+                        if v3:
+                            e = (a[m][:, None] * odd) % (2 * N)
+                            t = shoup_mul(t, pw[pi, e, 0], pw[pi, e, 1], P)
+                            sv = (sv + t) % P
+                        else:
+                            sv = t
+                    out.append(sv)
+                part[u] = out
+            # the exchange, then the unscaled inverse of each output u
+            res[pi] = [tntt.ntt_inv((part[u][u] + part[1 - u][u]) % P, N, pi)
+                       * N % P for u in range(2)]
+        for u in range(2):
+            upd = tntt.crt_center(res[0][u], res[1][u])
+            acc[:, u] = tops.from_u64(tops.to_u64(acc[:, u]) + upd)
+    return acc
+
+
+@pytest.mark.parametrize("case", ["K4", "K3 M=1", "K3 M=3"])
+def test_cluster_model_equals_twins(port_keys, case):
+    """The cluster-form model equals cmux_steps_ref (K4) and br3_ref (K3,
+    M = 1 and 3) on random accumulators and amounts at toy parameters."""
+    rng = np.random.default_rng(len(case))
+    G, S = 5, 3
+    acc = _t32(rng.integers(0, 1 << 32, (G, 2, TP.N), dtype=np.uint32))
+    key = port_keys[1 if case.endswith("3") else 0][:S].contiguous()
+    if case == "K4":
+        rows = torch.from_numpy(rng.integers(0, 2 * TP.N, (S, G),
+                                             dtype=np.int32))
+        want = br.cmux_steps_ref(rows, acc, key, TP)
+        got = _cluster_steps(rows[:, None], acc, key, TP, v3=False)
+    else:
+        M = int(case[-1])
+        st = torch.from_numpy(rng.integers(0, 2 * TP.N, (S, M, G),
+                                           dtype=np.int32))
+        want = br3.br3_ref(st, acc, key, TP)
+        got = _cluster_steps(st, acc, key, TP, v3=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["pallas2", "v3 M=1", "v3 M=3 odd n"])
+def test_cluster_model_equals_jax_kernel(toy_sk, mxu_keys, port_keys, kind):
+    """Through the twins: the cluster-form model of a whole blind rotation
+    equals the JAX kernel in interpret mode (pallas_br2; pallas_br3 on the
+    plain key and, at an odd n of 9 key bits, on random unrolled keys)."""
+    from iyokan_tpu_torch.ops.tkey import _setup
+
+    tv = _testv(JP)
+    if kind == "v3 M=3 odd n":
+        jp, tp = dataclasses.replace(JP, n=9), dataclasses.replace(TP, n=9)
+        rng = np.random.default_rng(11)
+        rows = rng.integers(0, 1 << 32, (5, 6 * JP.l, 2, JP.N),
+                            dtype=np.uint32)
+        ct = rng.integers(0, 1 << 32, (4, 10), dtype=np.uint32)
+        be = jpm.MXUBackend()
+        want = jcall(lambda t, r: pallas_br3.blind_rotate_pallas3(
+            t, be.prep1(r, jp), jnp.asarray(tv), jp), ct, rows)
+        key = tpm.prep1(_t32(rows), tp)
+    else:
+        jp, tp, key = JP, TP, port_keys[0]
+        ct = _batch(toy_sk, 4, 21)
+        jfn = (pallas_br2.blind_rotate_pallas2 if kind == "pallas2"
+               else pallas_br3.blind_rotate_pallas3)
+        want = jcall(lambda t, bk: jfn(t, bk, jnp.asarray(tv), JP), ct,
+                     mxu_keys[0])
+    rows, acc = _setup(_t32(ct), _t32(tv), tp)
+    if kind == "pallas2":
+        got = _cluster_steps(rows[:, None], acc, key, tp, v3=False)
+    else:
+        got = _cluster_steps(br3.rotation_steps(rows, key, tp), acc, key, tp,
+                             v3=True)
+    np.testing.assert_array_equal(_u32(got), want)
+
+
 def test_library_hash_covers_headers(tmp_path, monkeypatch):
     """A kernel library is named by its source and every csrc/ header the
     source includes, directly or through another header."""
@@ -289,17 +437,12 @@ def test_v3_kernel_equals_twin_on_card(params, G, steps, M):
     assert torch.equal(got, want)
 
 
-# G = 1, 2, each rows-a-CTA threshold +- 1, 64, 256, 2048
-CARD_SIZES = sorted({1, 2, 64, 256, 2048} | {
-    g + d for g in (br.R2_MIN_G, br.R4_MIN_G) for d in (-1, 0, 1)})
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", CARD_SIZES)
+@pytest.mark.parametrize("G", [1, 2, 64, 133, 256, 2048])
 @pytest.mark.parametrize("kernel,M", [("K4", 1), ("K3", 1), ("K3", 3)])
 def test_cluster_kernels_equal_twin_at_cggi128(kernel, M, G):
-    """K4 and K3 (M = 1, 3) at the plan's R for G, a cluster of four CTAs
-    a row group, == their twins on random keys (3 steps)."""
+    """K4 and K3 (M = 1, 3), one cluster of four CTAs a row, == their twins
+    on random keys (3 steps)."""
     _card()
     p = tparams.CGGI128
     acc, a, key = _random_case(p, G, 3, 2 * p.l * M, G + M)
@@ -307,14 +450,16 @@ def test_cluster_kernels_equal_twin_at_cggi128(kernel, M, G):
     if kernel == "K4":
         want = br.cmux_steps_ref(a, acc, key, p)
         got = br.br_loop(a, acc, key, p)
+        grid = br.last_launch()
     else:
         st = torch.from_numpy(np.random.default_rng(G).integers(
             0, 2 * p.N, (3, M, G), dtype=np.int32)).cuda()
         want = br3.br3_ref(st, acc, key, p)
         got = br3.br3(st, acc, key, p)
+        grid = br3.last_launch()
     torch.cuda.synchronize()
     assert (br.LOOP_LAUNCHES - before[0]) + (br3.LAUNCHES - before[1]) == 1
-    assert br.LAST_PLAN == br.plan(G)
+    assert grid == (br.CLUSTER * G, br.CLUSTER)
     assert torch.equal(got, want)
 
 

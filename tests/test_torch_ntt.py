@@ -145,3 +145,164 @@ def test_u64_rot_poly_and_sample_extract_match_jax():
                                                idx))
         got = tops.sample_extract(_t(x.view(np.int64)), idx)
         np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
+
+
+# --------------------------------------------------------------------------- #
+# the NTT kernels' arithmetic and transform schedule (csrc/ntt.cuh), modelled
+# in torch int64 / numpy on the CPU
+# --------------------------------------------------------------------------- #
+
+MASK32 = (1 << 32) - 1
+
+
+def shoup_mul(a, w, ws, P):
+    """csrc/ntt.cuh:shoup_mul: q = umulhi(a, w'), r = a w - q P (mod 2^32,
+    in [0, 2P)), one conditional subtract; a < P."""
+    q = (a * ws) >> 32
+    r = (a * w - q * P) & MASK32
+    assert int(r.max()) < 2 * P
+    return torch.where(r >= P, r - P, r)
+
+
+def mont_sum(a, b, P):
+    """csrc/ntt.cuh:mont_reduce of the lazily summed products sum_j a_j b_j
+    (the last dim, at most 4 terms, each below P^2, the sum below 2^64 kept
+    as 32-bit halves): T 2^-32 mod P."""
+    prod = a * b                                        # each < 2^62
+    hi = (prod >> 32).sum(-1)
+    lo = (prod & MASK32).sum(-1)
+    hi, lo = hi + (lo >> 32), lo & MASK32               # T = hi 2^32 + lo
+    assert int(hi.max()) < 2 * P                        # T < 2P 2^32
+    pinv = pow(P, -1, 1 << 32)
+    pinv_s = pinv - (1 << 32) if pinv >> 31 else pinv   # signed: no overflow
+    m = (lo * pinv_s) & MASK32
+    r = hi - ((m * P) >> 32)                            # exact, in (-P, 2P)
+    r = torch.where(r < 0, r + P, r)
+    return torch.where(r >= P, r - P, r)
+
+
+@pytest.mark.parametrize("pi", [0, 1])
+def test_kernel_product_arithmetic_model(pi):
+    """The kernels' 32-bit products equal (a b) mod P on seeded random
+    residues and the edges 0, 1, P - 1: Shoup with the host table's
+    companions, the key form's Montgomery product (b stored as b 2^32 mod P)
+    and the lazily reduced row sums of 1 to 4 terms."""
+    P = tntt.PRIMES[pi]
+    rng = np.random.default_rng(40 + pi)
+    edges = np.array([0, 1, P - 1], np.int64)
+    a = np.concatenate([rng.integers(0, P, 4000), np.repeat(edges, 3)])
+    b = np.concatenate([rng.integers(0, P, 4000), np.tile(edges, 3)])
+    want = torch.from_numpy(a * b % P)
+    a, b = _t(a), _t(b)
+    assert torch.equal(shoup_mul(a, b, _t(tntt.shoup_companion(b.numpy(), P)),
+                                 P), want)
+    key = (b << 32) % P                                  # Montgomery form
+    assert torch.equal(mont_sum(a[:, None], key[:, None], P), want)
+    for terms in (2, 3, 4):
+        n = a.shape[0] // terms * terms
+        aa, kk = a[:n].reshape(-1, terms), key[:n].reshape(-1, terms)
+        want = (aa * b[:n].reshape(-1, terms) % P).sum(-1) % P
+        assert torch.equal(mont_sum(aa, kk, P), want)
+    # the largest sum the kernels form: 4 products of P - 1 by P - 1
+    top = torch.full((1, 4), P - 1, dtype=torch.int64)
+    assert int(mont_sum(top, (top << 32) % P, P)) == 4
+
+
+@pytest.mark.parametrize("N", [64, 256, 1024])
+def test_kernel_tables(N):
+    """kernel_tables: twiddles and psi powers minus one with their Shoup
+    companions floor(w 2^32 / p), and the key factor N^-1 2^32 mod p."""
+    t = tntt.kernel_tables(N, "cpu")
+    tw = t.tw.numpy().view(np.uint32).astype(np.int64)
+    pw = t.pw.numpy().view(np.uint32).astype(np.int64)
+    for i, P in enumerate(tntt.PRIMES):
+        ref = tntt.tables(N)
+        np.testing.assert_array_equal(tw[i, 0, :, 0], ref["psirev"][i])
+        np.testing.assert_array_equal(tw[i, 1, :, 0], ref["psiinvrev"][i])
+        np.testing.assert_array_equal(tw[i, :, :, 1],
+                                      (tw[i, :, :, 0] << 32) // P)
+        np.testing.assert_array_equal(pw[i, :, 0],
+                                      (tntt.psi_powers(N)[i] - 1) % P)
+        np.testing.assert_array_equal(pw[i, :, 1], (pw[i, :, 0] << 32) // P)
+        f = tntt.key_factor(N)[i]
+        assert f * N % P == (1 << 32) % P
+        assert t.scale[2 * i: 2 * i + 2] == (f, (f << 32) // P)
+
+
+def _next_pairs(a, b, bit):
+    """csrc/ntt.cuh:next_pairs across the 32 lanes of a warp."""
+    lane = np.arange(32)
+    hi = ((lane >> bit) & 1).astype(bool)
+    got = np.where(hi, a, b)[lane ^ (1 << bit)]
+    return np.where(hi, got, a), np.where(hi, b, got)
+
+
+def _kernel_fwd(x, N, pi, first_lt=None):
+    """csrc/ntt.cuh:ntt_fwd's schedule: shared-memory stages of span >= 64,
+    then per warp 64 residues in registers (two a lane) for spans 32..1;
+    stages above first_lt were done by the caller."""
+    P, w = tntt.PRIMES[pi], tntt.tables(N)["psirev"][pi]
+    logN, H, lane = N.bit_length() - 1, N // 2, np.arange(32)
+    first_lt = logN - 1 if first_lt is None else first_lt
+    x = x.copy()
+    for lt in range(first_lt, 5, -1):
+        k = np.arange(H)
+        i0 = ((k >> lt) << (lt + 1)) + (k & ((1 << lt) - 1))
+        u, v = x[i0], x[i0 + (1 << lt)] * w[(1 << (logN - 1 - lt)) + (k >> lt)]
+        x[i0], x[i0 + (1 << lt)] = (u + v) % P, (u - v) % P
+    for blk in range(N // 64):
+        y, k = x[64 * blk: 64 * blk + 64], 32 * blk + lane
+        a, b = y[lane].copy(), y[lane + 32].copy()
+        for lt in range(5, -1, -1):
+            if lt < 5:
+                a, b = _next_pairs(a, b, lt)
+            if lt > min(5, first_lt):
+                continue
+            v = b * w[(1 << (logN - 1 - lt)) + (k >> lt)] % P
+            a, b = (a + v) % P, (a - v) % P
+        y[2 * lane], y[2 * lane + 1] = a, b
+    return x
+
+
+def _kernel_inv(x, N, pi):
+    """csrc/ntt.cuh:ntt_inv's schedule (unscaled): spans 1..32 in registers,
+    then the shared-memory stages."""
+    P, w = tntt.PRIMES[pi], tntt.tables(N)["psiinvrev"][pi]
+    logN, H, lane = N.bit_length() - 1, N // 2, np.arange(32)
+    x = x.copy()
+    for blk in range(N // 64):
+        y, k = x[64 * blk: 64 * blk + 64], 32 * blk + lane
+        a, b = y[2 * lane].copy(), y[2 * lane + 1].copy()
+        for lt in range(6):
+            if lt:
+                a, b = _next_pairs(a, b, lt - 1)
+            a, b = (a + b) % P, (a - b) * w[(1 << (logN - 1 - lt))
+                                            + (k >> lt)] % P
+        y[lane], y[lane + 32] = a, b
+    for lt in range(6, logN):
+        k = np.arange(H)
+        i0 = ((k >> lt) << (lt + 1)) + (k & ((1 << lt) - 1))
+        u, v = x[i0].copy(), x[i0 + (1 << lt)].copy()
+        x[i0] = (u + v) % P
+        x[i0 + (1 << lt)] = (u - v) * w[(1 << (logN - 1 - lt)) + (k >> lt)] % P
+    return x
+
+
+@pytest.mark.parametrize("N", [64, 256, 1024, 2048])
+@pytest.mark.parametrize("pi", [0, 1])
+def test_kernel_transform_schedule(N, pi):
+    """The order in which csrc/ntt.cuh runs the butterflies (the register
+    stages' lane pairs and warp shuffles, the first stage done by the
+    caller as br_cluster.cuh does with the digits) computes ntt_fwd, and
+    the unscaled inverse times N^-1 is ntt_inv."""
+    P = tntt.PRIMES[pi]
+    x = np.random.default_rng(N + pi).integers(0, P, N)
+    want = tntt.ntt_fwd(_t(x), N, pi).numpy()
+    np.testing.assert_array_equal(_kernel_fwd(x, N, pi), want)
+    logN, w1 = N.bit_length() - 1, int(tntt.tables(N)["psirev"][pi][1])
+    first = np.concatenate([(x[:N // 2] + w1 * x[N // 2:]) % P,
+                            (x[:N // 2] - w1 * x[N // 2:]) % P])
+    np.testing.assert_array_equal(_kernel_fwd(first, N, pi, logN - 2), want)
+    ninv = int(tntt.tables(N)["ninv"][pi])
+    np.testing.assert_array_equal(_kernel_inv(x, N, pi) * ninv % P,
+                                  tntt.ntt_inv(_t(x), N, pi).numpy())
