@@ -75,8 +75,10 @@ Phases, one line each or more:
                    plain key and M = 3 on the 2-bit-unrolled key (one launch
                    each, G clusters of 4 CTAs as the launcher reports it),
                    max |diff| 0 and kernel ms vs twin ms at G = 1, 64, 256
-                   and 2048 (the br-gates phase's batch); and the exact
-                   unrolled route
+                   and 2048 (the br-gates phase's batch) and at each
+                   thread-plan switch (the most clusters of 512-thread
+                   CTAs the card holds, and one more: ops/br.py:
+                   threads_for); and the exact unrolled route
                    (one extprod1_ntt launch at 3*2l rows per key-bit pair,
                    318 in all) at G = 64 against its twin;
  12. br-gates   -- 2048 NANDs through the pallas (K5), pallas2 (K4) and v3
@@ -156,7 +158,6 @@ SEED = 20261016
 MEM_CYCLES = 3
 SLICE_CYCLES = 3
 BR_SIZES = (1, 64, 256, 2048)
-BR_THREADS = 256      # a K3/K4 CTA (csrc/br_cluster.cuh)
 
 # The card's peaks for the bounds (H100 SXM, NVIDIA's data sheet at the
 # 700 W limit): int8 tensor-core operations, device-memory bytes, and 32-bit
@@ -236,14 +237,22 @@ def phase_build(p):
         say("build", f"{os.path.relpath(path, ROOT)} (all {len(sources)} "
             f"nvcc in parallel: {dt:.2f} s); ptxas per kernel: {regs}; "
             f"dynamic shared memory: {smem.get(src, 'see the source')}")
-    (k4_smem, k4_n), k3 = br.cluster_plan(p), {
-        m: br3.cluster_plan(p, m) for m in (1, 3)}
-    say("build", f"K3/K4 launch one cluster of {br.CLUSTER} CTAs (prime x "
-        f"part) per row, {BR_THREADS} threads a CTA: K4 {k4_smem} B a CTA, "
-        f"{k4_n} clusters at once; K3 M=1 {k3[1][0]} B, {k3[1][1]} at once; "
-        f"K3 M=3 {k3[3][0]} B, {k3[3][1]} at once; at G = "
-        f"{', '.join(map(str, BR_SIZES))}: "
-        + ", ".join(f"{G} clusters ({4 * G} CTAs)" for G in BR_SIZES))
+    caps = {}
+    for nt in (br.WIDE_THREADS, br.NARROW_THREADS):
+        plans = {"K4": br.cluster_plan(p, nt),
+                 **{f"K3 M={m}": br3.cluster_plan(p, m, nt) for m in (1, 3)}}
+        caps[nt] = plans
+        say("build", f"K3/K4 clusters of {br.CLUSTER} CTAs (prime x part) "
+            f"of {nt} threads: " + "; ".join(
+                f"{k} {v[0]} B a CTA, {v[1]} clusters at once"
+                for k, v in plans.items()))
+    for k in caps[br.NARROW_THREADS]:
+        cap = caps[br.NARROW_THREADS][k][1]
+        say("build", f"{k} plan (ops/br.py:plan, one cluster a row): "
+            + ", ".join(f"G={G}: {G} clusters of {br.CLUSTER} x "
+                        f"{br.threads_for(G, cap)} threads"
+                        for G in sorted(set(BR_SIZES) | {cap, cap + 1})))
+    return {k: v[1] for k, v in caps[br.NARROW_THREADS].items()}
     for src in (tkey.SOURCE, micro.SOURCE):
         for label, mix in sass_products(nvcc.lib_path(src)).items():
             say("build", f"SASS of {src} {label}: {sum(mix.values())} "
@@ -447,9 +456,10 @@ def br_keys(ek, p):
     return dk, t_key
 
 
-def phase_br_kernels(p, sk, dk, rng, smi):
+def phase_br_kernels(p, sk, dk, rng, smi, sizes):
     """K5, K4 and K3 (M = 1, 3) against their twins, bit for bit, and
-    timed; the exact unrolled route against its twin."""
+    timed at the given batches; the exact unrolled route against its
+    twin."""
     testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
     cases = [  # name, key, blind rotation, its twin from (rows, acc)
         ("br_ntt_step", dk.bk_ntt, br.blind_rotate_pallas,
@@ -465,7 +475,7 @@ def phase_br_kernels(p, sk, dk, rng, smi):
     ]
     per_rotation = {"br_ntt_step": p.n}
     rows_out, worst = [], 0
-    for G in BR_SIZES:
+    for G in sizes:
         bits = rng.integers(0, 2, G, dtype=np.uint8)
         ct = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
         for name, key, fn, twin in cases:
@@ -524,12 +534,14 @@ CLUSTER_GRIDS = {"br_ntt_loop": br.last_launch, "br3_ntt M=1": br3.last_launch,
 
 
 def check_clusters(name, G):
-    """The (CTAs, cluster size) of the kernel's last launch, as its C
-    launcher reports it; raises unless G clusters of br.CLUSTER CTAs."""
+    """The (CTAs, cluster size, threads a CTA) of the kernel's last launch,
+    as its C launcher reports it; raises unless G clusters of br.CLUSTER
+    CTAs of one of the plan's thread counts."""
     grid = CLUSTER_GRIDS[name]()
-    if grid != (br.CLUSTER * G, br.CLUSTER):
+    if grid[:2] != (br.CLUSTER * G, br.CLUSTER) or grid[2] not in (
+            br.WIDE_THREADS, br.NARROW_THREADS):
         raise AssertionError(f"{name} at G={G} launched {grid} (CTAs, "
-                             f"cluster size), not {G} clusters of "
+                             f"cluster size, threads), not {G} clusters of "
                              f"{br.CLUSTER}")
     return list(grid)
 
@@ -1376,7 +1388,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi, name = phase_device()
     p = params.CGGI128
-    phase_build(p)
+    caps = phase_build(p)
 
     rng = np.random.default_rng(SEED)
     sk = host.keygen(p, seed=SEED)
@@ -1410,7 +1422,11 @@ def main() -> int:
     launches, mem_s_cycle, stages = phase_memory(files, data, smi)
 
     bdk, t_key = br_keys(ek, p)
-    br_rows, _, unrolled = phase_br_kernels(p, sk, bdk, rng, smi)
+    # BR_SIZES and each cluster kernel's thread-plan switch (ops/br.py:
+    # threads_for): the largest G at 512 threads a CTA and the next
+    br_sizes = sorted(set(BR_SIZES) | {g for c in caps.values()
+                                       for g in (c, c + 1)})
+    br_rows, _, unrolled = phase_br_kernels(p, sk, bdk, rng, smi, br_sizes)
     br_gates = phase_br_gates(p, sk, bdk, rng, smi, rate)
     del bdk
     torch.cuda.empty_cache()

@@ -66,14 +66,14 @@ ClusterPlans<true, 3> m3_plans;
 }  // namespace
 
 // K3's dynamic shared memory per CTA (br_cluster_smem) and the clusters the
-// card holds at once into out[0], out[1]; 0 or a CUDA error (M not 1 or 3:
-// invalid value).
-extern "C" int br3_ntt_plan(int N, int l, int M, int device,
+// card holds at once at nt threads a CTA into out[0], out[1]; 0 or a CUDA
+// error (M not 1 or 3: invalid value).
+extern "C" int br3_ntt_plan(int N, int l, int M, int nt, int device,
                             long long* out) {
   size_t smem = 0;
   int n = 0;
-  const int e = M == 1   ? m1_plans.prepare(device, N, l, &smem, &n)
-                : M == 3 ? m3_plans.prepare(device, N, l, &smem, &n)
+  const int e = M == 1   ? m1_plans.prepare(device, N, l, nt, &smem, &n)
+                : M == 3 ? m3_plans.prepare(device, N, l, nt, &smem, &n)
                          : (int)cudaErrorInvalidValue;
   out[0] = (long long)smem;
   out[1] = n;
@@ -81,7 +81,7 @@ extern "C" int br3_ntt_plan(int N, int l, int M, int device,
 }
 
 // K3: all n_steps decompose-first CMUX steps of every row in one launch,
-// one cluster of four CTAs per row.
+// one cluster of four CTAs of nt (256 or 512) threads per row.
 //   acc int32 [G, 2, N] (updated in place); steps int32 [n_steps, M, G],
 //   rotation amounts in [0, 2N); kkey int32 [n_steps, 2, 2, M, l, 2, N],
 //   the key's kernel form; tw uint32 [2, 2, N, 2] = psirev, psiinvrev of
@@ -93,7 +93,7 @@ extern "C" int br3_ntt_plan(int N, int l, int M, int device,
 extern "C" int br3_ntt(void* acc, const void* steps, const void* kkey,
                        const void* tw, const void* pw, int G, int n_steps,
                        int M, int N, int l, int Bgbit, uint32_t offset,
-                       int device, void* stream) {
+                       int nt, int device, void* stream) {
   const uint32_t none[4] = {0u, 0u, 0u, 0u};
   const BrArgs A{static_cast<int32_t*>(acc),
                  static_cast<const int32_t*>(steps),
@@ -101,15 +101,17 @@ extern "C" int br3_ntt(void* acc, const void* steps, const void* kkey,
                  static_cast<const uint2*>(pw), n_steps, G,
                  ring(tw, none, N, l, Bgbit, offset)};
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return M == 1   ? m1_plans.launch(A, device, s)
-         : M == 3 ? m3_plans.launch(A, device, s)
+  return M == 1   ? m1_plans.launch(A, nt, device, s)
+         : M == 3 ? m3_plans.launch(A, nt, device, s)
                   : (int)cudaErrorInvalidValue;
 }
 
-// The grid (CTAs) and cluster size of this library's last cluster launch.
+// The grid (CTAs), cluster size and threads a CTA of this library's last
+// cluster launch.
 extern "C" void br3_ntt_last_launch(int* out) {
   out[0] = last_launch[0];
   out[1] = last_launch[1];
+  out[2] = last_launch[2];
 }
 
 extern "C" const char* br3_error_string(int e) {

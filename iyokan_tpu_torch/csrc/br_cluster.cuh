@@ -7,8 +7,8 @@
 // gadget digit rows depend on acc[u] alone (the rotated difference
 // X^a acc[u] - acc[u] for K4, acc[u] itself for K3's decompose-first form),
 // so a step in CTA (p, u) is:
-//   1. the l digit rows, as residues mod p, computed inside the first
-//      butterfly stage of their forward transforms (l polynomials
+//   1. the l digit rows, as residues mod p, computed inside the first two
+//      butterfly stages of their forward transforms (l polynomials
 //      together);
 //   2. the partial key products of both outputs v = 0, 1 in the NTT domain:
 //      sum_j dig[j] * key[u*l + j, v] (K3: sum_m (psi^(a_m(2k+1)) - 1) *
@@ -48,7 +48,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int BR_THREADS = 256;
 constexpr int BR_CLUSTER = 4;  // CTA rank 2p + u: prime p, part u
 
 struct BrArgs {
@@ -69,14 +68,15 @@ inline size_t br_cluster_smem(int N, int l, bool v3) {
 // X^a x - x (K4) or of x (K3).
 template <uint32_t P, bool V3, int L>
 __device__ __forceinline__ void digits_at(const uint32_t* x, int c, int a,
-                                          const Ring& r, uint32_t* out) {
+                                          int N, const Ring& r,
+                                          uint32_t* out) {
   uint32_t xp;
   if (V3) {
     xp = x[c] + r.offset;
   } else {  // coefficient c of X^a x is x[c - a], negated past N
     int m = c - a;
-    if (m < 0) m += 2 * r.N;
-    const uint32_t rot = m < r.N ? x[m] : 0u - x[m - r.N];
+    if (m < 0) m += 2 * N;
+    const uint32_t rot = m < N ? x[m] : 0u - x[m - N];
     xp = rot - x[c] + r.offset;
   }
 #pragma unroll
@@ -84,12 +84,14 @@ __device__ __forceinline__ void digits_at(const uint32_t* x, int c, int a,
     out[j] = residue<P>(gadget_digit(xp, j, r.Bgbit));
 }
 
-template <uint32_t P, bool V3, int M, int L>
+// LOGN: log2 N fixed at compile time (0: the launch's r.logN).
+template <uint32_t P, bool V3, int M, int L, int LOGN>
 __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
                                 uint32_t* sm) {
   cg::cluster_group cluster = cg::this_cluster();
   const Ring& r = A.r;
-  const int N = r.N, H = N >> 1, logN = r.logN, nt = blockDim.x;
+  const int logN = LOGN ? LOGN : r.logN, N = 1 << logN, H = N >> 1;
+  const int nt = blockDim.x;
   const int tid = threadIdx.x, p = rank >> 1, u = rank & 1;
   const int g = blockIdx.x / BR_CLUSTER, G = A.G;
   uint2* twf = reinterpret_cast<uint2*>(sm);
@@ -122,22 +124,38 @@ __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
     for (int m = 0; m < M; ++m)
       am[m] = A.amounts[((size_t)i * M + m) * G + g];
 
-    // 1. the digit rows inside the first forward stage (pairs c, c + N/2),
-    // then the rest of their forward transforms
-    const uint2 w1 = twf[1];
-    for (int c = tid; c < H; c += nt) {
-      uint32_t x0[L], x1[L];
-      digits_at<P, V3, L>(acc, c, am[0], r, x0);
-      digits_at<P, V3, L>(acc, c + H, am[0], r, x1);
+    // 1. the digit rows inside the first two forward stages (residues c,
+    // c + N/4, c + N/2, c + 3N/4; at N = 128 one stage, pairs c, c + N/2;
+    // at N = 64 none), then the rest of their forward transforms
+    if (logN >= 8) {
+      const int Q = N >> 2;
+      for (int c = tid; c < Q; c += nt) {
+        uint32_t x[4][L];
 #pragma unroll
-      for (int j = 0; j < L; ++j) {
-        const uint32_t wv = shoup_mul<P>(x1[j], w1);
-        dig[j * N + c] = addmod<P>(x0[j], wv);
-        dig[j * N + c + H] = submod<P>(x0[j], wv);
+        for (int e = 0; e < 4; ++e)
+          digits_at<P, V3, L>(acc, c + e * Q, am[0], N, r, x[e]);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          ct4<P>(x[0][j], x[1][j], x[2][j], x[3][j], twf, 1, 0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dig[j * N + c + e * Q] = x[e][j];
+        }
+      }
+    } else {
+      for (int c = tid; c < H; c += nt) {
+        uint32_t x0[L], x1[L];
+        digits_at<P, V3, L>(acc, c, am[0], N, r, x0);
+        digits_at<P, V3, L>(acc, c + H, am[0], N, r, x1);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          if (logN == 7) ct<P>(x0[j], x1[j], twf[1]);
+          dig[j * N + c] = x0[j];
+          dig[j * N + c + H] = x1[j];
+        }
       }
     }
     __syncthreads();
-    ntt_fwd<P, L>(dig, L, twf, N, logN, logN - 2);
+    ntt_fwd<P, L>(dig, L, twf, N, logN, logN >= 8 ? logN - 3 : 5);
 
     // 2. the partial key products of both outputs
     uint32_t* own = sum + (i & 1) * N;
@@ -184,7 +202,7 @@ __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
     const uint32_t* other = sum_pp + (i & 1) * N;
     for (int c = tid; c < N; c += nt) {
       const uint32_t mine = own[c], theirs = other[c];
-      acc[c] += p == 0 ? crt_mod32(mine, theirs) : crt_mod32(theirs, mine);
+      acc[c] += P == P1 ? crt_mod32(mine, theirs) : crt_mod32(theirs, mine);
     }
     __syncthreads();
   }
@@ -194,25 +212,28 @@ __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
       A.acc[((size_t)g * 2 + u) * N + c] = (int32_t)acc[c];
 }
 
-template <bool V3, int M, int L>
-__global__ void __launch_bounds__(BR_THREADS)
+// NT threads a CTA: 256 for wide batches (registers capped so that five
+// K4 or four K3 CTAs share an SM), 512 for narrow ones (two a SM).
+template <bool V3, int M, int L, int NT, int LOGN>
+__global__ void __launch_bounds__(NT, NT == 256 ? (V3 ? 4 : 5) : 2)
     br_cluster_kernel(const BrArgs A) {
   extern __shared__ __align__(16) uint32_t br_sm[];
   const unsigned rank = cg::this_cluster().block_rank();
   if (rank >> 1)
-    br_cluster_body<P2, V3, M, L>(A, rank, br_sm);
+    br_cluster_body<P2, V3, M, L, LOGN>(A, rank, br_sm);
   else
-    br_cluster_body<P1, V3, M, L>(A, rank, br_sm);
+    br_cluster_body<P1, V3, M, L, LOGN>(A, rank, br_sm);
 }
 
 // Dynamic shared memory and cluster checks of one instantiation, per card:
 // the limit raised once, and cudaOccupancyMaxActiveClusters read once (a
 // card that can hold no cluster of this kernel refuses the launch).
-// The grid and cluster sizes of the last K3 or K4 launch of a library, as
-// launched (br_ntt_last_launch, br3_ntt_last_launch report them).
-int last_launch[2] = {0, 0};
+// The grid (CTAs), cluster size and threads a CTA of the last K3 or K4
+// launch of a library, as launched (br_ntt_last_launch, br3_ntt_last_launch
+// report them).
+int last_launch[3] = {0, 0, 0};
 
-template <bool V3, int M, int L>
+template <bool V3, int M, int L, int NT, int LOGN = 0>
 struct ClusterPlan {
   SmemLimit limit;
   int clusters[MAX_DEVICES] = {};
@@ -226,7 +247,7 @@ struct ClusterPlan {
     at[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(BR_CLUSTER * n_clusters);
-    cfg.blockDim = dim3(BR_THREADS);
+    cfg.blockDim = dim3(NT);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = at;
@@ -236,14 +257,14 @@ struct ClusterPlan {
 
   // 0 or a CUDA error; *max_clusters: clusters the card holds at once.
   int prepare(int device, size_t smem, int* max_clusters) {
-    const int e = limit.prepare(br_cluster_kernel<V3, M, L>, device, smem);
+    const int e = limit.prepare(br_cluster_kernel<V3, M, L, NT, LOGN>, device, smem);
     if (e) return e;
     if (!clusters[device]) {
       cudaLaunchAttribute at[1];
       const cudaLaunchConfig_t cfg = config(1, smem, nullptr, at);
       int n = 0;
       const cudaError_t q = cudaOccupancyMaxActiveClusters(
-          &n, br_cluster_kernel<V3, M, L>, &cfg);
+          &n, br_cluster_kernel<V3, M, L, NT, LOGN>, &cfg);
       if (q != cudaSuccess) return (int)q;
       if (n < 1) return (int)cudaErrorLaunchOutOfResources;
       clusters[device] = n;
@@ -261,42 +282,65 @@ struct ClusterPlan {
     cudaLaunchAttribute at[1];
     const cudaLaunchConfig_t cfg = config(A.G, smem, stream, at);
     const cudaError_t q =
-        cudaLaunchKernelEx(&cfg, br_cluster_kernel<V3, M, L>, A);
+        cudaLaunchKernelEx(&cfg, br_cluster_kernel<V3, M, L, NT, LOGN>, A);
     if (q != cudaSuccess) return (int)q;
     last_launch[0] = (int)cfg.gridDim.x;
     last_launch[1] = (int)at[0].val.clusterDim.x;
+    last_launch[2] = (int)cfg.blockDim.x;
     return (int)cudaGetLastError();
   }
 };
 
-// The instances of one kernel (V3, M) for l = 1..4, chosen by l.
+// The instances of one kernel (V3, M) for l = 1..4 and 256 or 512
+// threads a CTA, chosen by (l, threads); l = 3 at N = 1024 (the 128-bit
+// parameter sets) has its own, N fixed at compile time.
 template <bool V3, int M>
 struct ClusterPlans {
-  ClusterPlan<V3, M, 1> l1;
-  ClusterPlan<V3, M, 2> l2;
-  ClusterPlan<V3, M, 3> l3;
-  ClusterPlan<V3, M, 4> l4;
+  ClusterPlan<V3, M, 1, 256> l1;
+  ClusterPlan<V3, M, 2, 256> l2;
+  ClusterPlan<V3, M, 3, 256> l3;
+  ClusterPlan<V3, M, 4, 256> l4;
+  ClusterPlan<V3, M, 3, 256, 10> l3n;
+  ClusterPlan<V3, M, 1, 512> l1w;
+  ClusterPlan<V3, M, 2, 512> l2w;
+  ClusterPlan<V3, M, 3, 512> l3w;
+  ClusterPlan<V3, M, 4, 512> l4w;
+  ClusterPlan<V3, M, 3, 512, 10> l3nw;
 
   // 0 or a CUDA error; *smem: bytes a CTA; *n: clusters the card holds.
-  int prepare(int device, int N, int l, size_t* smem, int* n) {
+  int prepare(int device, int N, int l, int nt, size_t* smem, int* n) {
     *smem = br_cluster_smem(N, l, V3);
-    switch (l) {
-      case 1: return l1.prepare(device, *smem, n);
-      case 2: return l2.prepare(device, *smem, n);
-      case 3: return l3.prepare(device, *smem, n);
-      case 4: return l4.prepare(device, *smem, n);
+    const bool n10 = N == 1024;
+    switch (l * 1024 + nt) {
+      case 1024 + 256: return l1.prepare(device, *smem, n);
+      case 2048 + 256: return l2.prepare(device, *smem, n);
+      case 3072 + 256: return n10 ? l3n.prepare(device, *smem, n)
+                                  : l3.prepare(device, *smem, n);
+      case 4096 + 256: return l4.prepare(device, *smem, n);
+      case 1024 + 512: return l1w.prepare(device, *smem, n);
+      case 2048 + 512: return l2w.prepare(device, *smem, n);
+      case 3072 + 512: return n10 ? l3nw.prepare(device, *smem, n)
+                                  : l3w.prepare(device, *smem, n);
+      case 4096 + 512: return l4w.prepare(device, *smem, n);
       default: return (int)cudaErrorInvalidValue;
     }
   }
 
-  int launch(const BrArgs& A, int device, cudaStream_t stream) {
+  int launch(const BrArgs& A, int nt, int device, cudaStream_t stream) {
     if (A.G <= 0 || A.S <= 0 || A.r.logN < 0)
       return (int)cudaErrorInvalidValue;
-    switch (A.r.l) {
-      case 1: return l1.launch(A, device, stream);
-      case 2: return l2.launch(A, device, stream);
-      case 3: return l3.launch(A, device, stream);
-      case 4: return l4.launch(A, device, stream);
+    const bool n10 = A.r.logN == 10;
+    switch (A.r.l * 1024 + nt) {
+      case 1024 + 256: return l1.launch(A, device, stream);
+      case 2048 + 256: return l2.launch(A, device, stream);
+      case 3072 + 256: return n10 ? l3n.launch(A, device, stream)
+                                  : l3.launch(A, device, stream);
+      case 4096 + 256: return l4.launch(A, device, stream);
+      case 1024 + 512: return l1w.launch(A, device, stream);
+      case 2048 + 512: return l2w.launch(A, device, stream);
+      case 3072 + 512: return n10 ? l3nw.launch(A, device, stream)
+                                  : l3w.launch(A, device, stream);
+      case 4096 + 512: return l4w.launch(A, device, stream);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -166,39 +166,43 @@ extern "C" int br_ntt_step(void* acc, const void* a_row, const void* key,
 }
 
 // K4's dynamic shared memory per CTA (br_cluster_smem) and the clusters the
-// card holds at once (cudaOccupancyMaxActiveClusters) into out[0], out[1];
-// 0 or a CUDA error.
-extern "C" int br_ntt_loop_plan(int N, int l, int device, long long* out) {
+// card holds at once (cudaOccupancyMaxActiveClusters) at nt threads a CTA
+// into out[0], out[1]; 0 or a CUDA error.
+extern "C" int br_ntt_loop_plan(int N, int l, int nt, int device,
+                                long long* out) {
   size_t smem = 0;
   int n = 0;
-  const int e = loop_plans.prepare(device, N, l, &smem, &n);
+  const int e = loop_plans.prepare(device, N, l, nt, &smem, &n);
   out[0] = (long long)smem;
   out[1] = n;
   return e;
 }
 
 // K4: all n CMUX steps of every row in one launch, one cluster of four
-// CTAs per row.
+// CTAs of nt (256 or 512) threads per row.
 //   acc int32 [G, 2, N] (updated in place); abar_t int32 [n, G] (row i:
 //   step i's amounts); kkey int32 [n, 2, 2, 1, l, 2, N], the key's kernel
 //   form; tw, offset as br_ntt_step.  Returns 0 or the first CUDA error; a
 //   card that cannot hold one cluster refuses (cudaErrorLaunchOutOfResources).
 extern "C" int br_ntt_loop(void* acc, const void* abar_t, const void* kkey,
                            const void* tw, int G, int n, int N, int l,
-                           int Bgbit, uint32_t offset, int device,
+                           int Bgbit, uint32_t offset, int nt, int device,
                            void* stream) {
   const uint32_t none[4] = {0u, 0u, 0u, 0u};
   const BrArgs A{static_cast<int32_t*>(acc),
                  static_cast<const int32_t*>(abar_t),
                  static_cast<const uint32_t*>(kkey), nullptr, n, G,
                  ring(tw, none, N, l, Bgbit, offset)};
-  return loop_plans.launch(A, device, reinterpret_cast<cudaStream_t>(stream));
+  return loop_plans.launch(A, nt, device,
+                           reinterpret_cast<cudaStream_t>(stream));
 }
 
-// The grid (CTAs) and cluster size of this library's last cluster launch.
+// The grid (CTAs), cluster size and threads a CTA of this library's last
+// cluster launch.
 extern "C" void br_ntt_last_launch(int* out) {
   out[0] = last_launch[0];
   out[1] = last_launch[1];
+  out[2] = last_launch[2];
 }
 
 extern "C" const char* br_ntt_error_string(int e) {

@@ -65,7 +65,10 @@ __device__ void one_prime(const int32_t* __restrict__ dg,
       dig[r * N + c] = (uint32_t)(v < 0 ? v + P : v);
     }
   __syncthreads();
-  ntt_fwd<P, 2>(dig, RR, tw, N, logN);
+  if (RR % 2)
+    ntt_fwd<P, 1>(dig, RR, tw, N, logN);
+  else
+    ntt_fwd<P, 2>(dig, RR, tw, N, logN);
   for (int u = 0; u < 2; ++u)
     for (int c = k; c < N; c += H) {
       uint32_t s = 0;

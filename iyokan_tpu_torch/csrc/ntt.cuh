@@ -22,10 +22,11 @@
 // The transforms are called by every thread of a block (any multiple of 32
 // threads) on npoly polynomials of N residues in shared memory, NP of them
 // through each butterfly position together.  Stages of span 64 and more go
-// through shared memory, one barrier each; the six of span 32 down to 1
-// run in registers, a warp on 64 consecutive residues of each polynomial
-// (two a lane, one butterfly a lane a stage, the pairs re-formed between
-// stages by one warp shuffle), with no barrier.  The host side holds what every launch
+// through shared memory two at a time (four residues an item, one barrier
+// a pair); the six of span 32 down to 1 run in registers, a warp on 64
+// consecutive residues of each polynomial (two a lane, one butterfly a
+// lane a stage, the pairs re-formed between stages by one warp shuffle),
+// with no barrier.  The host side holds what every launch
 // checks and sets up: the ring's arguments (Ring) and the kernel's
 // shared-memory limit (SmemLimit).  A library that includes this header is
 // rebuilt when it changes (ops/nvcc.py hashes both).
@@ -127,76 +128,120 @@ __device__ __forceinline__ void next_pairs(uint32_t& a, uint32_t& b,
   if (hi) a = got; else b = got;
 }
 
+// A Cooley-Tukey butterfly (u, v) -> (u + w v, u - w v) and a
+// Gentleman-Sande one (u, v) -> (u + v, (u - v) w).
+template <uint32_t P>
+__device__ __forceinline__ void ct(uint32_t& u, uint32_t& v, uint2 w) {
+  const uint32_t wv = shoup_mul<P>(v, w);
+  v = submod<P>(u, wv);
+  u = addmod<P>(u, wv);
+}
+
+template <uint32_t P>
+__device__ __forceinline__ void gs(uint32_t& u, uint32_t& v, uint2 w) {
+  const uint32_t d = submod<P>(u, v);
+  u = addmod<P>(u, v);
+  v = shoup_mul<P>(d, w);
+}
+
+// Two forward stages, spans 2^lt and 2^(lt-1), on the residues i0, i0 + h,
+// i0 + 2h, i0 + 3h (h = 2^(lt-1)) with j = i0 >> (lt + 1) and
+// base = 2^(logN-1-lt): twiddles tw[base + j], then tw[2 base + 2j] and
+// tw[2 base + 2j + 1].
+template <uint32_t P>
+__device__ __forceinline__ void ct4(uint32_t& x0, uint32_t& x1,
+                                    uint32_t& x2, uint32_t& x3,
+                                    const uint2* tw, int base, int j) {
+  const uint2 wa = tw[base + j];
+  ct<P>(x0, x2, wa);
+  ct<P>(x1, x3, wa);
+  ct<P>(x0, x1, tw[2 * base + 2 * j]);
+  ct<P>(x2, x3, tw[2 * base + 2 * j + 1]);
+}
+
 // Forward negacyclic NTT of npoly polynomials x[r*N ..] in shared memory,
 // natural order in, bit-reversed out (crypto/ntt.py:ntt_fwd); tw: this
-// prime's psirev with companions.  NP polynomials go through each
-// butterfly position together (one twiddle load, NP independent chains);
-// stages from span 2^first_lt down (a caller that ran the first stage
-// itself passes logN - 2).  Ends with a barrier.
+// prime's psirev with companions.  NP polynomials (npoly a multiple of NP)
+// go through each butterfly position together: one twiddle load, NP
+// independent chains.  Stages of span >= 64 two at a time (four residues
+// an item, one barrier a pair), from span 2^first_lt down (a caller that
+// ran the first stages itself passes the next one, at least 5); then
+// spans 32..1 in registers.  Ends with a barrier.
 template <uint32_t P, int NP>
 __device__ void ntt_fwd(uint32_t* x, int npoly, const uint2* tw, int N,
                         int logN, int first_lt = -1) {
-  const int nt = blockDim.x, H = N >> 1, ng = (npoly + NP - 1) / NP;
-  for (int lt = first_lt < 0 ? logN - 1 : first_lt; lt >= 6; --lt) {
-    const int t = 1 << lt, base = 1 << (logN - 1 - lt);
-    for (int idx = threadIdx.x; idx < ng * H; idx += nt) {
-      const int k = idx & (H - 1), q0 = (idx >> (logN - 1)) * NP;
-      const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
-      const uint2 w = tw[base + (k >> lt)];
-      uint32_t u[NP], v[NP];
+  const int nt = blockDim.x, ng = npoly / NP;
+  for (int lt = first_lt < 0 ? logN - 1 : first_lt; lt >= 6;) {
+    const int base = 1 << (logN - 1 - lt);
+    if (lt >= 7) {  // spans 2^lt and 2^(lt-1)
+      const int h = 1 << (lt - 1), Q = N >> 2;
+      for (int idx = threadIdx.x; idx < ng * Q; idx += nt) {
+        const int kk = idx & (Q - 1), j = kk >> (lt - 1);
+        uint32_t* y = x + (idx >> (logN - 2)) * NP * N +
+                      (j << (lt + 1)) + (kk & (h - 1));
+        uint32_t v[NP][4];
 #pragma unroll
-      for (int q = 0; q < NP; ++q)
-        if (q0 + q < npoly) {
-          u[q] = x[(q0 + q) * N + i0];
-          v[q] = x[(q0 + q) * N + i0 + t];
-        }
+        for (int q = 0; q < NP; ++q)
 #pragma unroll
-      for (int q = 0; q < NP; ++q)
-        if (q0 + q < npoly) {
-          const uint32_t wv = shoup_mul<P>(v[q], w);
-          x[(q0 + q) * N + i0] = addmod<P>(u[q], wv);
-          x[(q0 + q) * N + i0 + t] = submod<P>(u[q], wv);
+          for (int e = 0; e < 4; ++e) v[q][e] = y[q * N + e * h];
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          ct4<P>(v[q][0], v[q][1], v[q][2], v[q][3], tw, base, j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) y[q * N + e * h] = v[q][e];
         }
+      }
+      lt -= 2;
+    } else {  // span 64 alone
+      const int H = N >> 1;
+      for (int idx = threadIdx.x; idx < ng * H; idx += nt) {
+        const int k = idx & (H - 1);
+        uint32_t* y = x + (idx >> (logN - 1)) * NP * N + ((k >> 6) << 7) +
+                      (k & 63);
+        const uint2 w = tw[base + (k >> 6)];
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          uint32_t u = y[q * N], v = y[q * N + 64];
+          ct<P>(u, v, w);
+          y[q * N] = u;
+          y[q * N + 64] = v;
+        }
+      }
+      lt -= 1;
     }
     __syncthreads();
   }
   const int lane = threadIdx.x & 31, nb = N >> 6;
-  const int top = first_lt < 0 ? 5 : min(5, first_lt);  // N = 64
   for (int it = threadIdx.x >> 5; it < ng * nb; it += nt >> 5) {
-    const int b = it & (nb - 1), q0 = (it >> (logN - 6)) * NP;
+    const int b = it & (nb - 1);
     const int k = (b << 5) + lane;  // 64 residues of each polynomial
+    uint32_t* y = x + (it >> (logN - 6)) * NP * N + b * 64;
     uint32_t a[NP], c[NP];
 #pragma unroll
-    for (int q = 0; q < NP; ++q)
-      if (q0 + q < npoly) {
-        a[q] = x[(q0 + q) * N + b * 64 + lane];
-        c[q] = x[(q0 + q) * N + b * 64 + lane + 32];
-      }
+    for (int q = 0; q < NP; ++q) {
+      a[q] = y[q * N + lane];
+      c[q] = y[q * N + lane + 32];
+    }
 #pragma unroll
     for (int lt = 5; lt >= 0; --lt) {
       const uint2 w = tw[(1 << (logN - 1 - lt)) + (k >> lt)];
 #pragma unroll
-      for (int q = 0; q < NP; ++q)
-        if (q0 + q < npoly) {
-          if (lt < 5) next_pairs(a[q], c[q], lt);
-          if (lt > top) continue;
-          const uint32_t wv = shoup_mul<P>(c[q], w);
-          c[q] = submod<P>(a[q], wv);
-          a[q] = addmod<P>(a[q], wv);
-        }
+      for (int q = 0; q < NP; ++q) {
+        if (lt < 5) next_pairs(a[q], c[q], lt);
+        ct<P>(a[q], c[q], w);
+      }
     }
 #pragma unroll
     for (int q = 0; q < NP; ++q)
-      if (q0 + q < npoly)
-        reinterpret_cast<uint2*>(x + (q0 + q) * N + b * 64)[lane] =
-            make_uint2(a[q], c[q]);
+      reinterpret_cast<uint2*>(y + q * N)[lane] = make_uint2(a[q], c[q]);
   }
   __syncthreads();
 }
 
 // Inverse (Gentleman-Sande), bit-reversed in, natural out, unscaled
 // (crypto/ntt.py:ntt_inv without its N^-1; the kernels fold that into
-// their key or pass it as `scale`), NP polynomials together as ntt_fwd.
+// their key or pass it as `scale`), NP polynomials together as ntt_fwd:
+// spans 1..32 in registers, then the spans >= 64 two at a time.
 // add (or null): polynomial r of the input is x[r*N ..] +
 // add[r*add_stride ..] mod P, read as the first stage loads x.  scale
 // (.x = 0: none): every output times scale, in the last stage.  Ends with a
@@ -206,75 +251,90 @@ __device__ void ntt_inv(uint32_t* x, int npoly, const uint2* tw, int N,
                         int logN, const uint32_t* add = nullptr,
                         int add_stride = 0, uint2 scale = {0u, 0u},
                         bool sync_end = true) {
-  const int nt = blockDim.x, H = N >> 1, ng = (npoly + NP - 1) / NP;
+  const int nt = blockDim.x, ng = npoly / NP;
   const int lane = threadIdx.x & 31, nb = N >> 6;
   for (int it = threadIdx.x >> 5; it < ng * nb; it += nt >> 5) {
     const int off = (it & (nb - 1)) * 64, q0 = (it >> (logN - 6)) * NP;
     const int k = (off >> 1) + lane;
+    uint32_t* y = x + q0 * N + off;
     uint32_t a[NP], c[NP];
 #pragma unroll
-    for (int q = 0; q < NP; ++q)
-      if (q0 + q < npoly) {
-        uint2 ab = reinterpret_cast<const uint2*>(x + (q0 + q) * N + off)[lane];
-        if (add) {
-          const uint2 e = reinterpret_cast<const uint2*>(
-              add + (q0 + q) * add_stride + off)[lane];
-          ab.x = addmod<P>(ab.x, e.x);
-          ab.y = addmod<P>(ab.y, e.y);
-        }
-        a[q] = ab.x;
-        c[q] = ab.y;
+    for (int q = 0; q < NP; ++q) {
+      uint2 ab = reinterpret_cast<const uint2*>(y + q * N)[lane];
+      if (add) {
+        const uint2 e = reinterpret_cast<const uint2*>(
+            add + (q0 + q) * add_stride + off)[lane];
+        ab.x = addmod<P>(ab.x, e.x);
+        ab.y = addmod<P>(ab.y, e.y);
       }
+      a[q] = ab.x;
+      c[q] = ab.y;
+    }
 #pragma unroll
     for (int lt = 0; lt <= 5; ++lt) {
       const uint2 w = tw[(1 << (logN - 1 - lt)) + (k >> lt)];
 #pragma unroll
-      for (int q = 0; q < NP; ++q)
-        if (q0 + q < npoly) {
-          if (lt > 0) next_pairs(a[q], c[q], lt - 1);
-          const uint32_t d = submod<P>(a[q], c[q]);
-          a[q] = addmod<P>(a[q], c[q]);
-          c[q] = shoup_mul<P>(d, w);
-        }
+      for (int q = 0; q < NP; ++q) {
+        if (lt > 0) next_pairs(a[q], c[q], lt - 1);
+        gs<P>(a[q], c[q], w);
+      }
     }
 #pragma unroll
-    for (int q = 0; q < NP; ++q)
-      if (q0 + q < npoly) {
-        if (logN == 6 && scale.x) {
-          a[q] = shoup_mul<P>(a[q], scale);
-          c[q] = shoup_mul<P>(c[q], scale);
-        }
-        x[(q0 + q) * N + off + lane] = a[q];
-        x[(q0 + q) * N + off + lane + 32] = c[q];
+    for (int q = 0; q < NP; ++q) {
+      if (logN == 6 && scale.x) {
+        a[q] = shoup_mul<P>(a[q], scale);
+        c[q] = shoup_mul<P>(c[q], scale);
       }
+      y[q * N + lane] = a[q];
+      y[q * N + lane + 32] = c[q];
+    }
   }
-  for (int lt = 6; lt < logN; ++lt) {  // span t = 2^lt >= 64
+  for (int lt = 6; lt < logN;) {
     __syncthreads();
-    const int t = 1 << lt, base = 1 << (logN - 1 - lt);
-    const bool last = lt == logN - 1 && scale.x;
-    for (int idx = threadIdx.x; idx < ng * H; idx += nt) {
-      const int k = idx & (H - 1), q0 = (idx >> (logN - 1)) * NP;
-      const int i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1));
-      const uint2 w = tw[base + (k >> lt)];
-      uint32_t u[NP], v[NP];
+    const int base = 1 << (logN - 1 - lt);
+    if (lt + 1 < logN) {  // spans 2^lt and 2^(lt+1)
+      const int t = 1 << lt, Q = N >> 2;
+      const bool last = lt + 2 == logN && scale.x;
+      for (int idx = threadIdx.x; idx < ng * Q; idx += nt) {
+        const int kk = idx & (Q - 1), j = kk >> lt;
+        uint32_t* y = x + (idx >> (logN - 2)) * NP * N + (j << (lt + 2)) +
+                      (kk & (t - 1));
+        const uint2 wa0 = tw[base + 2 * j], wa1 = tw[base + 2 * j + 1];
+        const uint2 wb = tw[(base >> 1) + j];
+        uint32_t v[NP][4];
 #pragma unroll
-      for (int q = 0; q < NP; ++q)
-        if (q0 + q < npoly) {
-          u[q] = x[(q0 + q) * N + i0];
-          v[q] = x[(q0 + q) * N + i0 + t];
-        }
+        for (int q = 0; q < NP; ++q)
 #pragma unroll
-      for (int q = 0; q < NP; ++q)
-        if (q0 + q < npoly) {
-          uint32_t s = addmod<P>(u[q], v[q]);
-          uint32_t d = shoup_mul<P>(submod<P>(u[q], v[q]), w);
-          if (last) {
-            s = shoup_mul<P>(s, scale);
-            d = shoup_mul<P>(d, scale);
-          }
-          x[(q0 + q) * N + i0] = s;
-          x[(q0 + q) * N + i0 + t] = d;
+          for (int e = 0; e < 4; ++e) v[q][e] = y[q * N + e * t];
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          gs<P>(v[q][0], v[q][1], wa0);
+          gs<P>(v[q][2], v[q][3], wa1);
+          gs<P>(v[q][0], v[q][2], wb);
+          gs<P>(v[q][1], v[q][3], wb);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            y[q * N + e * t] = last ? shoup_mul<P>(v[q][e], scale) : v[q][e];
         }
+      }
+      lt += 2;
+    } else {  // the last span alone
+      const int t = 1 << lt, H = N >> 1;
+      const bool last = scale.x;
+      for (int idx = threadIdx.x; idx < ng * H; idx += nt) {
+        const int k = idx & (H - 1);
+        uint32_t* y = x + (idx >> (logN - 1)) * NP * N +
+                      ((k >> lt) << (lt + 1)) + (k & (t - 1));
+        const uint2 w = tw[base + (k >> lt)];
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          uint32_t u = y[q * N], v = y[q * N + t];
+          gs<P>(u, v, w);
+          y[q * N] = last ? shoup_mul<P>(u, scale) : u;
+          y[q * N + t] = last ? shoup_mul<P>(v, scale) : v;
+        }
+      }
+      lt += 1;
     }
   }
   if (sync_end) __syncthreads();

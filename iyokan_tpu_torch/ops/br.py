@@ -16,7 +16,9 @@ before the mod-2^32 reduction is exact in both packages, so the result is
 the JAX kernels' bit for bit (csrc/br_ntt.cu has the bound).
 
 K4 (and K3, ops/br3.py) run in the cluster form of csrc/br_cluster.cuh:
-one cluster of CLUSTER = 4 CTAs (prime, part) per row.  They read the key
+one cluster of CLUSTER = 4 CTAs (prime, part) per row, of NARROW_THREADS
+threads a CTA while the card holds every row's cluster at once at that
+size, else WIDE_THREADS (`threads_for`, `plan`).  They read the key
 in its kernel form (`kernel_key`: a reordered copy of the prep1 residues
 times N^-1 2^32 mod p), built once beside the prep1 key and kept as its
 attribute (`attach_kernel_key`; crypto/ops.py:DeviceKeys.from_evalkey
@@ -44,6 +46,9 @@ STEP_LAUNCHES = 0     # K5 launches: one per CMUX step
 LOOP_LAUNCHES = 0     # K4 launches: one per blind rotation
 SOURCE = "br_ntt.cu"
 CLUSTER = 4           # CTAs a row in K3/K4: (prime p, part u)
+WIDE_THREADS = 256    # threads a K3/K4 CTA at wide batches
+NARROW_THREADS = 512  # and while all G clusters fit on the card at once
+_CAPS = {}            # (source, M, N, l, device) -> clusters at 512 threads
 
 
 # --------------------------------------------------------------------------- #
@@ -91,8 +96,31 @@ def scale_arg(tabs: ntt.KernelTables):
 
 
 # --------------------------------------------------------------------------- #
-# the cluster form's key (K4 here, K3 in ops/br3.py)
+# the cluster form's plan and key (K4 here, K3 in ops/br3.py)
 # --------------------------------------------------------------------------- #
+
+
+def threads_for(G: int, narrow_cap: int) -> int:
+    """Threads a K3/K4 CTA at G rows: NARROW_THREADS while the card holds
+    all G clusters at once at that size (narrow_cap clusters,
+    cudaOccupancyMaxActiveClusters), so each row gets twice the warps on
+    the same wave; WIDE_THREADS from there (more CTAs an SM)."""
+    return NARROW_THREADS if G <= narrow_cap else WIDE_THREADS
+
+
+def plan(G: int, narrow_cap: int) -> tuple:
+    """(threads a CTA, clusters) of a K3/K4 launch over G rows: one
+    cluster of CLUSTER CTAs per row."""
+    return threads_for(G, narrow_cap), G
+
+
+def narrow_cap(source: str, query, M: int, p: Params, device) -> int:
+    """Clusters of NARROW_THREADS-thread CTAs the card holds at once for
+    the kernel, read once per (kernel, card) through query(nt)."""
+    key = (source, M, p.N, p.l, str(device))
+    if key not in _CAPS:
+        _CAPS[key] = query(NARROW_THREADS)[1]
+    return _CAPS[key]
 
 
 def kernel_key(bk: torch.Tensor, p: Params) -> torch.Tensor:
@@ -167,9 +195,9 @@ def _bind(lib):
                                 ci, ci, u32, ci, vp]
     lib.br_ntt_loop.restype = ci
     lib.br_ntt_loop.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, u32, ci,
-                                vp]
+                                ci, vp]
     lib.br_ntt_loop_plan.restype = ci
-    lib.br_ntt_loop_plan.argtypes = [ci, ci, ci,
+    lib.br_ntt_loop_plan.argtypes = [ci, ci, ci, ci,
                                      ctypes.POINTER(ctypes.c_longlong)]
     lib.br_ntt_last_launch.restype = None
     lib.br_ntt_last_launch.argtypes = [ctypes.POINTER(ci)]
@@ -197,22 +225,22 @@ def device_index(device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def cluster_plan(p: Params, device=None) -> tuple:
+def cluster_plan(p: Params, nt: int, device=None) -> tuple:
     """(dynamic shared memory bytes a CTA, clusters the card holds at once)
-    of K4 on `device`'s card; raises where the card refuses (builds and
-    loads the library)."""
+    of K4 at nt threads a CTA on `device`'s card; raises where the card
+    refuses (builds and loads the library)."""
     lib = nvcc.load(SOURCE, _bind)
     out = (ctypes.c_longlong * 2)()
-    return check_plan(lib.br_ntt_loop_plan(p.N, p.l, device_index(device),
+    return check_plan(lib.br_ntt_loop_plan(p.N, p.l, nt, device_index(device),
                                            out), out, lib.br_ntt_error_string)
 
 
 def last_launch() -> tuple:
-    """(CTAs, cluster size) of the last K4 launch, as the C launcher made
-    it."""
-    out = (ctypes.c_int * 2)()
+    """(CTAs, cluster size, threads a CTA) of the last K4 launch, as the C
+    launcher made it."""
+    out = (ctypes.c_int * 3)()
     nvcc.load(SOURCE, _bind).br_ntt_last_launch(out)
-    return int(out[0]), int(out[1])
+    return tuple(int(v) for v in out)
 
 
 def _launch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
@@ -223,9 +251,11 @@ def _launch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
     tabs, off, dev, stream = ring_args(acc, p)
     G = acc.shape[0]
     if loop:
+        nt, _ = plan(G, narrow_cap(SOURCE, lambda n: cluster_plan(
+            p, n, acc.device), 1, p, acc.device))
         rc = lib.br_ntt_loop(out.data_ptr(), rows.data_ptr(),
                              kernel_key_of(bk).data_ptr(), tabs.tw.data_ptr(),
-                             G, bk.shape[0], p.N, p.l, p.Bgbit, off, dev,
+                             G, bk.shape[0], p.N, p.l, p.Bgbit, off, nt, dev,
                              stream)
     else:
         rc = lib.br_ntt_step(out.data_ptr(), rows.data_ptr(), bk.data_ptr(),

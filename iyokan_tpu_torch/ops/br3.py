@@ -99,9 +99,9 @@ def _bind(lib):
     vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.br3_ntt.restype = ci
     lib.br3_ntt.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, u32,
-                            ci, vp]
+                            ci, ci, vp]
     lib.br3_ntt_plan.restype = ci
-    lib.br3_ntt_plan.argtypes = [ci, ci, ci, ci,
+    lib.br3_ntt_plan.argtypes = [ci, ci, ci, ci, ci,
                                  ctypes.POINTER(ctypes.c_longlong)]
     lib.br3_ntt_last_launch.restype = None
     lib.br3_ntt_last_launch.argtypes = [ctypes.POINTER(ci)]
@@ -109,23 +109,23 @@ def _bind(lib):
     lib.br3_error_string.argtypes = [ci]
 
 
-def cluster_plan(p: Params, M: int, device=None) -> tuple:
+def cluster_plan(p: Params, M: int, nt: int, device=None) -> tuple:
     """(dynamic shared memory bytes a CTA, clusters the card holds at once)
-    of K3 at M on `device`'s card; raises where the card refuses (builds
-    and loads the library)."""
+    of K3 at M and nt threads a CTA on `device`'s card; raises where the
+    card refuses (builds and loads the library)."""
     lib = nvcc.load(SOURCE, _bind)
     out = (ctypes.c_longlong * 2)()
-    return br.check_plan(lib.br3_ntt_plan(p.N, p.l, M,
+    return br.check_plan(lib.br3_ntt_plan(p.N, p.l, M, nt,
                                           br.device_index(device), out),
                          out, lib.br3_error_string)
 
 
 def last_launch() -> tuple:
-    """(CTAs, cluster size) of the last K3 launch, as the C launcher made
-    it."""
-    out = (ctypes.c_int * 2)()
+    """(CTAs, cluster size, threads a CTA) of the last K3 launch, as the C
+    launcher made it."""
+    out = (ctypes.c_int * 3)()
     nvcc.load(SOURCE, _bind).br3_ntt_last_launch(out)
-    return int(out[0]), int(out[1])
+    return tuple(int(v) for v in out)
 
 
 def _launch(steps, acc, bk, M: int, p: Params) -> torch.Tensor:
@@ -135,9 +135,12 @@ def _launch(steps, acc, bk, M: int, p: Params) -> torch.Tensor:
     out = acc.clone(memory_format=torch.contiguous_format)  # updated in place
     steps = steps.contiguous()
     tabs, off, dev, stream = ring_args(acc, p)
+    nt, _ = br.plan(acc.shape[0], br.narrow_cap(
+        SOURCE, lambda n: cluster_plan(p, M, n, acc.device), M, p,
+        acc.device))
     rc = lib.br3_ntt(out.data_ptr(), steps.data_ptr(), kk.data_ptr(),
                      tabs.tw.data_ptr(), tabs.pw.data_ptr(), acc.shape[0],
-                     bk.shape[0], M, p.N, p.l, p.Bgbit, off, dev, stream)
+                     bk.shape[0], M, p.N, p.l, p.Bgbit, off, nt, dev, stream)
     if rc != 0:
         raise RuntimeError("br3_ntt kernel launch failed: "
                            f"{lib.br3_error_string(rc)}")

@@ -11,8 +11,10 @@ cudaOccupancyMaxActiveClusters.  Then every kernel against its plain twin
 on seeded random accumulators, amounts and prep1 keys (a few steps),
 raising on any difference.  Unless --check-only: K4, K3 (M = 1, 3) and
 K5 at the full step count on random keys, and K6 at 2l rows, K = 2,
-timed by CUDA events at each batch, beside the card's nvidia-smi name and
-power limit; the last line is a JSON record.  Needs a card.
+timed by CUDA events at each batch (K3/K4 at both thread counts a CTA,
+the plan's pick marked: the figures behind ops/br.py:threads_for),
+beside the card's nvidia-smi name and power limit; the last line is a
+JSON record.  Needs a card.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ def check(p, rng, dev="cuda"):
         rows = amounts(p, (3, G), rng, dev)
         same(br.br_loop(rows, acc, key, p),
              br.cmux_steps_ref(rows, acc, key, p), f"K4 G={G}")
-        if br.last_launch() != (br.CLUSTER * G, br.CLUSTER):
+        if br.last_launch()[:2] != (br.CLUSTER * G, br.CLUSTER):
             raise AssertionError(f"K4 launched {br.last_launch()}")
         for M in (1, 3):
             keym = random_key(p, 2, 2 * p.l * M, rng, dev)
@@ -116,13 +118,50 @@ def sweep(p, sizes, rng, dev="cuda"):
                 ("br_ntt_step", k5),
                 ("extprod1_ntt K=2",
                  lambda: extprod.extprod1(d, keys2, idx, p))):
-            fn()
             reps = 20 if name.startswith("extprod") else 2 if G >= 1024 else 3
-            rec = {"kernel": name, "G": G, "ms": timing.timed_ms(fn, reps,
-                                                                 dev)}
-            out.append(rec)
-            print(json.dumps(rec), flush=True)
+            for nt in ((br.WIDE_THREADS, br.NARROW_THREADS)
+                       if name.startswith("br3") or name == "br_ntt_loop"
+                       else (None,)):
+                rec = {"kernel": name, "G": G}
+                with forced_threads(nt):
+                    fn()
+                    rec["ms"] = timing.timed_ms(fn, reps, dev)
+                if nt:
+                    launched = (br.last_launch() if name == "br_ntt_loop"
+                                else br3.last_launch())
+                    rec.update(threads=launched[2],
+                               picked=forced_threads.picked)
+                out.append(rec)
+                print(json.dumps(rec), flush=True)
     return out
+
+
+class _Forced:
+    """forced_threads(nt): K3/K4 launches at nt threads a CTA within the
+    block (None: the plan's own); .picked tells whether the plan would
+    have picked nt for the last launch."""
+
+    def __init__(self):
+        self.nt, self.picked = None, None
+
+    def __call__(self, nt):
+        self.nt = nt
+        return self
+
+    def __enter__(self):
+        self.plan = br.threads_for
+
+        def forced(G, cap):
+            self.picked = self.plan(G, cap) == self.nt
+            return self.nt or self.plan(G, cap)
+
+        br.threads_for = forced
+
+    def __exit__(self, *exc):
+        br.threads_for = self.plan
+
+
+forced_threads = _Forced()
 
 
 def main(argv=None) -> int:
@@ -142,10 +181,11 @@ def main(argv=None) -> int:
         for ln in nvcc.LOGS.get(src, "").splitlines():
             if "Used" in ln or "spill" in ln:
                 print(f"[ptxas {src}] {ln.strip()}", flush=True)
-    print(f"[plan] clusters of {br.CLUSTER} CTAs, (smem B a CTA, clusters "
-          f"the card holds): K4 {br.cluster_plan(p)}, K3 M=1 "
-          f"{br3.cluster_plan(p, 1)}, K3 M=3 {br3.cluster_plan(p, 3)}",
-          flush=True)
+    for nt in (br.WIDE_THREADS, br.NARROW_THREADS):
+        print(f"[plan] clusters of {br.CLUSTER} CTAs of {nt} threads, "
+              f"(smem B a CTA, clusters the card holds): K4 "
+              f"{br.cluster_plan(p, nt)}, K3 M=1 {br3.cluster_plan(p, 1, nt)}"
+              f", K3 M=3 {br3.cluster_plan(p, 3, nt)}", flush=True)
     rng = np.random.default_rng(7)
     n = check(p, rng)
     print(f"[check] {n} kernel == twin cases at {p.name} on {smi}",

@@ -360,6 +360,19 @@ def test_cluster_model_equals_jax_kernel(toy_sk, mxu_keys, port_keys, kind):
     np.testing.assert_array_equal(_u32(got), want)
 
 
+def test_cluster_plan():
+    """One cluster of four CTAs a row at every G from 1 to 2048, of 512
+    threads a CTA exactly while the card holds all G clusters at that size
+    (the cap cudaOccupancyMaxActiveClusters reports; 62 on the H100),
+    else 256."""
+    for cap in (1, 30, 62, 124):
+        for G in range(1, 2049):
+            threads, clusters = br.plan(G, cap)
+            assert clusters == G
+            assert threads == (br.NARROW_THREADS if G <= cap
+                               else br.WIDE_THREADS)
+
+
 def test_library_hash_covers_headers(tmp_path, monkeypatch):
     """A kernel library is named by its source and every csrc/ header the
     source includes, directly or through another header."""
@@ -459,7 +472,8 @@ def test_cluster_kernels_equal_twin_at_cggi128(kernel, M, G):
         grid = br3.last_launch()
     torch.cuda.synchronize()
     assert (br.LOOP_LAUNCHES - before[0]) + (br3.LAUNCHES - before[1]) == 1
-    assert grid == (br.CLUSTER * G, br.CLUSTER)
+    assert grid[:2] == (br.CLUSTER * G, br.CLUSTER)
+    assert grid[2] in (br.WIDE_THREADS, br.NARROW_THREADS)
     assert torch.equal(got, want)
 
 

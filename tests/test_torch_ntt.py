@@ -237,38 +237,61 @@ def _next_pairs(a, b, bit):
     return np.where(hi, got, a), np.where(hi, b, got)
 
 
+def _ct(u, v, w, P):
+    v = v * w % P
+    return (u + v) % P, (u - v) % P
+
+
+def _gs(u, v, w, P):
+    return (u + v) % P, (u - v) * w % P
+
+
 def _kernel_fwd(x, N, pi, first_lt=None):
-    """csrc/ntt.cuh:ntt_fwd's schedule: shared-memory stages of span >= 64,
-    then per warp 64 residues in registers (two a lane) for spans 32..1;
-    stages above first_lt were done by the caller."""
+    """csrc/ntt.cuh:ntt_fwd's schedule: shared-memory stages of span >= 64
+    two at a time (residues i0 + e 2^(lt-1), e < 4, one item; the span 64
+    alone where it is left over), then per warp 64 residues in registers
+    (two a lane) for spans 32..1; stages above first_lt (at least 5) were
+    done by the caller."""
     P, w = tntt.PRIMES[pi], tntt.tables(N)["psirev"][pi]
-    logN, H, lane = N.bit_length() - 1, N // 2, np.arange(32)
+    logN, lane = N.bit_length() - 1, np.arange(32)
     first_lt = logN - 1 if first_lt is None else first_lt
-    x = x.copy()
-    for lt in range(first_lt, 5, -1):
-        k = np.arange(H)
-        i0 = ((k >> lt) << (lt + 1)) + (k & ((1 << lt) - 1))
-        u, v = x[i0], x[i0 + (1 << lt)] * w[(1 << (logN - 1 - lt)) + (k >> lt)]
-        x[i0], x[i0 + (1 << lt)] = (u + v) % P, (u - v) % P
+    x, lt = x.copy(), first_lt
+    while lt >= 6:
+        base = 1 << (logN - 1 - lt)
+        if lt >= 7:
+            h, kk = 1 << (lt - 1), np.arange(N // 4)
+            j = kk >> (lt - 1)
+            i0 = (j << (lt + 1)) + (kk & (h - 1))
+            v = [x[i0 + e * h] for e in range(4)]
+            v[0], v[2] = _ct(v[0], v[2], w[base + j], P)
+            v[1], v[3] = _ct(v[1], v[3], w[base + j], P)
+            v[0], v[1] = _ct(v[0], v[1], w[2 * base + 2 * j], P)
+            v[2], v[3] = _ct(v[2], v[3], w[2 * base + 2 * j + 1], P)
+            for e in range(4):
+                x[i0 + e * h] = v[e]
+            lt -= 2
+        else:
+            k = np.arange(N // 2)
+            i0 = ((k >> 6) << 7) + (k & 63)
+            x[i0], x[i0 + 64] = _ct(x[i0], x[i0 + 64], w[base + (k >> 6)], P)
+            lt -= 1
     for blk in range(N // 64):
         y, k = x[64 * blk: 64 * blk + 64], 32 * blk + lane
         a, b = y[lane].copy(), y[lane + 32].copy()
         for lt in range(5, -1, -1):
             if lt < 5:
                 a, b = _next_pairs(a, b, lt)
-            if lt > min(5, first_lt):
-                continue
-            v = b * w[(1 << (logN - 1 - lt)) + (k >> lt)] % P
-            a, b = (a + v) % P, (a - v) % P
+            a, b = _ct(a, b, w[(1 << (logN - 1 - lt)) + (k >> lt)], P)
         y[2 * lane], y[2 * lane + 1] = a, b
     return x
 
 
 def _kernel_inv(x, N, pi):
-    """csrc/ntt.cuh:ntt_inv's schedule (unscaled): spans 1..32 in registers,
-    then the shared-memory stages."""
+    """csrc/ntt.cuh:ntt_inv's schedule (unscaled): spans 1..32 in
+    registers, then the shared-memory stages two at a time (the last
+    alone where it is left over)."""
     P, w = tntt.PRIMES[pi], tntt.tables(N)["psiinvrev"][pi]
-    logN, H, lane = N.bit_length() - 1, N // 2, np.arange(32)
+    logN, lane = N.bit_length() - 1, np.arange(32)
     x = x.copy()
     for blk in range(N // 64):
         y, k = x[64 * blk: 64 * blk + 64], 32 * blk + lane
@@ -276,33 +299,56 @@ def _kernel_inv(x, N, pi):
         for lt in range(6):
             if lt:
                 a, b = _next_pairs(a, b, lt - 1)
-            a, b = (a + b) % P, (a - b) * w[(1 << (logN - 1 - lt))
-                                            + (k >> lt)] % P
+            a, b = _gs(a, b, w[(1 << (logN - 1 - lt)) + (k >> lt)], P)
         y[lane], y[lane + 32] = a, b
-    for lt in range(6, logN):
-        k = np.arange(H)
-        i0 = ((k >> lt) << (lt + 1)) + (k & ((1 << lt) - 1))
-        u, v = x[i0].copy(), x[i0 + (1 << lt)].copy()
-        x[i0] = (u + v) % P
-        x[i0 + (1 << lt)] = (u - v) * w[(1 << (logN - 1 - lt)) + (k >> lt)] % P
+    lt = 6
+    while lt < logN:
+        base = 1 << (logN - 1 - lt)
+        if lt + 1 < logN:
+            t, kk = 1 << lt, np.arange(N // 4)
+            j = kk >> lt
+            i0 = (j << (lt + 2)) + (kk & (t - 1))
+            v = [x[i0 + e * t] for e in range(4)]
+            v[0], v[1] = _gs(v[0], v[1], w[base + 2 * j], P)
+            v[2], v[3] = _gs(v[2], v[3], w[base + 2 * j + 1], P)
+            v[0], v[2] = _gs(v[0], v[2], w[(base >> 1) + j], P)
+            v[1], v[3] = _gs(v[1], v[3], w[(base >> 1) + j], P)
+            for e in range(4):
+                x[i0 + e * t] = v[e]
+            lt += 2
+        else:
+            t, k = 1 << lt, np.arange(N // 2)
+            i0 = ((k >> lt) << (lt + 1)) + (k & (t - 1))
+            x[i0], x[i0 + t] = _gs(x[i0], x[i0 + t], w[base + (k >> lt)], P)
+            lt += 1
     return x
 
 
-@pytest.mark.parametrize("N", [64, 256, 1024, 2048])
+@pytest.mark.parametrize("N", [64, 128, 256, 1024, 2048])
 @pytest.mark.parametrize("pi", [0, 1])
 def test_kernel_transform_schedule(N, pi):
-    """The order in which csrc/ntt.cuh runs the butterflies (the register
-    stages' lane pairs and warp shuffles, the first stage done by the
-    caller as br_cluster.cuh does with the digits) computes ntt_fwd, and
-    the unscaled inverse times N^-1 is ntt_inv."""
+    """The order in which csrc/ntt.cuh runs the butterflies (stage pairs in
+    shared memory, the register stages' lane pairs and warp shuffles; the
+    first two stages, one at N = 128, none at N = 64, done by the caller as
+    br_cluster.cuh does with the digits) computes ntt_fwd, and the unscaled
+    inverse times N^-1 is ntt_inv."""
     P = tntt.PRIMES[pi]
     x = np.random.default_rng(N + pi).integers(0, P, N)
     want = tntt.ntt_fwd(_t(x), N, pi).numpy()
     np.testing.assert_array_equal(_kernel_fwd(x, N, pi), want)
-    logN, w1 = N.bit_length() - 1, int(tntt.tables(N)["psirev"][pi][1])
-    first = np.concatenate([(x[:N // 2] + w1 * x[N // 2:]) % P,
-                            (x[:N // 2] - w1 * x[N // 2:]) % P])
-    np.testing.assert_array_equal(_kernel_fwd(first, N, pi, logN - 2), want)
+    logN, w = N.bit_length() - 1, tntt.tables(N)["psirev"][pi]
+    if logN >= 8:     # residues c, c + N/4, c + N/2, c + 3N/4 of an item
+        q = [x[e * N // 4: (e + 1) * N // 4] for e in range(4)]
+        q[0], q[2] = _ct(q[0], q[2], w[1], P)
+        q[1], q[3] = _ct(q[1], q[3], w[1], P)
+        q[0], q[1] = _ct(q[0], q[1], w[2], P)
+        q[2], q[3] = _ct(q[2], q[3], w[3], P)
+        first, rest = np.concatenate(q), logN - 3
+    elif logN == 7:
+        first, rest = np.concatenate(_ct(x[:N // 2], x[N // 2:], w[1], P)), 5
+    else:
+        first, rest = x, 5
+    np.testing.assert_array_equal(_kernel_fwd(first, N, pi, rest), want)
     ninv = int(tntt.tables(N)["ninv"][pi])
     np.testing.assert_array_equal(_kernel_inv(x, N, pi) * ninv % P,
                                   tntt.ntt_inv(_t(x), N, pi).numpy())
