@@ -218,6 +218,9 @@ def phase_device():
 
 
 def phase_build(p):
+    """Builds every kernel library and prints what ptxas and the cluster
+    queries report; returns each cluster kernel's narrow cap (clusters of
+    512-thread CTAs the card holds at once: ops/br.py:threads_for)."""
     sources = (tkey.SOURCE, extprod.SOURCE, br.SOURCE, br3.SOURCE,
                micro.SOURCE)
     t0 = time.time()
@@ -252,7 +255,6 @@ def phase_build(p):
             + ", ".join(f"G={G}: {G} clusters of {br.CLUSTER} x "
                         f"{br.threads_for(G, cap)} threads"
                         for G in sorted(set(BR_SIZES) | {cap, cap + 1})))
-    return {k: v[1] for k, v in caps[br.NARROW_THREADS].items()}
     for src in (tkey.SOURCE, micro.SOURCE):
         for label, mix in sass_products(nvcc.lib_path(src)).items():
             say("build", f"SASS of {src} {label}: {sum(mix.values())} "
@@ -260,6 +262,7 @@ def phase_build(p):
                 f"{sum(v for k, v in mix.items() if 'GMMA' in k)} GMMA, "
                 f"{mix.get('IMMA', 0)} IMMA; top opcodes "
                 f"{json.dumps(dict(list(mix.items())[:12]))}")
+    return {k: v[1] for k, v in caps[br.NARROW_THREADS].items()}
 
 
 @contextlib.contextmanager

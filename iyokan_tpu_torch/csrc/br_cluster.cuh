@@ -23,7 +23,14 @@
 //      part u keep the same acc[u]).
 // So a step's serial chain is l forward transforms (together) and one
 // inverse, not 2 primes x (2l + 2), with two cluster barriers, on four
-// times the SMs.
+// times the SMs.  A transform (ntt.cuh) takes one barrier per pair of
+// shared-memory stages and none for the six register stages: about seven
+// block barriers a step at N = 1024.
+//
+// Threads a CTA (NT): 512 while the card holds all G clusters at once at
+// that size, 256 beyond (ops/br.py:threads_for; each row then gets twice
+// the warps on the one wave, where a batch is latency-bound).  The l = 3,
+// N = 1024 instances fix N at compile time (index arithmetic folded).
 //
 // The key comes in its kernel form (ops/br.py:kernel_key): int32
 // [S, 2 (p), 2 (u), M, l, 2 (v), N], residues k N^-1 2^32 mod p, so that
@@ -84,14 +91,15 @@ __device__ __forceinline__ void digits_at(const uint32_t* x, int c, int a,
     out[j] = residue<P>(gadget_digit(xp, j, r.Bgbit));
 }
 
-// LOGN: log2 N fixed at compile time (0: the launch's r.logN).
-template <uint32_t P, bool V3, int M, int L, int LOGN>
+// NT threads a CTA; LOGN: log2 N fixed at compile time (0: the launch's
+// r.logN).
+template <uint32_t P, bool V3, int M, int L, int NT, int LOGN>
 __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
                                 uint32_t* sm) {
   cg::cluster_group cluster = cg::this_cluster();
   const Ring& r = A.r;
   const int logN = LOGN ? LOGN : r.logN, N = 1 << logN, H = N >> 1;
-  const int nt = blockDim.x;
+  constexpr int nt = NT;
   const int tid = threadIdx.x, p = rank >> 1, u = rank & 1;
   const int g = blockIdx.x / BR_CLUSTER, G = A.G;
   uint2* twf = reinterpret_cast<uint2*>(sm);
@@ -155,10 +163,11 @@ __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
       }
     }
     __syncthreads();
-    ntt_fwd<P, L>(dig, L, twf, N, logN, logN >= 8 ? logN - 3 : 5);
+    ntt_fwd<P, L, NT>(dig, L, twf, N, logN, logN >= 8 ? logN - 3 : 5);
 
     // 2. the partial key products of both outputs
     uint32_t* own = sum + (i & 1) * N;
+#pragma unroll
     for (int c = tid; c < N; c += nt) {
       uint32_t kv[M][L][2], d[L];
 #pragma unroll
@@ -194,8 +203,8 @@ __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
     cluster.sync();  // 1: both parts' partials are in place
 
     // 3, 4. output u: own partial + the other part's, inverse transform
-    ntt_inv<P, 1>(own, 1, twi, N, logN, dig_pu, 0, make_uint2(0u, 0u),
-                  false);
+    ntt_inv<P, 1, NT>(own, 1, twi, N, logN, dig_pu, 0, make_uint2(0u, 0u),
+                      false);
     cluster.sync();  // 2: both primes' residues of part u are in place
 
     // 5. Garner with the other prime's CTA, into acc[u]
@@ -220,9 +229,9 @@ __global__ void __launch_bounds__(NT, NT == 256 ? (V3 ? 4 : 5) : 2)
   extern __shared__ __align__(16) uint32_t br_sm[];
   const unsigned rank = cg::this_cluster().block_rank();
   if (rank >> 1)
-    br_cluster_body<P2, V3, M, L, LOGN>(A, rank, br_sm);
+    br_cluster_body<P2, V3, M, L, NT, LOGN>(A, rank, br_sm);
   else
-    br_cluster_body<P1, V3, M, L, LOGN>(A, rank, br_sm);
+    br_cluster_body<P1, V3, M, L, NT, LOGN>(A, rank, br_sm);
 }
 
 // Dynamic shared memory and cluster checks of one instantiation, per card:

@@ -163,14 +163,15 @@ __device__ __forceinline__ void ct4(uint32_t& x0, uint32_t& x1,
 // natural order in, bit-reversed out (crypto/ntt.py:ntt_fwd); tw: this
 // prime's psirev with companions.  NP polynomials (npoly a multiple of NP)
 // go through each butterfly position together: one twiddle load, NP
-// independent chains.  Stages of span >= 64 two at a time (four residues
+// independent chains.  NT: the block's threads if fixed at compile time
+// (0: blockDim.x).  Stages of span >= 64 two at a time (four residues
 // an item, one barrier a pair), from span 2^first_lt down (a caller that
 // ran the first stages itself passes the next one, at least 5); then
 // spans 32..1 in registers.  Ends with a barrier.
-template <uint32_t P, int NP>
+template <uint32_t P, int NP, int NT = 0>
 __device__ void ntt_fwd(uint32_t* x, int npoly, const uint2* tw, int N,
                         int logN, int first_lt = -1) {
-  const int nt = blockDim.x, ng = npoly / NP;
+  const int nt = NT ? NT : blockDim.x, ng = npoly / NP;
   for (int lt = first_lt < 0 ? logN - 1 : first_lt; lt >= 6;) {
     const int base = 1 << (logN - 1 - lt);
     if (lt >= 7) {  // spans 2^lt and 2^(lt-1)
@@ -246,12 +247,12 @@ __device__ void ntt_fwd(uint32_t* x, int npoly, const uint2* tw, int N,
 // add[r*add_stride ..] mod P, read as the first stage loads x.  scale
 // (.x = 0: none): every output times scale, in the last stage.  Ends with a
 // barrier unless sync_end is false (a cluster barrier follows).
-template <uint32_t P, int NP>
+template <uint32_t P, int NP, int NT = 0>
 __device__ void ntt_inv(uint32_t* x, int npoly, const uint2* tw, int N,
                         int logN, const uint32_t* add = nullptr,
                         int add_stride = 0, uint2 scale = {0u, 0u},
                         bool sync_end = true) {
-  const int nt = blockDim.x, ng = npoly / NP;
+  const int nt = NT ? NT : blockDim.x, ng = npoly / NP;
   const int lane = threadIdx.x & 31, nb = N >> 6;
   for (int it = threadIdx.x >> 5; it < ng * nb; it += nt >> 5) {
     const int off = (it & (nb - 1)) * 64, q0 = (it >> (logN - 6)) * NP;
