@@ -251,7 +251,7 @@ def phase_build(p):
                 for k, v in plans.items()))
     for k in caps[br.NARROW_THREADS]:
         cap = caps[br.NARROW_THREADS][k][1]
-        say("build", f"{k} plan (ops/br.py:plan, one cluster a row): "
+        say("build", f"{k} plan (one cluster a row, ops/br.py:threads_for): "
             + ", ".join(f"G={G}: {G} clusters of {br.CLUSTER} x "
                         f"{br.threads_for(G, cap)} threads"
                         for G in sorted(set(BR_SIZES) | {cap, cap + 1})))

@@ -45,7 +45,8 @@
 // with 32-bit Shoup and Montgomery products, N^-1 folded into the key and
 // the psi power's - 1 into the table, and a serial chain per step of l
 // forward and one inverse transform; the second by reading each CTA's
-// slice of a step once, with the next step's slice prefetched into L2.
+// slice of a step once (measured on the H100, the key's bytes do not bind:
+// PERF.md, PR 7).
 //
 // Built by iyokan_tpu_torch/ops/nvcc.py (hash of this file and the headers
 // it includes):
@@ -87,7 +88,7 @@ extern "C" int br3_ntt_plan(int N, int l, int M, int nt, int device,
 //   the key's kernel form; tw uint32 [2, 2, N, 2] = psirev, psiinvrev of
 //   P1, P2 with companions; pw uint32 [2, 2N, 2] = psi^e - 1 mod P1, P2
 //   with companions; offset = decompose1's offset mod 2^32; M in {1, 3};
-//   N a power of two in [64, 2048].  Returns 0 or the first CUDA error; a
+//   l = 3; N a power of two in [64, 2048].  Returns 0 or the first CUDA error; a
 //   card that cannot hold one cluster refuses
 //   (cudaErrorLaunchOutOfResources).
 extern "C" int br3_ntt(void* acc, const void* steps, const void* kkey,

@@ -29,15 +29,17 @@
 //
 // Threads a CTA (NT): 512 while the card holds all G clusters at once at
 // that size, 256 beyond (ops/br.py:threads_for; each row then gets twice
-// the warps on the one wave, where a batch is latency-bound).  The l = 3,
-// N = 1024 instances fix N at compile time (index arithmetic folded).
+// the warps on the one wave, where a batch is latency-bound).  Built for
+// l = 3, the N = 1024 instances with N fixed at compile time (index
+// arithmetic folded).
 //
 // The key comes in its kernel form (ops/br.py:kernel_key): int32
 // [S, 2 (p), 2 (u), M, l, 2 (v), N], residues k N^-1 2^32 mod p, so that
 // mont_reduce of a row sum leaves sum_j dig_j k_j N^-1: the inverse has no
 // scaling pass.  CTA (p, u) reads its contiguous M*l*2*N slice of a step
-// straight from L2 into registers, and asks L2 for the next step's slice
-// (prefetch.global.L2) at the start of each step.
+// straight from L2 into registers, once a step (on the H100 the key reads
+// hold a step back little, and an L2 prefetch of the next step's slice
+// slowed it: PERF.md, PR 7).
 //
 // Shared memory (br_cluster_smem): this prime's forward and inverse
 // twiddles with companions (2N uint2), K3's psi powers minus one with
@@ -124,9 +126,6 @@ __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
   const uint32_t* key = A.key + (size_t)(2 * p + u) * slice;
 
   for (int i = 0; i < A.S; ++i, key += 4 * (size_t)slice) {
-    if (i + 1 < A.S)
-      for (int o = tid * 32; o < slice; o += nt * 32)  // 128-byte lines
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(key + 4 * slice + o));
     int am[M];
 #pragma unroll
     for (int m = 0; m < M; ++m)
@@ -300,58 +299,37 @@ struct ClusterPlan {
   }
 };
 
-// The instances of one kernel (V3, M) for l = 1..4 and 256 or 512
-// threads a CTA, chosen by (l, threads); l = 3 at N = 1024 (the 128-bit
-// parameter sets) has its own, N fixed at compile time.
+// The instances of one kernel (V3, M): l = 3 (every parameter set of the
+// repo), 256 or 512 threads a CTA, N fixed at 1024 (the 128-bit sets) or
+// read from the launch; another l is refused (invalid value).
 template <bool V3, int M>
 struct ClusterPlans {
-  ClusterPlan<V3, M, 1, 256> l1;
-  ClusterPlan<V3, M, 2, 256> l2;
-  ClusterPlan<V3, M, 3, 256> l3;
-  ClusterPlan<V3, M, 4, 256> l4;
-  ClusterPlan<V3, M, 3, 256, 10> l3n;
-  ClusterPlan<V3, M, 1, 512> l1w;
-  ClusterPlan<V3, M, 2, 512> l2w;
-  ClusterPlan<V3, M, 3, 512> l3w;
-  ClusterPlan<V3, M, 4, 512> l4w;
-  ClusterPlan<V3, M, 3, 512, 10> l3nw;
+  ClusterPlan<V3, M, 3, 256> any256;
+  ClusterPlan<V3, M, 3, 512> any512;
+  ClusterPlan<V3, M, 3, 256, 10> n1024_256;
+  ClusterPlan<V3, M, 3, 512, 10> n1024_512;
 
   // 0 or a CUDA error; *smem: bytes a CTA; *n: clusters the card holds.
   int prepare(int device, int N, int l, int nt, size_t* smem, int* n) {
     *smem = br_cluster_smem(N, l, V3);
-    const bool n10 = N == 1024;
-    switch (l * 1024 + nt) {
-      case 1024 + 256: return l1.prepare(device, *smem, n);
-      case 2048 + 256: return l2.prepare(device, *smem, n);
-      case 3072 + 256: return n10 ? l3n.prepare(device, *smem, n)
-                                  : l3.prepare(device, *smem, n);
-      case 4096 + 256: return l4.prepare(device, *smem, n);
-      case 1024 + 512: return l1w.prepare(device, *smem, n);
-      case 2048 + 512: return l2w.prepare(device, *smem, n);
-      case 3072 + 512: return n10 ? l3nw.prepare(device, *smem, n)
-                                  : l3w.prepare(device, *smem, n);
-      case 4096 + 512: return l4w.prepare(device, *smem, n);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    if (l != 3 || (nt != 256 && nt != 512))
+      return (int)cudaErrorInvalidValue;
+    if (N == 1024)
+      return nt == 256 ? n1024_256.prepare(device, *smem, n)
+                       : n1024_512.prepare(device, *smem, n);
+    return nt == 256 ? any256.prepare(device, *smem, n)
+                     : any512.prepare(device, *smem, n);
   }
 
   int launch(const BrArgs& A, int nt, int device, cudaStream_t stream) {
-    if (A.G <= 0 || A.S <= 0 || A.r.logN < 0)
+    if (A.G <= 0 || A.S <= 0 || A.r.logN < 0 || A.r.l != 3 ||
+        (nt != 256 && nt != 512))
       return (int)cudaErrorInvalidValue;
-    const bool n10 = A.r.logN == 10;
-    switch (A.r.l * 1024 + nt) {
-      case 1024 + 256: return l1.launch(A, device, stream);
-      case 2048 + 256: return l2.launch(A, device, stream);
-      case 3072 + 256: return n10 ? l3n.launch(A, device, stream)
-                                  : l3.launch(A, device, stream);
-      case 4096 + 256: return l4.launch(A, device, stream);
-      case 1024 + 512: return l1w.launch(A, device, stream);
-      case 2048 + 512: return l2w.launch(A, device, stream);
-      case 3072 + 512: return n10 ? l3nw.launch(A, device, stream)
-                                  : l3w.launch(A, device, stream);
-      case 4096 + 512: return l4w.launch(A, device, stream);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    if (A.r.logN == 10)
+      return nt == 256 ? n1024_256.launch(A, device, stream)
+                       : n1024_512.launch(A, device, stream);
+    return nt == 256 ? any256.launch(A, device, stream)
+                     : any512.launch(A, device, stream);
   }
 };
 

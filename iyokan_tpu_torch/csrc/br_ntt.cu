@@ -32,10 +32,10 @@
 // every step of it.  The design answers the first with 32-bit Shoup and
 // Montgomery products (ntt.cuh), N^-1 folded into the key, and a serial
 // chain per step of l forward and one inverse transform (four CTAs work
-// on a row); the second by reading each CTA's slice of a step once, into
-// registers, with the next step's slice prefetched into L2.  (Rows sharing
-// a key step, R rows a CTA, were measured slower at every batch on the
-// H100 and left out: PERF.md, PR 7.)
+// on a row, seven block barriers a step); the second by reading each
+// CTA's slice of a step once.  Measured on the H100, the L2 bytes of the
+// key do not bind: rows sharing a key step (R rows a CTA) were slower at
+// every batch, and so was an L2 prefetch of the next step (PERF.md, PR 7).
 //
 // K5 keeps its PR-3 structure and key layout: one block of N/2 threads per
 // row and launch, both primes in turn, the prep1 key read as it is; it
@@ -182,8 +182,9 @@ extern "C" int br_ntt_loop_plan(int N, int l, int nt, int device,
 // CTAs of nt (256 or 512) threads per row.
 //   acc int32 [G, 2, N] (updated in place); abar_t int32 [n, G] (row i:
 //   step i's amounts); kkey int32 [n, 2, 2, 1, l, 2, N], the key's kernel
-//   form; tw, offset as br_ntt_step.  Returns 0 or the first CUDA error; a
-//   card that cannot hold one cluster refuses (cudaErrorLaunchOutOfResources).
+//   form; tw, offset as br_ntt_step; l = 3.  Returns 0 or the first CUDA
+//   error; a card that cannot hold one cluster refuses
+//   (cudaErrorLaunchOutOfResources).
 extern "C" int br_ntt_loop(void* acc, const void* abar_t, const void* kkey,
                            const void* tw, int G, int n, int N, int l,
                            int Bgbit, uint32_t offset, int nt, int device,

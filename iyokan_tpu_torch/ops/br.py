@@ -16,9 +16,10 @@ before the mod-2^32 reduction is exact in both packages, so the result is
 the JAX kernels' bit for bit (csrc/br_ntt.cu has the bound).
 
 K4 (and K3, ops/br3.py) run in the cluster form of csrc/br_cluster.cuh:
-one cluster of CLUSTER = 4 CTAs (prime, part) per row, of NARROW_THREADS
+one cluster of CLUSTER = 4 CTAs (prime, part) per row (built for l = 3,
+every parameter set of the repo; another l raises), of NARROW_THREADS
 threads a CTA while the card holds every row's cluster at once at that
-size, else WIDE_THREADS (`threads_for`, `plan`).  They read the key
+size, else WIDE_THREADS (`threads_for`).  They read the key
 in its kernel form (`kernel_key`: a reordered copy of the prep1 residues
 times N^-1 2^32 mod p), built once beside the prep1 key and kept as its
 attribute (`attach_kernel_key`; crypto/ops.py:DeviceKeys.from_evalkey
@@ -106,12 +107,6 @@ def threads_for(G: int, narrow_cap: int) -> int:
     cudaOccupancyMaxActiveClusters), so each row gets twice the warps on
     the same wave; WIDE_THREADS from there (more CTAs an SM)."""
     return NARROW_THREADS if G <= narrow_cap else WIDE_THREADS
-
-
-def plan(G: int, narrow_cap: int) -> tuple:
-    """(threads a CTA, clusters) of a K3/K4 launch over G rows: one
-    cluster of CLUSTER CTAs per row."""
-    return threads_for(G, narrow_cap), G
 
 
 def narrow_cap(source: str, query, M: int, p: Params, device) -> int:
@@ -251,7 +246,7 @@ def _launch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
     tabs, off, dev, stream = ring_args(acc, p)
     G = acc.shape[0]
     if loop:
-        nt, _ = plan(G, narrow_cap(SOURCE, lambda n: cluster_plan(
+        nt = threads_for(G, narrow_cap(SOURCE, lambda n: cluster_plan(
             p, n, acc.device), 1, p, acc.device))
         rc = lib.br_ntt_loop(out.data_ptr(), rows.data_ptr(),
                              kernel_key_of(bk).data_ptr(), tabs.tw.data_ptr(),

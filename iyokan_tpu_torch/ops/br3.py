@@ -135,7 +135,7 @@ def _launch(steps, acc, bk, M: int, p: Params) -> torch.Tensor:
     out = acc.clone(memory_format=torch.contiguous_format)  # updated in place
     steps = steps.contiguous()
     tabs, off, dev, stream = ring_args(acc, p)
-    nt, _ = br.plan(acc.shape[0], br.narrow_cap(
+    nt = br.threads_for(acc.shape[0], br.narrow_cap(
         SOURCE, lambda n: cluster_plan(p, M, n, acc.device), M, p,
         acc.device))
     rc = lib.br3_ntt(out.data_ptr(), steps.data_ptr(), kk.data_ptr(),

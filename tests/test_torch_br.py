@@ -360,17 +360,15 @@ def test_cluster_model_equals_jax_kernel(toy_sk, mxu_keys, port_keys, kind):
     np.testing.assert_array_equal(_u32(got), want)
 
 
-def test_cluster_plan():
-    """One cluster of four CTAs a row at every G from 1 to 2048, of 512
-    threads a CTA exactly while the card holds all G clusters at that size
-    (the cap cudaOccupancyMaxActiveClusters reports; 62 on the H100),
+def test_cluster_threads_plan():
+    """At every G from 1 to 2048 (one cluster a row), 512 threads a CTA
+    exactly while the card holds all G clusters at that size (the cap
+    cudaOccupancyMaxActiveClusters reports: 62 on an H100 80GB HBM3),
     else 256."""
     for cap in (1, 30, 62, 124):
         for G in range(1, 2049):
-            threads, clusters = br.plan(G, cap)
-            assert clusters == G
-            assert threads == (br.NARROW_THREADS if G <= cap
-                               else br.WIDE_THREADS)
+            assert br.threads_for(G, cap) == (
+                br.NARROW_THREADS if G <= cap else br.WIDE_THREADS)
 
 
 def test_library_hash_covers_headers(tmp_path, monkeypatch):
