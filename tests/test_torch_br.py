@@ -12,8 +12,14 @@ are exact integers mod 2^32) it must equal
     IYOKAN_BR3_TW12 unset and "vpu" (an arithmetic variant of the JAX
     kernel with the same result; the port does not read it), and at an odd
     n, where the last key-bit pair is padded.
-The CUDA kernels are held against the twins on the card (cuda-marked tests
-here, and chip_smoke.py at cggi128).
+K3/K4's cluster form (csrc/br_cluster.cuh) is modelled in torch: the
+kernel form of the key reads back to prep1's, a model of the step loop
+(per-(prime, part) partials from the kernel-form key with the kernels'
+Montgomery and Shoup arithmetic, the exchange, the unscaled inverse,
+Garner per part) equals the twins and, through them, the JAX kernels, and
+the threads-a-CTA plan covers every batch.  The CUDA kernels are held
+against the twins on the card (cuda-marked tests here, and chip_smoke.py
+at cggi128).
 """
 
 import dataclasses

@@ -6,6 +6,12 @@ rot_poly and sample_extract on u64 words) against jnp.uint64, bit for bit.
 The JAX side is built with explicit uint64 dtypes: the JAX package allows
 64-bit dtypes only where asked (iyokan_tpu/__init__.py), and jnp.asarray
 without a dtype would narrow u64 inputs to u32.
+
+The NTT kernels' 32-bit arithmetic (csrc/ntt.cuh: Shoup products with the
+host table's companions, Montgomery-reduced row sums) and their transform
+schedule (shared-memory stage pairs, register stages with warp shuffles)
+are modelled in torch int64 / numpy and held against (a b) mod p and the
+plain transforms.
 """
 
 import jax
