@@ -1,18 +1,27 @@
 """Time variants of the K3/K4 cluster kernels built from edited copies of
-the kernel sources, against the sources as they are.
+the kernel sources: a removal sequence, for where a step's time goes.
 
     python3 -m iyokan_tpu_torch.tools.br_variants VARIANTS [SIZES]
 
 VARIANTS (a JSON object, or the path of a file holding one) maps a
 variant's name to its edits, each [file under csrc/, regular expression,
 replacement] (an edit that matches nothing raises; a name with no edits
-is the sources as they are).  Each variant's csrc/ is
-copied to build/br_variants/<name>/, edited, built by ops/nvcc.py into
-its own directory and loaded in place of the repo's libraries; then K4 and
+is the sources as they are).  Variants apply in the order given, each on
+top of the ones before it: the first copies csrc/, each later one the
+previous variant's sources, into build/br_variants/<name>/, edits them,
+builds them by ops/nvcc.py into its own directory and loads them in place
+of the repo's libraries (so a variant's time less the previous one's is
+what its own edits cost, in that order); then K4 and
 K3 (M = 3) run at the full step count on seeded random cggi128 keys at
 each batch of SIZES (default 1,64,2048), timed by CUDA events, and a
 variant named "base" is held against the twins first.  For measurement
 experiments only: the port never runs an edited kernel.  Needs a card.
+tools/br_ablation.json is the sequence behind PERF.md's K3/K4 breakdown
+(cluster barriers, the forward transforms after the digit stages, the
+inverse, the key reads, Garner's CRT):
+
+    python3 -m iyokan_tpu_torch.tools.br_variants \
+        iyokan_tpu_torch/tools/br_ablation.json 1,64,2048
 """
 
 from __future__ import annotations
@@ -32,10 +41,10 @@ from . import br_profile, timing
 OUT = os.path.join(os.path.dirname(nvcc.BUILD_DIR), "br_variants")
 
 
-def build_variant(name: str, edits: list) -> None:
-    """Copy csrc/ to OUT/<name>, apply the edits, and point ops/nvcc.py at
-    the copy (the libraries load from there from now on)."""
-    src = nvcc.CSRC
+def build_variant(name: str, edits: list, src: str) -> str:
+    """Copy the sources in src to OUT/<name>, apply the edits, point
+    ops/nvcc.py at the copy (the libraries load from there from now on)
+    and return its directory."""
     d = os.path.join(OUT, name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(src, d)
@@ -50,6 +59,7 @@ def build_variant(name: str, edits: list) -> None:
     nvcc.CSRC, nvcc.BUILD_DIR = d, os.path.join(d, "build")
     nvcc._libs.clear()
     nvcc.build(br.SOURCE, br3.SOURCE)
+    return d
 
 
 def main(argv=None) -> int:
@@ -65,9 +75,9 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(3)
     plain = br_profile.random_key(p, p.n, 2 * p.l, rng, dev)
     unrolled = br_profile.random_key(p, (p.n + 1) // 2, 6 * p.l, rng, dev)
-    out = []
+    out, src = [], nvcc.CSRC
     for name, edits in variants.items():
-        build_variant(name, edits)
+        src = build_variant(name, edits, src)
         if name == "base":
             br_profile.check(p, rng, dev)
         for G in sizes:
