@@ -46,7 +46,7 @@
 // the psi power's - 1 into the table, and a serial chain per step of l
 // forward and one inverse transform; the second by reading each CTA's
 // slice of a step once (measured on the H100, the key's bytes do not bind:
-// PERF.md, PR 7).
+// PERF.md, Findings).
 //
 // Built by iyokan_tpu_torch/ops/nvcc.py (hash of this file and the headers
 // it includes):

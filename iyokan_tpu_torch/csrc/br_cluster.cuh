@@ -39,7 +39,7 @@
 // scaling pass.  CTA (p, u) reads its contiguous M*l*2*N slice of a step
 // straight from L2 into registers, once a step (on the H100 the key reads
 // hold a step back little, and an L2 prefetch of the next step's slice
-// slowed it: PERF.md, PR 7).
+// slowed it: PERF.md, Findings).
 //
 // Shared memory (br_cluster_smem): this prime's forward and inverse
 // twiddles with companions (2N uint2), K3's psi powers minus one with

@@ -35,13 +35,13 @@
 // on a row, seven block barriers a step); the second by reading each
 // CTA's slice of a step once.  Measured on the H100, the L2 bytes of the
 // key do not bind: rows sharing a key step (R rows a CTA) were slower at
-// every batch, and so was an L2 prefetch of the next step (PERF.md, PR 7).
+// every batch, and so was an L2 prefetch of the next step (PERF.md,
+// Findings).
 //
-// K5 keeps its PR-3 structure and key layout: one block of N/2 threads per
-// row and launch, both primes in turn, the prep1 key read as it is; it
-// takes ntt.cuh's transforms and products, its sums of key products
-// reduced once per four (mont_reduce) and the 2^32 that leaves folded into
-// the inverse's N^-1 scale.  Shared memory (6 + 2l) * N * 4 bytes = 48 KB
+// K5 keeps one block of N/2 threads per row and launch, both primes in
+// turn, and the prep1 key read as it is; it takes ntt.cuh's transforms and
+// products, its sums of key products reduced once per four (mont_reduce)
+// and the 2^32 that leaves folded into the inverse's N^-1 scale.  Shared memory (6 + 2l) * N * 4 bytes = 48 KB
 // at cggi128 (acc, both primes' sums, the digit rows; br_ntt_smem).
 //
 // Built by iyokan_tpu_torch/ops/nvcc.py (hash of this file and the headers

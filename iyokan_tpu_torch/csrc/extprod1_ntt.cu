@@ -33,10 +33,10 @@
 // 2 primes x ((RR + 2) * N/2 * log2 N butterflies + 2*RR*N pointwise
 // products) + 2N CRT products at cggi128, about three multiplies each in
 // the Shoup and Montgomery forms of ntt.cuh.  The key (RR*2*2*N*4 = 96 KB
-// per TRGSW) is read from L2 by every row.  This kernel keeps its PR-2
-// structure (one block per row, the prep1 key as it is): K3/K4's cluster
-// form (br_cluster.cuh) is not applied to it yet.
-
+// per TRGSW) is read from L2 by every row.  This kernel keeps one block
+// per row and the prep1 key as it is: K3/K4's cluster form
+// (br_cluster.cuh) is not applied to it yet.
+//
 // Built by iyokan_tpu_torch/ops/nvcc.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libextprod1_ntt-<hash>.so extprod1_ntt.cu

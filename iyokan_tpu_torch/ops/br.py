@@ -29,7 +29,8 @@ and so does a card that cannot hold a cluster (there is no other form).
 `br_step` (K5) and `br_loop` (K4) launch csrc/br_ntt.cu for CUDA tensors
 and run the plain twin `cmux_steps_ref` for CPU tensors; nothing else
 selects between them.  STEP_LAUNCHES and LOOP_LAUNCHES count the launches;
-`last_launch` reads the grid and cluster size the C launcher last used.
+`last_launch` reads the grid, cluster size and threads a CTA the C
+launcher last used.
 """
 
 from __future__ import annotations
@@ -216,6 +217,7 @@ def check_plan(rc: int, out, err) -> tuple:
 
 
 def device_index(device) -> int:
+    """The CUDA ordinal of `device` (None: the current card)."""
     dev = torch.device(device if device is not None else "cuda")
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
