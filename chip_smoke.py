@@ -7,13 +7,13 @@ Phases, one line each or more:
   2. build      -- the five kernel sources, csrc/tkey_blind_rotate.cu,
                    extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu and micro.cu (the
                    first and last include csrc/wgmma_s8.cuh, the NTT ones
-                   csrc/ntt.cuh, K3/K4 through csrc/br_cluster.cuh), one
+                   csrc/ntt.cuh, K3-K6 through csrc/br_cluster.cuh), one
                    nvcc each, started together (sm_90a), with ptxas's
-                   register lines and each kernel's dynamic shared memory;
-                   the cluster shape of K3 and K4 (4 CTAs a row: prime x
-                   part) with each one's shared memory a CTA and the
-                   clusters the card holds at once
-                   (cudaOccupancyMaxActiveClusters); then the SASS
+                   register lines; the cluster shape of K3, K4 (and K5,
+                   K4's kernel one step a launch) and K6 at 2l and 3*2l
+                   rows (4 CTAs a row: prime x part) with each one's
+                   shared memory a CTA and the clusters the card holds at
+                   once (cudaOccupancyMaxActiveClusters); then the SASS
                    opcode mix (cuobjdump -sass) of every int8 product
                    kernel: conv_wgmma_kernel, conv_kernel and mm_step_kernel,
                    raising where a wgmma form has no warpgroup MMA (GMMA)
@@ -55,8 +55,13 @@ Phases, one line each or more:
                    phase 7's;
   9. extprod    -- extprod1_ntt against its plain twin on the card at cggi128,
                    on TRGSWs made by the port's circuit bootstrapping (its
-                   time is printed): G = 1, 8, 1024, 2048, K = 1 and K = 2
-                   with mixed indices, max |diff| 0, kernel ms vs twin ms;
+                   time is printed): RR = 2l (one TRGSW) and 3*2l (three,
+                   the unrolled route's), G = 1, 8, 63, 64, 1024, 2048 and
+                   the thread-plan switch of each RR, K = 1 and K = 2 with
+                   mixed indices on the host, max |diff| 0, the grid as
+                   launched (G clusters of 4), ms a call (CUDA events) and
+                   on the device (torch.profiler: at small G the call is
+                   the host's) vs twin ms;
  10. memory     -- tests/data/memmac.toml (MAC-4 between a 128 x 32 CMUX ROM
                    and two 256 x 8 CMUX RAMs) at cggi128 through the CLIs
                    in-process: genkey, genevalkey (with circuit-bootstrapping
@@ -70,20 +75,26 @@ Phases, one line each or more:
  11. br-kernels -- the NTT blind-rotation kernels against their plain twins
                    at cggi128 on the CRT64 keys of phase 3's eval key (the
                    time to build their K3/K4 kernel form, ops/br.py:
-                   kernel_key, is printed): K5 (br_ntt_step, n launches a
-                   rotation), K4 (br_ntt_loop), K3 (br3_ntt) at M = 1 on the
+                   kernel_key, is printed): K5 (br_ntt_step: n launches a
+                   rotation from one host call, each G clusters of 4 CTAs),
+                   K4 (br_ntt_loop), K3 (br3_ntt) at M = 1 on the
                    plain key and M = 3 on the 2-bit-unrolled key (one launch
                    each, G clusters of 4 CTAs as the launcher reports it),
                    max |diff| 0 and kernel ms vs twin ms at G = 1, 64, 256
                    and 2048 (the br-gates phase's batch) and at each
                    thread-plan switch (the most clusters of 512-thread
                    CTAs the card holds, and one more: ops/br.py:
-                   threads_for); and the exact unrolled route
+                   threads_for); the exact unrolled route
                    (one extprod1_ntt launch at 3*2l rows per key-bit pair,
-                   318 in all) at G = 64 against its twin;
+                   318 in all) at G = 64 against its twin; and K5's
+                   per-launch split at G = 1, 64, 2048 (tools/br_variants.py
+                   on tools/k5_launch_ablation.json: programmatic dependent
+                   launch, the twiddle loads, the accumulator in and out
+                   removed one after another, K4 beside them: what is left
+                   over K4 is the launches' ramp and drain);
  12. br-gates   -- 2048 NANDs through the pallas (K5), pallas2 (K4) and v3
                    (K3, M = 1) routes of DeviceKeys.bk_for, each kernel's
-                   launches counted from 0 over the run (K3/K4: 2048
+                   launches counted from 0 over the run (each launch 2048
                    clusters of 4), 0 wrong, the max
                    phase error of the 2048 outputs in units of 1/16 of the
                    torus, ms per batch and gate_bootstraps_per_sec beside
@@ -111,7 +122,8 @@ The line before the last is the kernels' JSON record (each kernel's launches
 on its path, max |diff| against its twin, ms, twin ms, the bound of the
 same work on the card and what sets it; K1's wgmma form, its mma.sync
 form (small batches) and one record per K2 layout; K3 at the batch its
-MAC-16 path runs, G = 64, and at G = 256; no PyTorch call
+MAC-16 path runs, G = 64, and at G = 256; K6 at 2l rows (memmac's path)
+and at 3*2l rows (the ntt-unrolled route's, G = 64); no PyTorch call
 computes a blind rotation or an external product,
 so their library_ms is null; the micro records time torch._int_mm on the
 same per-step product where it takes it, per step or round like their
@@ -150,7 +162,7 @@ from iyokan_tpu_torch.cli import iyokan_cli, packet_cli  # noqa: E402
 from iyokan_tpu_torch.crypto import host, ops  # noqa: E402
 from iyokan_tpu_torch.engine.driver import build_design  # noqa: E402
 from iyokan_tpu_torch.ops import br, br3, extprod, micro, nvcc, tkey  # noqa
-from iyokan_tpu_torch.tools import microbench, timing  # noqa: E402
+from iyokan_tpu_torch.tools import br_variants, microbench, timing  # noqa
 from iyokan_tpu_torch.tools import tk_mm_bench, tk_width_bench  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -203,6 +215,27 @@ def cuda_ms(fn, reps):
     return timing.timed_ms(fn, reps, "cuda")
 
 
+def device_ms(fn, name, reps=20):
+    """Mean device ms of the kernels whose name holds `name` per fn() call,
+    from torch.profiler's CUDA records over reps calls (after a warm-up),
+    or None where the profiler kept no such record.  Where fn() is
+    host-bound, CUDA events around the calls time the host, this the
+    kernel."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # the profiler may drop a window's kernel records
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0)
+                 for e in prof.key_averages() if name in e.key)
+        if us:
+            return us / 1e3 / reps
+    return None
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: no card")
@@ -226,29 +259,22 @@ def phase_build(p):
     t0 = time.time()
     paths = nvcc.build(*sources)
     dt = time.time() - t0
-    # dynamic shared memory per block at p, as each library's launcher
-    # sizes it
-    smem = {extprod.SOURCE: f"{extprod.smem_bytes(p, 2 * p.l)} B at 2l "
-                            f"rows, {extprod.smem_bytes(p, 6 * p.l)} B at "
-                            "3*2l rows",
-            br.SOURCE: f"K5 {br.smem_bytes(p)} B",
-            br3.SOURCE: "see the cluster line"}
     for src, path in zip(sources, paths):
         regs = [ln.split(":", 1)[1].strip()
                 for ln in nvcc.LOGS.get(src, "").splitlines()
                 if "Used" in ln and "registers" in ln]
         say("build", f"{os.path.relpath(path, ROOT)} (all {len(sources)} "
-            f"nvcc in parallel: {dt:.2f} s); ptxas per kernel: {regs}; "
-            f"dynamic shared memory: {smem.get(src, 'see the source')}")
+            f"nvcc in parallel: {dt:.2f} s); ptxas per kernel: {regs}")
     caps = {}
     for nt in (br.WIDE_THREADS, br.NARROW_THREADS):
-        plans = {"K4": br.cluster_plan(p, nt),
-                 **{f"K3 M={m}": br3.cluster_plan(p, m, nt) for m in (1, 3)}}
+        plans = {"K4/K5": br.cluster_plan(p, nt),
+                 **{f"K3 M={m}": br3.cluster_plan(p, m, nt) for m in (1, 3)},
+                 **{f"K6 RR={rr}": extprod.cluster_plan(p, rr, nt)
+                    for rr in (2 * p.l, 6 * p.l)}}
         caps[nt] = plans
-        say("build", f"K3/K4 clusters of {br.CLUSTER} CTAs (prime x part) "
-            f"of {nt} threads: " + "; ".join(
-                f"{k} {v[0]} B a CTA, {v[1]} clusters at once"
-                for k, v in plans.items()))
+        say("build", f"clusters of {br.CLUSTER} CTAs (prime x part) of {nt} "
+            "threads: " + "; ".join(f"{k} {v[0]} B a CTA, {v[1]} clusters "
+                                    "at once" for k, v in plans.items()))
     for k in caps[br.NARROW_THREADS]:
         cap = caps[br.NARROW_THREADS][k][1]
         say("build", f"{k} plan (one cluster a row, ops/br.py:threads_for): "
@@ -478,18 +504,23 @@ def phase_br_kernels(p, sk, dk, rng, smi, sizes):
     ]
     per_rotation = {"br_ntt_step": p.n}
     rows_out, worst = [], 0
+    calls = count_calls(nvcc.load(br.SOURCE, br._bind), "br_ntt_steps")
     for G in sizes:
         bits = rng.integers(0, 2, G, dtype=np.uint8)
         ct = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
         for name, key, fn, twin in cases:
             reset_launches()
+            calls[0] = 0
             got = fn(ct, key, testv, p)
             torch.cuda.synchronize()
             n_launch = (br.STEP_LAUNCHES + br.LOOP_LAUNCHES + br3.LAUNCHES)
-            if n_launch != per_rotation.get(name, 1):
-                raise AssertionError(f"{name}: {n_launch} launches for one "
-                                     "blind rotation")
-            rec = {"kernel": name, "G": G, "launches": n_launch}
+            if n_launch != per_rotation.get(name, 1) or calls[0] != (
+                    name == "br_ntt_step"):
+                raise AssertionError(f"{name}: {n_launch} launches from "
+                                     f"{calls[0]} calls of br_ntt_steps for "
+                                     "one blind rotation")
+            rec = {"kernel": name, "G": G, "launches": n_launch,
+                   "host_calls": calls[0] or 1}
             if name in CLUSTER_GRIDS:
                 rec["grid"] = check_clusters(name, G)
             rows, acc = tkey._setup(ct, testv, p)
@@ -531,8 +562,49 @@ def phase_br_kernels(p, sk, dk, rng, smi, sizes):
     return rows_out, worst, unrolled
 
 
+def count_calls(lib, fn_name):
+    """Counts the host's calls of lib.fn_name from here on: returns a list
+    whose first item the calls increment (the smoke run resets it)."""
+    calls, fn = [0], getattr(lib, fn_name)
+
+    def counted(*args):
+        calls[0] += 1
+        return fn(*args)
+
+    setattr(lib, fn_name, counted)
+    return calls
+
+
+K5_SPLIT = os.path.join(ROOT, "iyokan_tpu_torch", "tools",
+                        "k5_launch_ablation.json")
+
+
+def phase_k5_split(smi, sizes=(1, 64, 2048)):
+    """K5's per-launch split: tools/br_variants.py on K5_SPLIT (each
+    variant removes one more per-launch part, in order), K4 beside each;
+    a part's ms is the time its removal saved, and what K5 keeps over K4
+    once all are removed is the launches' ramp and drain."""
+    spec = br_variants.load_spec(K5_SPLIT)
+    recs = br_variants.run(spec, sizes, ("br_ntt_step", "br_ntt_loop"))
+    ms = {(r["variant"], r["kernel"], r["G"]): r["ms"] for r in recs}
+    names = list(spec)
+    split = {}
+    for G in sizes:
+        k5 = [ms[(v, "br_ntt_step", G)] for v in names]
+        k4 = ms[(names[0], "br_ntt_loop", G)]
+        row = {"K5_ms": k5[0], "K4_ms": k4}
+        row.update({names[i]: k5[i - 1] - k5[i] for i in range(1, len(k5))})
+        row["ramp and drain"] = k5[-1] - k4
+        split[G] = row
+        say("br-kernels", f"K5 per-launch split at G={G} (ms a rotation of "
+            f"{params.CGGI128.n} launches; each part: the time its removal saved): "
+            f"{json.dumps(row)} on {smi}")
+    return split
+
+
 # the cluster kernels: record name prefix -> the launcher's last grid
-CLUSTER_GRIDS = {"br_ntt_loop": br.last_launch, "br3_ntt M=1": br3.last_launch,
+CLUSTER_GRIDS = {"br_ntt_step": br.last_launch, "br_ntt_loop": br.last_launch,
+                 "br3_ntt M=1": br3.last_launch,
                  "br3_ntt M=3": br3.last_launch, "br3_ntt": br3.last_launch}
 
 
@@ -856,9 +928,14 @@ def memory_files():
     return f, (rom, rams, streams)
 
 
-def phase_extprod(p, files, smi):
-    """extprod1_ntt vs its twin at the memory path's shapes, on selectors
-    made by the port's circuit bootstrapping."""
+EP_SIZES = (1, 8, 63, 64, 1024, 2048)
+
+
+def phase_extprod(p, files, smi, caps):
+    """extprod1_ntt vs its twin at the memory path's shapes (2l rows) and
+    the unrolled route's (3*2l), on selectors made by the port's circuit
+    bootstrapping; caps: the kernel's narrow cap per RR (the thread-plan
+    switch is checked at cap and cap + 1)."""
     sk = host.SecretKey.load(files["sk"])
     ek = host.EvalKey.load(files["ek"])
     t0 = time.time()
@@ -886,32 +963,49 @@ def phase_extprod(p, files, smi):
     say("extprod", f"circuit_bootstrap of 8 bits ({p.l * 8} lvl2 rows, "
         f"{dk.bk2.shape[0]} unrolled steps) {t_cb:.3f} s, decrypts right")
     rows, worst = [], 0
-    for G in (1, 8, 1024, 2048):
-        c = ops.u32_tensor(rng.integers(0, 1 << 32, (G, 2, p.N),
-                                        dtype=np.uint32), "cuda")
-        d = ops.decompose1(c, p)
-        for K in (1, 2):
-            j = G % 8
-            if K == 1:
-                keys, idx = prep[j, 0][None].contiguous(), None
-            else:
-                keys = prep[j].contiguous()
-                pol = rng.integers(0, 2, G).astype(np.int32)
-                pol[: min(G, 2)] = [0, 1][: min(G, 2)]
-                idx = torch.from_numpy(pol).cuda()
-            got = extprod.extprod1(d, keys, idx, p)
-            want = extprod.extprod1_ref(d, keys, idx, p)
-            torch.cuda.synchronize()
-            err = int((ops.to_u64(got) - ops.to_u64(want)).abs().max())
-            worst = max(worst, err)
-            if err:
-                raise AssertionError(
-                    f"extprod1_ntt != twin at G={G}, K={K}: max |diff| {err}")
-            k_ms = cuda_ms(lambda: extprod.extprod1(d, keys, idx, p), 10)
-            t_ms = cuda_ms(lambda: extprod.extprod1_ref(d, keys, idx, p), 2)
-            rows.append({"G": G, "K": K, "kernel_ms": k_ms, "twin_ms": t_ms})
-            say("extprod", f"G={G} K={K}: max |diff| 0; kernel {k_ms:.4f} "
-                f"ms, twin {t_ms:.4f} ms per call on {smi}")
+    for RR in (2 * p.l, 6 * p.l):
+        M = RR // (2 * p.l)
+        cap = caps[f"K6 RR={RR}"]
+        for G in sorted(set(EP_SIZES) | {cap, cap + 1}):
+            c = ops.u32_tensor(rng.integers(0, 1 << 32, (G, M, 2, p.N),
+                                            dtype=np.uint32), "cuda")
+            d = ops.decompose1(c, p).reshape(G, RR, p.N)
+            for K in (1, 2):
+                # M CB-made TRGSWs a key (the unrolled route's key-bit pair)
+                j = [(G + m) % 8 for m in range(M)]
+                keys = prep[j].transpose(0, 1).reshape(
+                    2, RR, 2, 2, p.N)[:K].contiguous()
+                idx = None
+                if K == 2:
+                    pol = rng.integers(0, 2, G).astype(np.int32)
+                    pol[: min(G, 2)] = [0, 1][: min(G, 2)]
+                    idx = torch.from_numpy(pol)        # on the host
+                got = extprod.extprod1(d, keys, idx, p)
+                grid = extprod.last_launch()
+                want = extprod.extprod1_ref(d, keys, idx, p)
+                torch.cuda.synchronize()
+                err = max_diff(got, want)
+                worst = max(worst, err)
+                if err:
+                    raise AssertionError(f"extprod1_ntt != twin at G={G}, "
+                                         f"K={K}, RR={RR}: max |diff| {err}")
+                if grid != (br.CLUSTER * G, br.CLUSTER,
+                            br.threads_for(G, cap)):
+                    raise AssertionError(f"extprod1_ntt at G={G} RR={RR} "
+                                         f"launched {grid}")
+                k_ms = cuda_ms(lambda: extprod.extprod1(d, keys, idx, p), 10)
+                dev_ms = device_ms(lambda: extprod.extprod1(d, keys, idx, p),
+                                   "ep_cluster_kernel")
+                t_ms = cuda_ms(lambda: extprod.extprod1_ref(d, keys, idx, p),
+                               2)
+                rows.append({"G": G, "K": K, "RR": RR, "grid": list(grid),
+                             "kernel_ms": k_ms, "device_ms": dev_ms,
+                             "twin_ms": t_ms})
+                say("extprod", f"G={G} K={K} RR={RR}: max |diff| 0; grid "
+                    f"{grid} (CTAs, cluster, threads); kernel {k_ms:.4f} "
+                    f"ms a call ({dev_ms if dev_ms is None else round(dev_ms, 4)}"
+                    f" ms on the device, torch.profiler), twin {t_ms:.4f} ms "
+                    f"per call on {smi}")
     del dk
     torch.cuda.empty_cache()
     return rows, worst, t_cb
@@ -1300,10 +1394,11 @@ def phase_micro(smi):
 
 def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
                    ep_worst, br_rows, br_gates, k3_launches, tk_layouts,
-                   tk_small_launches):
+                   tk_small_launches, unrolled):
     """The kernels' JSON records: launches on each kernel's path (the
     2048-NAND run for tkey_blind_rotate's wgmma form, the memmac run for
-    its mma.sync form and extprod1_ntt, the br-gates runs
+    its mma.sync form and extprod1_ntt at 2l rows, the ntt-unrolled route
+    at G = 64 for extprod1_ntt at 3*2l rows, the br-gates runs
     for K5 and K4, the br-slice run for K3, the tk-layouts NAND runs for
     K2's thin, fat2 and L=4 slabs, the tk-slice run for its unrolled slab),
     max |diff| against the twin over every compared shape, ms and twin ms
@@ -1330,14 +1425,18 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
                  launches["tkey mma form"], worst, row,
                  bound(2 * p.n * g * (p.N // 128) * RT * C, INT8_OPS_PER_S,
                        p.n * RT * C + io_g)))
-    K, RR = 2, 2 * p.l
-    recs.append(("extprod1_ntt", "extprod1_ntt.cu",
-                 "iyokan_tpu/ops/pallas_ep.py:91", launches["extprod1_ntt"],
-                 ep_worst, next(r for r in ep_rows
-                                if r["G"] == G and r["K"] == K),
-                 bound(2 * G * ntt_mulmods(p, RR), INT32_MULS_PER_S,
-                       G * RR * p.N * i32 + K * RR * 4 * p.N * i32
-                       + G * i32 + G * 2 * p.N * i32)))
+    RR = 2 * p.l
+    for name, rr, g, K, n_launch in (
+            ("extprod1_ntt", RR, G, 2, launches["extprod1_ntt"]),
+            ("extprod1_ntt RR=3*2l", 3 * RR, unrolled["G"], 1,
+             unrolled["launches"])):
+        recs.append((name, "extprod1_ntt.cu",
+                     "iyokan_tpu/ops/pallas_ep.py:91", n_launch, ep_worst,
+                     next(r for r in ep_rows if r["G"] == g and r["K"] == K
+                          and r["RR"] == rr),
+                     bound(2 * g * ntt_mulmods(p, rr), INT32_MULS_PER_S,
+                           g * rr * p.N * i32 + K * rr * 4 * p.N * i32
+                           + (g * i32 if K > 1 else 0) + g * 2 * p.N * i32)))
     nh = (p.n + 1) // 2
     for name, src, rep, n_launch, case, G, steps, m in (
             ("br_ntt_step", "br_ntt.cu", "iyokan_tpu/ops/pallas_br.py:109",
@@ -1421,18 +1520,21 @@ def main() -> int:
         f"(unrolled small-batch slab) vs {s_cycle:.3f} on the fat slab")
 
     files, data = memory_files()
-    ep_rows, ep_worst, t_cb = phase_extprod(p, files, smi)
+    ep_rows, ep_worst, t_cb = phase_extprod(
+        p, files, smi, {k: v for k, v in caps.items() if k.startswith("K6")})
     launches, mem_s_cycle, stages = phase_memory(files, data, smi)
 
     bdk, t_key = br_keys(ek, p)
     # BR_SIZES and each cluster kernel's thread-plan switch (ops/br.py:
     # threads_for): the largest G at 512 threads a CTA and the next
-    br_sizes = sorted(set(BR_SIZES) | {g for c in caps.values()
+    br_sizes = sorted(set(BR_SIZES) | {g for k, c in caps.items()
+                                       if not k.startswith("K6")
                                        for g in (c, c + 1)})
     br_rows, _, unrolled = phase_br_kernels(p, sk, bdk, rng, smi, br_sizes)
     br_gates = phase_br_gates(p, sk, bdk, rng, smi, rate)
     del bdk
     torch.cuda.empty_cache()
+    k5_split = phase_k5_split(smi)
     k3_launches, v3_s_cycle = phase_slice(smi, "br-slice")
     micro_recs = phase_micro(smi)
 
@@ -1442,7 +1544,7 @@ def main() -> int:
         "mac16_s_per_cycle": s_cycle, "extprod_ms": ep_rows,
         "cb_8bits_s": t_cb, "memmac_s_per_cycle": mem_s_cycle,
         "memmac_stage_s": stages, "br_kernels": br_rows,
-        "br_kernel_key_s": t_key,
+        "br_kernel_key_s": t_key, "k5_launch_split_ms": k5_split,
         "ntt_unrolled_route": unrolled, "br_gates": br_gates,
         "mac16_v3_s_per_cycle": v3_s_cycle, "tk_layouts": tk_layouts,
         "mac16_tk_small_s_per_cycle": tk_s_cycle,
@@ -1450,7 +1552,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": kernel_records(
         p, times, worst, gate_launches, launches, ep_rows, ep_worst, br_rows,
-        br_gates, k3_launches, tk_layouts, tk_small_launches) + micro_recs}))
+        br_gates, k3_launches, tk_layouts, tk_small_launches, unrolled)
+        + micro_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -99,7 +99,7 @@ def key_factor(N: int) -> tuple:
     """Per prime N^-1 * 2^32 mod p: the NTT kernels' key form carries it
     (ops/br.py:kernel_key), so a Montgomery reduction of a key product
     (times 2^-32) leaves the product times N^-1 and the inverse transform
-    needs no scaling pass; K5 and K6 scale their inverse by it instead."""
+    needs no scaling pass; K6 scales its inverse by it instead."""
     return tuple((pow(N, -1, p) << 32) % p for p in PRIMES)
 
 

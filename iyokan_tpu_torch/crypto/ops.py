@@ -132,8 +132,10 @@ def extprod_term(g_prep: torch.Tensor, c: torch.Tensor, p: Params,
 
     g_prep: one prepared TRGSW [2l, 2, P, N], or, with idx, a stack
     [K, 2l, 2, P, N] of which row r of c takes key idx[r] (idx: int
-    [...] over c's leading dims).  Runs ops/extprod.extprod1: the
-    extprod1_ntt kernel for a CUDA tensor, its plain twin on the CPU."""
+    [...] over c's leading dims, best on the host: ops/extprod.py checks
+    its range there and copies it to the card without a device sync).
+    Runs ops/extprod.extprod1: the extprod1_ntt kernel for a CUDA tensor,
+    its plain twin on the CPU."""
     from ..ops.extprod import extprod1
 
     lead = c.shape[:-2]

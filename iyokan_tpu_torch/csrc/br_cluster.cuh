@@ -1,6 +1,8 @@
-// The cluster form of the NTT blind rotations K4 (br_ntt.cu) and K3
-// (br3_ntt.cu): the whole step loop in one launch, a cluster of four CTAs
-// per row.
+// The cluster form of the NTT blind rotations K4, K5 (br_ntt.cu) and K3
+// (br3_ntt.cu): a cluster of four CTAs per row running S CMUX steps, the
+// whole loop in one launch (K3, K4) or one step a launch (K5: S = 1, the
+// launches back to back from C, ClusterPlans::steps).  The launch plumbing
+// at the end (ClusterPlan) also serves K6 (extprod1_ntt.cu).
 //
 // CTA rank 2p + u of a cluster owns prime p and part u of the row's
 // accumulator, with acc[u] in its shared memory for every step.  Part u's
@@ -41,6 +43,16 @@
 // hold a step back little, and an L2 prefetch of the next step's slice
 // slowed it: PERF.md, Findings).
 //
+// A launch of one step (K5) goes through global memory: the accumulator in
+// and out, this prime's twiddles into shared memory.  Launched with
+// programmatic dependent launch (ClusterPlans::steps), the next step's
+// CTAs may start while this step ends: every CTA lets its dependents launch
+// once past the last step's second cluster barrier (earlier, their waiting
+// CTAs slowed the running ones: PERF.md, Findings), and a CTA loads its
+// twiddles, then waits (griddep_wait) for the previous step to complete
+// before it reads the accumulator.  In a launch without the attribute (K3,
+// K4, K5's first step) both are no-ops.
+//
 // Shared memory (br_cluster_smem): this prime's forward and inverse
 // twiddles with companions (2N uint2), K3's psi powers minus one with
 // companions (2N uint2), acc[u] (N), the digits (l*N; row 0 then holds the
@@ -67,6 +79,17 @@ struct BrArgs {
   int S, G;
   Ring r;
 };
+
+// Programmatic dependent launch (sm_90): let the stream's next kernel
+// launch its CTAs, and wait until the previous kernel has completed with
+// its writes visible.  No-ops in a launch without the attribute.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
 
 inline size_t br_cluster_smem(int N, int l, bool v3) {
   return (size_t)(v3 ? 4 : 2) * N * sizeof(uint2) +
@@ -114,12 +137,17 @@ __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
   for (int i = tid; i < N; i += nt) {
     twf[i] = r.tw[(2 * p) * N + i];
     twi[i] = r.tw[(2 * p + 1) * N + i];
-    acc[i] = (uint32_t)A.acc[((size_t)g * 2 + u) * N + i];
   }
   if (V3)
     for (int i = tid; i < 2 * N; i += nt) pw[i] = A.pw[p * 2 * N + i];
-  // every CTA of the cluster runs before one reads another's shared memory
-  cluster.sync();
+  griddep_wait();  // the previous step's accumulator (K5)
+  for (int i = tid; i < N; i += nt)
+    acc[i] = (uint32_t)A.acc[((size_t)g * 2 + u) * N + i];
+  // No cluster barrier here: the first access to another CTA's shared
+  // memory follows barrier 1 of the first step, which every CTA of the
+  // cluster reaches only once running (a barrier at entry cost K5 3.4 ms
+  // a rotation at G = 2048: PERF.md, Findings).
+  __syncthreads();
   const uint32_t* dig_pu = cluster.map_shared_rank(dig, rank ^ 1);
   const uint32_t* sum_pp = cluster.map_shared_rank(sum, rank ^ 2);
   const int slice = M * L * 2 * N;  // int32 of this CTA's key a step
@@ -205,6 +233,7 @@ __device__ void br_cluster_body(const BrArgs& A, unsigned rank,
     ntt_inv<P, 1, NT>(own, 1, twi, N, logN, dig_pu, 0, make_uint2(0u, 0u),
                       false);
     cluster.sync();  // 2: both primes' residues of part u are in place
+    if (i + 1 == A.S) griddep_launch_dependents();
 
     // 5. Garner with the other prime's CTA, into acc[u]
     const uint32_t* other = sum_pp + (i & 1) * N;
@@ -233,46 +262,53 @@ __global__ void __launch_bounds__(NT, NT == 256 ? (V3 ? 4 : 5) : 2)
     br_cluster_body<P1, V3, M, L, NT, LOGN>(A, rank, br_sm);
 }
 
-// Dynamic shared memory and cluster checks of one instantiation, per card:
-// the limit raised once, and cudaOccupancyMaxActiveClusters read once (a
-// card that can hold no cluster of this kernel refuses the launch).
-// The grid (CTAs), cluster size and threads a CTA of the last K3 or K4
-// launch of a library, as launched (br_ntt_last_launch, br3_ntt_last_launch
-// report them).
+// The grid (CTAs), cluster size and threads a CTA of the last cluster
+// launch of a library, as launched (br_ntt_last_launch, br3_ntt_last_launch,
+// extprod1_ntt_last_launch report them).
 int last_launch[3] = {0, 0, 0};
 
-template <bool V3, int M, int L, int NT, int LOGN = 0>
+// One cluster kernel instance (Args by value, NT threads a CTA): its
+// dynamic shared-memory limit raised once per card, and
+// cudaOccupancyMaxActiveClusters read once per card (a card that can hold
+// no cluster of it refuses the launch).
+template <typename Args>
 struct ClusterPlan {
+  void (*kernel)(Args);
+  int nt;
   SmemLimit limit;
   int clusters[MAX_DEVICES] = {};
 
-  static cudaLaunchConfig_t config(int n_clusters, size_t smem,
-                                   cudaStream_t stream,
-                                   cudaLaunchAttribute* at) {
+  ClusterPlan(void (*k)(Args), int threads) : kernel(k), nt(threads) {}
+
+  // pdl: the launch may start while the stream's previous kernel runs
+  // (programmatic dependent launch; the kernel waits in griddep_wait).
+  cudaLaunchConfig_t config(int n_clusters, size_t smem, cudaStream_t stream,
+                            cudaLaunchAttribute* at, bool pdl) const {
     at[0].id = cudaLaunchAttributeClusterDimension;
     at[0].val.clusterDim.x = BR_CLUSTER;
     at[0].val.clusterDim.y = 1;
     at[0].val.clusterDim.z = 1;
+    at[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    at[1].val.programmaticStreamSerializationAllowed = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(BR_CLUSTER * n_clusters);
-    cfg.blockDim = dim3(NT);
+    cfg.blockDim = dim3(nt);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = at;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = pdl ? 2 : 1;
     return cfg;
   }
 
   // 0 or a CUDA error; *max_clusters: clusters the card holds at once.
   int prepare(int device, size_t smem, int* max_clusters) {
-    const int e = limit.prepare(br_cluster_kernel<V3, M, L, NT, LOGN>, device, smem);
+    const int e = limit.prepare(kernel, device, smem);
     if (e) return e;
     if (!clusters[device]) {
-      cudaLaunchAttribute at[1];
-      const cudaLaunchConfig_t cfg = config(1, smem, nullptr, at);
+      cudaLaunchAttribute at[2];
+      const cudaLaunchConfig_t cfg = config(1, smem, nullptr, at, false);
       int n = 0;
-      const cudaError_t q = cudaOccupancyMaxActiveClusters(
-          &n, br_cluster_kernel<V3, M, L, NT, LOGN>, &cfg);
+      const cudaError_t q = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
       if (q != cudaSuccess) return (int)q;
       if (n < 1) return (int)cudaErrorLaunchOutOfResources;
       clusters[device] = n;
@@ -281,55 +317,85 @@ struct ClusterPlan {
     return 0;
   }
 
-  // Launches one cluster of BR_CLUSTER CTAs per row on `stream`.
-  int launch(const BrArgs& A, int device, cudaStream_t stream) {
-    const size_t smem = br_cluster_smem(A.r.N, L, V3);
-    int n = 0;
-    const int e = prepare(device, smem, &n);
-    if (e) return e;
-    cudaLaunchAttribute at[1];
-    const cudaLaunchConfig_t cfg = config(A.G, smem, stream, at);
-    const cudaError_t q =
-        cudaLaunchKernelEx(&cfg, br_cluster_kernel<V3, M, L, NT, LOGN>, A);
+  // Enqueues n_clusters clusters of BR_CLUSTER CTAs on `stream` (after
+  // prepare); 0 or a CUDA error.
+  int enqueue(const Args& A, int n_clusters, size_t smem, cudaStream_t stream,
+              bool pdl) {
+    cudaLaunchAttribute at[2];
+    const cudaLaunchConfig_t cfg = config(n_clusters, smem, stream, at, pdl);
+    const cudaError_t q = cudaLaunchKernelEx(&cfg, kernel, A);
     if (q != cudaSuccess) return (int)q;
     last_launch[0] = (int)cfg.gridDim.x;
     last_launch[1] = (int)at[0].val.clusterDim.x;
     last_launch[2] = (int)cfg.blockDim.x;
-    return (int)cudaGetLastError();
+    return 0;
+  }
+
+  int launch(const Args& A, int n_clusters, size_t smem, int device,
+             cudaStream_t stream) {
+    int n = 0;
+    int e = prepare(device, smem, &n);
+    if (!e) e = enqueue(A, n_clusters, smem, stream, false);
+    return e ? e : (int)cudaGetLastError();
   }
 };
 
-// The instances of one kernel (V3, M): l = 3 (every parameter set of the
-// repo), 256 or 512 threads a CTA, N fixed at 1024 (the 128-bit sets) or
-// read from the launch; another l is refused (invalid value).
+// K5 launches its steps with programmatic dependent launch (faster than
+// plain stream order at every batch measured: PERF.md, Findings).
+constexpr bool K5_PDL = true;
+
+// The instances of one blind rotation (V3, M): l = 3 (every parameter set
+// of the repo), 256 or 512 threads a CTA, N fixed at 1024 (the 128-bit
+// sets) or read from the launch; another l is refused (invalid value).
 template <bool V3, int M>
 struct ClusterPlans {
-  ClusterPlan<V3, M, 3, 256> any256;
-  ClusterPlan<V3, M, 3, 512> any512;
-  ClusterPlan<V3, M, 3, 256, 10> n1024_256;
-  ClusterPlan<V3, M, 3, 512, 10> n1024_512;
+  ClusterPlan<BrArgs> any256{br_cluster_kernel<V3, M, 3, 256, 0>, 256};
+  ClusterPlan<BrArgs> any512{br_cluster_kernel<V3, M, 3, 512, 0>, 512};
+  ClusterPlan<BrArgs> n1024_256{br_cluster_kernel<V3, M, 3, 256, 10>, 256};
+  ClusterPlan<BrArgs> n1024_512{br_cluster_kernel<V3, M, 3, 512, 10>, 512};
+
+  // The instance for the ring (logN) and nt threads, or null (l != 3 or
+  // nt not 256 or 512).
+  ClusterPlan<BrArgs>* pick(int logN, int l, int nt) {
+    if (logN < 0 || l != 3 || (nt != 256 && nt != 512)) return nullptr;
+    if (logN == 10) return nt == 256 ? &n1024_256 : &n1024_512;
+    return nt == 256 ? &any256 : &any512;
+  }
 
   // 0 or a CUDA error; *smem: bytes a CTA; *n: clusters the card holds.
   int prepare(int device, int N, int l, int nt, size_t* smem, int* n) {
     *smem = br_cluster_smem(N, l, V3);
-    if (l != 3 || (nt != 256 && nt != 512))
-      return (int)cudaErrorInvalidValue;
-    if (N == 1024)
-      return nt == 256 ? n1024_256.prepare(device, *smem, n)
-                       : n1024_512.prepare(device, *smem, n);
-    return nt == 256 ? any256.prepare(device, *smem, n)
-                     : any512.prepare(device, *smem, n);
+    ClusterPlan<BrArgs>* c = pick(log2_ring(N), l, nt);
+    return c ? c->prepare(device, *smem, n) : (int)cudaErrorInvalidValue;
   }
 
+  // One launch of A.S steps of every row.
   int launch(const BrArgs& A, int nt, int device, cudaStream_t stream) {
-    if (A.G <= 0 || A.S <= 0 || A.r.logN < 0 || A.r.l != 3 ||
-        (nt != 256 && nt != 512))
-      return (int)cudaErrorInvalidValue;
-    if (A.r.logN == 10)
-      return nt == 256 ? n1024_256.launch(A, device, stream)
-                       : n1024_512.launch(A, device, stream);
-    return nt == 256 ? any256.launch(A, device, stream)
-                     : any512.launch(A, device, stream);
+    ClusterPlan<BrArgs>* c = pick(A.r.logN, A.r.l, nt);
+    if (!c || A.G <= 0 || A.S <= 0) return (int)cudaErrorInvalidValue;
+    return c->launch(A, A.G, br_cluster_smem(A.r.N, A.r.l, V3), device,
+                     stream);
+  }
+
+  // K5: n launches of one step each (A.S = 1), back to back on `stream`,
+  // step i reading amounts row i ([n, M, G]) and key step i ([n, 2, 2, M,
+  // l, 2, N]); all but the first with programmatic dependent launch
+  // (K5_PDL).  Returns the number of launches made, or minus a CUDA error.
+  int steps(BrArgs A, int n, int nt, int device, cudaStream_t stream) {
+    ClusterPlan<BrArgs>* c = pick(A.r.logN, A.r.l, nt);
+    if (!c || A.G <= 0 || n <= 0 || A.S != 1)
+      return -(int)cudaErrorInvalidValue;
+    const size_t smem = br_cluster_smem(A.r.N, A.r.l, V3);
+    int max_clusters = 0;
+    int e = c->prepare(device, smem, &max_clusters);
+    const size_t key_step = (size_t)4 * M * A.r.l * 2 * A.r.N;
+    for (int i = 0; i < n && !e; ++i) {
+      e = c->enqueue(A, A.G, smem, stream, K5_PDL && i > 0);
+      A.amounts += (size_t)M * A.G;
+      A.key += key_step;
+    }
+    if (!e) e = (int)cudaGetLastError();
+    return e ? -e : n;
   }
 };
 

@@ -17,7 +17,7 @@
 //   reduced once, by Montgomery: mont_reduce(T) = T 2^-32 mod P, two 32-bit
 //   multiplies.  The kernels fold the 2^32 into what they multiply: the
 //   NTT kernels' key form (ops/br.py:kernel_key) or the inverse
-//   transform's final scale (K5, K6).
+//   transform's final scale (K6).
 //
 // The transforms are called by every thread of a block (any multiple of 32
 // threads) on npoly polynomials of N residues in shared memory, NP of them

@@ -419,8 +419,8 @@ class TFHEEngine:
                 # address bit 1 -> the normal selector (key 0), else the
                 # inverted one (key 1), for all w bits of the word
                 pol = np.where((addrs >> j) & 1 == 1, 0, 1)
-                idx = torch.as_tensor(pol, dtype=torch.int32,
-                                      device=self.device)[:, None]
+                # on the host: the wrapper checks and copies it, no sync
+                idx = torch.as_tensor(pol, dtype=torch.int32)[:, None]
                 acc = ops.cmux(gn[j], acc, store, p, idx=idx)
             outs.append(acc)
         if not refresh:

@@ -15,22 +15,25 @@ plain key int32 [n, 2l, 2, P=2, N] (crypto/polymul.prep1).  The integer
 before the mod-2^32 reduction is exact in both packages, so the result is
 the JAX kernels' bit for bit (csrc/br_ntt.cu has the bound).
 
-K4 (and K3, ops/br3.py) run in the cluster form of csrc/br_cluster.cuh:
-one cluster of CLUSTER = 4 CTAs (prime, part) per row (built for l = 3,
-every parameter set of the repo; another l raises), of NARROW_THREADS
-threads a CTA while the card holds every row's cluster at once at that
-size, else WIDE_THREADS (`threads_for`).  They read the key
+K4, K5 (and K3, ops/br3.py) run in the cluster form of
+csrc/br_cluster.cuh: one cluster of CLUSTER = 4 CTAs (prime, part) per row
+(built for l = 3, every parameter set of the repo; another l raises), of
+NARROW_THREADS threads a CTA while the card holds every row's cluster at
+once at that size, else WIDE_THREADS (`threads_for`).  K5 is K4's kernel
+run one step a launch (S = 1, the accumulator in global memory between
+steps): `br_steps` makes one C call (br_ntt_steps) that launches the n
+steps back to back, the counterpart of the JAX fori_loop.  They read the key
 in its kernel form (`kernel_key`: a reordered copy of the prep1 residues
 times N^-1 2^32 mod p), built once beside the prep1 key and kept as its
 attribute (`attach_kernel_key`; crypto/ops.py:DeviceKeys.from_evalkey
 does it for bk_ntt and bk_ntt_u); a launch on a key without one raises,
 and so does a card that cannot hold a cluster (there is no other form).
 
-`br_step` (K5) and `br_loop` (K4) launch csrc/br_ntt.cu for CUDA tensors
-and run the plain twin `cmux_steps_ref` for CPU tensors; nothing else
-selects between them.  STEP_LAUNCHES and LOOP_LAUNCHES count the launches;
-`last_launch` reads the grid, cluster size and threads a CTA the C
-launcher last used.
+`br_steps` / `br_step` (K5) and `br_loop` (K4) launch csrc/br_ntt.cu for
+CUDA tensors and run the plain twin `cmux_steps_ref` for CPU tensors;
+nothing else selects between them.  STEP_LAUNCHES (from the count the C
+entry returns) and LOOP_LAUNCHES count the launches; `last_launch` reads
+the grid, cluster size and threads a CTA the C launcher last used.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ from . import nvcc
 STEP_LAUNCHES = 0     # K5 launches: one per CMUX step
 LOOP_LAUNCHES = 0     # K4 launches: one per blind rotation
 SOURCE = "br_ntt.cu"
-CLUSTER = 4           # CTAs a row in K3/K4: (prime p, part u)
-WIDE_THREADS = 256    # threads a K3/K4 CTA at wide batches
+CLUSTER = 4           # CTAs a row in K3-K6: (prime p, part u)
+WIDE_THREADS = 256    # threads a K3-K6 CTA at wide batches
 NARROW_THREADS = 512  # and while all G clusters fit on the card at once
 _CAPS = {}            # (source, M, N, l, device) -> clusters at 512 threads
 
@@ -91,19 +94,13 @@ def ring_args(acc: torch.Tensor, p: Params) -> tuple:
             device_index(acc.device), stream)
 
 
-def scale_arg(tabs: ntt.KernelTables):
-    """The inverse's scale (ntt.key_factor with companions) as the
-    uint32[4] the K5 and K6 launchers take."""
-    return (ctypes.c_uint32 * 4)(*tabs.scale)
-
-
 # --------------------------------------------------------------------------- #
 # the cluster form's plan and key (K4 here, K3 in ops/br3.py)
 # --------------------------------------------------------------------------- #
 
 
 def threads_for(G: int, narrow_cap: int) -> int:
-    """Threads a K3/K4 CTA at G rows: NARROW_THREADS while the card holds
+    """Threads a K3-K6 CTA at G rows: NARROW_THREADS while the card holds
     all G clusters at once at that size (narrow_cap clusters,
     cudaOccupancyMaxActiveClusters), so each row gets twice the warps on
     the same wave; WIDE_THREADS from there (more CTAs an SM)."""
@@ -112,7 +109,8 @@ def threads_for(G: int, narrow_cap: int) -> int:
 
 def narrow_cap(source: str, query, M: int, p: Params, device) -> int:
     """Clusters of NARROW_THREADS-thread CTAs the card holds at once for
-    the kernel, read once per (kernel, card) through query(nt)."""
+    the kernel, read once per (kernel, card) through query(nt); M tells a
+    source's instances apart (K3's M, K6's RR)."""
     key = (source, M, p.N, p.l, str(device))
     if key not in _CAPS:
         _CAPS[key] = query(NARROW_THREADS)[1]
@@ -167,7 +165,7 @@ def kernel_key_of(bk: torch.Tensor) -> torch.Tensor:
 
 def cmux_steps_ref(rows: torch.Tensor, acc: torch.Tensor, bk: torch.Tensor,
                    p: Params) -> torch.Tensor:
-    """The plain torch twin of both kernels, on any device: the S =
+    """The plain torch twin of K4 and K5, on any device: the S =
     bk.shape[0] CMUX steps of rows int32 [S, G] against bk int32
     [S, 2l, 2, P, N], from acc i32 [G, 2, N]; returns the new acc."""
     check_steps(rows, acc, bk, 2 * p.l, p)
@@ -186,12 +184,9 @@ def cmux_steps_ref(rows: torch.Tensor, acc: torch.Tensor, bk: torch.Tensor,
 
 def _bind(lib):
     vp, ci, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.br_ntt_step.restype = ci
-    lib.br_ntt_step.argtypes = [vp, vp, vp, vp, ctypes.POINTER(u32), ci, ci,
-                                ci, ci, u32, ci, vp]
-    lib.br_ntt_loop.restype = ci
-    lib.br_ntt_loop.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, u32, ci,
-                                ci, vp]
+    for fn in (lib.br_ntt_loop, lib.br_ntt_steps):
+        fn.restype = ci
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, u32, ci, ci, vp]
     lib.br_ntt_loop_plan.restype = ci
     lib.br_ntt_loop_plan.argtypes = [ci, ci, ci, ci,
                                      ctypes.POINTER(ctypes.c_longlong)]
@@ -199,14 +194,6 @@ def _bind(lib):
     lib.br_ntt_last_launch.argtypes = [ctypes.POINTER(ci)]
     lib.br_ntt_error_string.restype = ctypes.c_char_p
     lib.br_ntt_error_string.argtypes = [ci]
-    lib.br_ntt_smem.restype = ctypes.c_size_t
-    lib.br_ntt_smem.argtypes = [ci, ci]
-
-
-def smem_bytes(p: Params) -> int:
-    """Dynamic shared memory of a K5 block at p, as the launcher sizes it
-    (builds and loads the library)."""
-    return nvcc.load(SOURCE, _bind).br_ntt_smem(p.N, p.l)
 
 
 def check_plan(rc: int, out, err) -> tuple:
@@ -224,8 +211,8 @@ def device_index(device) -> int:
 
 def cluster_plan(p: Params, nt: int, device=None) -> tuple:
     """(dynamic shared memory bytes a CTA, clusters the card holds at once)
-    of K4 at nt threads a CTA on `device`'s card; raises where the card
-    refuses (builds and loads the library)."""
+    of K4 (and K5, the same kernel) at nt threads a CTA on `device`'s
+    card; raises where the card refuses (builds and loads the library)."""
     lib = nvcc.load(SOURCE, _bind)
     out = (ctypes.c_longlong * 2)()
     return check_plan(lib.br_ntt_loop_plan(p.N, p.l, nt, device_index(device),
@@ -233,58 +220,72 @@ def cluster_plan(p: Params, nt: int, device=None) -> tuple:
 
 
 def last_launch() -> tuple:
-    """(CTAs, cluster size, threads a CTA) of the last K4 launch, as the C
-    launcher made it."""
+    """(CTAs, cluster size, threads a CTA) of the last K4 launch or K5
+    step, as the C launcher made it."""
     out = (ctypes.c_int * 3)()
     nvcc.load(SOURCE, _bind).br_ntt_last_launch(out)
     return tuple(int(v) for v in out)
 
 
-def _launch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
+def _launch(rows, acc, kk, p: Params, loop: bool) -> torch.Tensor:
+    """K4 (loop) or K5 over the kernel-form key steps kk, on a copy of acc
+    (updated in place: one copy per call, not per step)."""
     global STEP_LAUNCHES, LOOP_LAUNCHES
     lib = nvcc.load(SOURCE, _bind)
-    out = acc.clone(memory_format=torch.contiguous_format)  # updated in place
+    out = acc.clone(memory_format=torch.contiguous_format)
     rows = rows.contiguous()
     tabs, off, dev, stream = ring_args(acc, p)
     G = acc.shape[0]
-    if loop:
-        nt = threads_for(G, narrow_cap(SOURCE, lambda n: cluster_plan(
-            p, n, acc.device), 1, p, acc.device))
-        rc = lib.br_ntt_loop(out.data_ptr(), rows.data_ptr(),
-                             kernel_key_of(bk).data_ptr(), tabs.tw.data_ptr(),
-                             G, bk.shape[0], p.N, p.l, p.Bgbit, off, nt, dev,
-                             stream)
-    else:
-        rc = lib.br_ntt_step(out.data_ptr(), rows.data_ptr(), bk.data_ptr(),
-                             tabs.tw.data_ptr(), scale_arg(tabs), G, p.N,
-                             p.l, p.Bgbit, off, dev, stream)
-    if rc != 0:
-        raise RuntimeError(f"br_ntt {'loop' if loop else 'step'} kernel "
-                           f"launch failed: {lib.br_ntt_error_string(rc)}")
-    if loop:
+    nt = threads_for(G, narrow_cap(SOURCE, lambda n: cluster_plan(
+        p, n, acc.device), 1, p, acc.device))
+    fn = lib.br_ntt_loop if loop else lib.br_ntt_steps
+    rc = fn(out.data_ptr(), rows.data_ptr(), kk.data_ptr(),
+            tabs.tw.data_ptr(), G, rows.shape[0], p.N, p.l, p.Bgbit, off, nt,
+            dev, stream)
+    if loop and rc == 0:
         LOOP_LAUNCHES += 1
+    elif not loop and rc > 0:
+        STEP_LAUNCHES += rc
     else:
-        STEP_LAUNCHES += 1
+        raise RuntimeError(f"br_ntt {'loop' if loop else 'steps'} kernel "
+                           f"launch failed: {lib.br_ntt_error_string(abs(rc))}")
     return out
 
 
-def _dispatch(rows, acc, bk, p: Params, loop: bool) -> torch.Tensor:
-    check_steps(rows, acc, bk, 2 * p.l, p)
-    if acc.shape[0] == 0:
+def _dispatch(rows, acc, bk, p: Params, loop: bool,
+              first: int = 0) -> torch.Tensor:
+    """K4 over all of bk, or K5 over its steps first .. first + S - 1 (S =
+    rows.shape[0])."""
+    if first < 0:
+        raise ValueError(f"step index {first} < 0")
+    steps = bk if loop else bk[first: first + rows.shape[0]]
+    check_steps(rows, acc, steps, 2 * p.l, p)
+    if acc.shape[0] == 0 or steps.shape[0] == 0:
         return acc.clone()
     if acc.is_cuda:
-        return _launch(rows, acc, bk, p, loop)
+        kk = kernel_key_of(bk)
+        return _launch(rows, acc, kk if loop else kk[first: first + len(rows)],
+                       p, loop)
     if acc.device.type != "cpu":
         raise ValueError(f"unsupported device {acc.device}")
-    return cmux_steps_ref(rows, acc, bk, p)
+    return cmux_steps_ref(rows, acc, steps, p)
 
 
-def br_step(acc: torch.Tensor, a: torch.Tensor, key: torch.Tensor,
-            p: Params) -> torch.Tensor:
-    """K5: one CMUX step of every row, acc i32 [G, 2, N] with amounts a
-    int32 [G] against one prepared key step int32 [2l, 2, P, N]; returns
+def br_steps(rows: torch.Tensor, acc: torch.Tensor, bk: torch.Tensor,
+             p: Params, first: int = 0) -> torch.Tensor:
+    """K5: the CMUX steps first .. first + S - 1 of bk int32 [n, 2l, 2, P,
+    N] (with its kernel form), rows int32 [S, G] their amounts, from acc
+    i32 [G, 2, N]; one launch a step, S launches from one C call; returns
     the new acc.  A CUDA input runs the kernel, a CPU input the twin."""
-    return _dispatch(a[None], acc, key[None], p, loop=False)
+    return _dispatch(rows, acc, bk, p, loop=False, first=first)
+
+
+def br_step(acc: torch.Tensor, a: torch.Tensor, bk: torch.Tensor, i: int,
+            p: Params) -> torch.Tensor:
+    """K5, one step: CMUX step i of bk int32 [n, 2l, 2, P, N] (the whole
+    key with its kernel form; a slice bk[i] has none) for every row of acc
+    i32 [G, 2, N], amounts a int32 [G]; returns the new acc."""
+    return br_steps(a[None], acc, bk, p, first=i)
 
 
 def br_loop(rows: torch.Tensor, acc: torch.Tensor, bk: torch.Tensor,
@@ -311,12 +312,11 @@ def _setup(tlwe0, bk, testv, p: Params):
 def blind_rotate_pallas(tlwe0: torch.Tensor, bk: torch.Tensor,
                         testv: torch.Tensor, p: Params) -> torch.Tensor:
     """Blind rotation lvl0 -> TRLWE lvl1 i32 [G, 2, N], one K5 launch per
-    CMUX step (iyokan_tpu's blind_rotate_pallas); bk int32 [n, 2l, 2, P, N]
-    from polymul.prep1."""
+    CMUX step, all from one call (iyokan_tpu's blind_rotate_pallas and its
+    fori_loop); bk int32 [n, 2l, 2, P, N] from polymul.prep1, with its
+    kernel form."""
     rows, acc = _setup(tlwe0, bk, testv, p)
-    for i in range(p.n):
-        acc = br_step(acc, rows[i], bk[i], p)
-    return acc
+    return br_steps(rows, acc, bk, p)
 
 
 def blind_rotate_pallas2(tlwe0: torch.Tensor, bk: torch.Tensor,

@@ -12,11 +12,18 @@ with a per-row key index idx int32 [G] in [0, K) (None: every row takes
 key 0).  K = 1 is K6's shared key step (the ROM and RAM-read CMUX trees,
 the NTT blind rotation); K = 2 serves the RAM write tree, where each
 address row picks the normal or the inverted selector of one address bit.
+The index may come on the host (a CPU tensor, as the engine builds it):
+its range is checked there and the wrapper copies it to the card without
+a device sync; an index on the card is checked with one sync.
 
 `extprod1` runs the hand-written Hopper kernel (csrc/extprod1_ntt.cu) for a
 CUDA tensor and the plain torch twin (`extprod1_ref` = the CRT64 backend's
 polymul.extprod1) for a CPU tensor; nothing else selects between them.
-LAUNCHES counts kernel launches.
+The kernel is the cluster form of csrc/br_cluster.cuh (one cluster of
+br.CLUSTER = 4 CTAs a row, (prime, part); RR = 2l or 3*2l at l = 3,
+another RR or l raises), of br.threads_for's threads a CTA by this
+kernel's own cap per RR.  LAUNCHES counts kernel launches; `last_launch`
+reads the grid, cluster size and threads a CTA the C launcher last used.
 """
 
 from __future__ import annotations
@@ -27,8 +34,7 @@ import torch
 
 from ..crypto import ntt, polymul
 from ..params import Params
-from . import nvcc
-from .br import device_index, scale_arg
+from . import br, nvcc
 
 LAUNCHES = 0          # external-product kernels launched on the card
 SOURCE = "extprod1_ntt.cu"
@@ -50,11 +56,14 @@ def _check(digits: torch.Tensor, keys: torch.Tensor, idx, p: Params):
         raise ValueError(f"device mismatch: digits {digits.device}, keys "
                          f"{keys.device}")
     if idx is not None:
-        if idx.shape != digits.shape[:1] or idx.device != digits.device:
-            raise ValueError(f"idx must be [G={digits.shape[0]}] on "
-                             f"{digits.device}")
-        if idx.numel() and not (0 <= int(idx.min())
-                                and int(idx.max()) < keys.shape[0]):
+        if idx.shape != digits.shape[:1] or idx.device not in (
+                torch.device("cpu"), digits.device):
+            raise ValueError(f"idx must be [G={digits.shape[0]}] on the "
+                             f"host or on {digits.device}")
+        # on the host no device sync, on the card one
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist() if idx.numel() \
+            else (0, 0)
+        if lo < 0 or hi >= keys.shape[0]:
             raise ValueError(f"idx out of range [0, {keys.shape[0]})")
     elif keys.shape[0] != 1:
         raise ValueError("a stack of K > 1 keys needs idx")
@@ -66,6 +75,7 @@ def extprod1_ref(digits: torch.Tensor, keys: torch.Tensor, idx,
     _check(digits, keys, idx, p)
     if idx is None:
         return polymul.extprod1(digits, keys[0], p)
+    idx = idx.to(digits.device)
     out = torch.empty((digits.shape[0], 2, p.N), dtype=torch.int32,
                       device=digits.device)
     for k in range(keys.shape[0]):
@@ -80,17 +90,33 @@ def _bind(lib):
     lib.extprod1_ntt.restype = ci
     lib.extprod1_ntt.argtypes = [vp, vp, vp, vp,
                                  ctypes.POINTER(ctypes.c_uint32), vp, ci, ci,
-                                 ci, ci, ci, vp]
+                                 ci, ci, ci, ci, vp]
+    lib.extprod1_ntt_plan.restype = ci
+    lib.extprod1_ntt_plan.argtypes = [ci, ci, ci, ci,
+                                      ctypes.POINTER(ctypes.c_longlong)]
+    lib.extprod1_ntt_last_launch.restype = None
+    lib.extprod1_ntt_last_launch.argtypes = [ctypes.POINTER(ci)]
     lib.extprod1_error_string.restype = ctypes.c_char_p
     lib.extprod1_error_string.argtypes = [ci]
-    lib.extprod1_ntt_smem.restype = ctypes.c_size_t
-    lib.extprod1_ntt_smem.argtypes = [ci, ci]
 
 
-def smem_bytes(p: Params, RR: int) -> int:
-    """Dynamic shared memory of a block at p and RR digit rows, as the
-    launcher sizes it (builds and loads the library)."""
-    return nvcc.load(SOURCE, _bind).extprod1_ntt_smem(p.N, RR)
+def cluster_plan(p: Params, RR: int, nt: int, device=None) -> tuple:
+    """(dynamic shared memory bytes a CTA, clusters the card holds at once)
+    of the kernel at RR digit rows and nt threads a CTA on `device`'s card;
+    raises where the card refuses (builds and loads the library)."""
+    lib = nvcc.load(SOURCE, _bind)
+    out = (ctypes.c_longlong * 2)()
+    return br.check_plan(lib.extprod1_ntt_plan(
+        p.N, RR, nt, br.device_index(device), out), out,
+        lib.extprod1_error_string)
+
+
+def last_launch() -> tuple:
+    """(CTAs, cluster size, threads a CTA) of the last launch, as the C
+    launcher made it."""
+    out = (ctypes.c_int * 3)()
+    nvcc.load(SOURCE, _bind).extprod1_ntt_last_launch(out)
+    return tuple(int(v) for v in out)
 
 
 def _launch(digits, keys, idx, p: Params) -> torch.Tensor:
@@ -98,17 +124,21 @@ def _launch(digits, keys, idx, p: Params) -> torch.Tensor:
     lib = nvcc.load(SOURCE, _bind)
     digits = digits.contiguous()
     keys = keys.contiguous()
-    if idx is not None:
-        idx = idx.to(torch.int32).contiguous()
+    if idx is not None:   # from the host: an asynchronous copy
+        idx = idx.to(device=digits.device, dtype=torch.int32,
+                     non_blocking=True).contiguous()
     G, RR, N = digits.shape
-    out = torch.empty((G, 2, N), dtype=torch.int32, device=digits.device)
-    tabs = ntt.kernel_tables(N, digits.device)
+    dev = digits.device
+    nt = br.threads_for(G, br.narrow_cap(SOURCE, lambda n: cluster_plan(
+        p, RR, n, dev), RR, p, dev))
+    out = torch.empty((G, 2, N), dtype=torch.int32, device=dev)
+    tabs = ntt.kernel_tables(N, dev)
     rc = lib.extprod1_ntt(
         digits.data_ptr(), keys.data_ptr(),
         None if idx is None else idx.data_ptr(), tabs.tw.data_ptr(),
-        scale_arg(tabs), out.data_ptr(), G, RR, N, keys.shape[0],
-        device_index(digits.device),
-        torch.cuda.current_stream(digits.device).cuda_stream)
+        (ctypes.c_uint32 * 4)(*tabs.scale), out.data_ptr(), G, RR, N,
+        keys.shape[0], nt, br.device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("extprod1_ntt kernel launch failed: "
                            f"{lib.extprod1_error_string(rc)}")
@@ -120,8 +150,9 @@ def extprod1(digits: torch.Tensor, keys: torch.Tensor, idx,
              p: Params) -> torch.Tensor:
     """sum_r digits[g, r] (x) keys[idx[g], r, u] -> i32 [G, 2, N].
 
-    digits: int32 [G, RR, N]; keys: int32 [K, RR, 2, P, N] from
-    polymul.prep1; idx: int [G] in [0, K) or None (key 0).  A CUDA input
+    digits: int32 [G, RR, N], |d| <= Bg/2; keys: int32 [K, RR, 2, P, N]
+    from polymul.prep1; idx: int [G] in [0, K), on the host or on the
+    digits' card, or None (key 0).  A CUDA input
     runs the Hopper kernel, a CPU input the plain twin; there is no
     fallback between them."""
     _check(digits, keys, idx, p)

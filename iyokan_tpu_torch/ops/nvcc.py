@@ -38,39 +38,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (needed to build the CUDA kernels)")
 
 
-def sources(name: str) -> list:
+def sources(name: str, csrc: str = None) -> list:
     """csrc/<name> and every csrc/ header it includes ("x.cuh"), directly
-    or through another header, in first-seen order."""
+    or through another header, in first-seen order (csrc: another source
+    directory, default CSRC)."""
+    csrc = csrc or CSRC
     seen, todo = [], [name]
     while todo:
         cur = todo.pop(0)
         if cur in seen:
             continue
         seen.append(cur)
-        with open(os.path.join(CSRC, cur)) as f:
+        with open(os.path.join(csrc, cur)) as f:
             todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(),
                                re.M)
     return seen
 
 
-def lib_path(name: str) -> str:
+def lib_path(name: str, csrc: str = None, build_dir: str = None) -> str:
     """build/kernels/lib<stem>-<hash>.so of the source csrc/<name>; the
     hash covers the source and the headers it includes."""
+    csrc = csrc or CSRC
     h = hashlib.sha256()
-    for src in sources(name):
-        with open(os.path.join(CSRC, src), "rb") as f:
+    for src in sources(name, csrc):
+        with open(os.path.join(csrc, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"lib{os.path.splitext(name)[0]}-"
+    return os.path.join(build_dir or BUILD_DIR,
+                        f"lib{os.path.splitext(name)[0]}-"
                         f"{h.hexdigest()[:16]}.so")
 
 
-def build(*names: str) -> list:
+def build(*names: str, csrc: str = None, build_dir: str = None) -> list:
     """Compile the named csrc/ sources (those not built yet, in parallel)
     and return their library paths; raises if any nvcc fails.  LOGS[name]
     holds the nvcc/ptxas output (-Xptxas -v: registers, shared memory and
-    spills per kernel), or "cached" for a library that was reused."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    outs = [lib_path(n) for n in names]
+    spills per kernel), or "cached" for a library that was reused.  csrc,
+    build_dir: other source and library directories (default CSRC,
+    BUILD_DIR)."""
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
+    os.makedirs(build_dir, exist_ok=True)
+    outs = [lib_path(n, csrc, build_dir) for n in names]
     procs = []
     for name, out in zip(names, outs):
         if os.path.exists(out):
@@ -79,7 +86,7 @@ def build(*names: str) -> list:
         tmp = f"{out}.tmp{os.getpid()}"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, os.path.join(CSRC, name)]
+               "-Xptxas", "-v", "-o", tmp, os.path.join(csrc, name)]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []

@@ -1,6 +1,6 @@
 """Check and time the NTT blind-rotation kernels on the card: K4
-(ops/br.py:br_loop), K3 (ops/br3.py:br3, M = 1 and 3), K5 (br_step) and
-K6 (ops/extprod.py:extprod1).
+(ops/br.py:br_loop), K3 (ops/br3.py:br3, M = 1 and 3), K5 (br_steps /
+br_step) and K6 (ops/extprod.py:extprod1, RR = 2l and 3*2l).
 
     python3 -m iyokan_tpu_torch.tools.br_profile [--params cggi128]
         [--check-only] [--sizes 1,64,256,2048]
@@ -9,9 +9,10 @@ Builds the three NTT libraries (nvcc in parallel) and prints each
 kernel's ptxas line and each cluster kernel's shared memory and
 cudaOccupancyMaxActiveClusters.  Then every kernel against its plain twin
 on seeded random accumulators, amounts and prep1 keys (a few steps),
-raising on any difference.  Unless --check-only: K4, K3 (M = 1, 3) and
-K5 at the full step count on random keys, and K6 at 2l rows, K = 2,
-timed by CUDA events at each batch (K3/K4 at both thread counts a CTA,
+raising on any difference or on a launch that is not one cluster of four
+CTAs a row.  Unless --check-only: K4, K3 (M = 1, 3) and K5 at the full
+step count on random keys, and K6 at 2l and 3*2l rows, K = 2, timed by
+CUDA events at each batch (each at both thread counts a CTA,
 the plan's pick marked: the figures behind ops/br.py:threads_for),
 beside the card's nvidia-smi name and power limit; the last line is a
 JSON record.  Needs a card.
@@ -74,70 +75,71 @@ def check(p, rng, dev="cuda"):
             st = amounts(p, (2, M, G), rng, dev)
             same(br3.br3(st, acc, keym, p), br3.br3_ref(st, acc, keym, p),
                  f"K3 M={M} G={G}")
-        same(br.br_step(acc, rows[0], key[0], p),
-             br.cmux_steps_ref(rows[:1], acc, key[:1], p), f"K5 G={G}")
+        same(br.br_step(acc, rows[1], key, 1, p),
+             br.cmux_steps_ref(rows[1:2], acc, key[1:2], p), f"K5 G={G}")
+        same(br.br_steps(rows, acc, key, p),
+             br.cmux_steps_ref(rows, acc, key, p), f"K5 x3 G={G}")
+        if br.last_launch()[:2] != (br.CLUSTER * G, br.CLUSTER):
+            raise AssertionError(f"K5 launched {br.last_launch()}")
         for K in (1, 2):
-            d = torch.from_numpy(rng.integers(-32, 32, (G, 2 * p.l, p.N),
-                                              dtype=np.int32)).to(dev)
-            keys = random_key(p, K, 2 * p.l, rng, dev)
-            idx = None if K == 1 else torch.from_numpy(
-                rng.integers(0, 2, G).astype(np.int32)).to(dev)
-            same(extprod.extprod1(d, keys, idx, p),
-                 extprod.extprod1_ref(d, keys, idx, p), f"K6 K={K} G={G}")
-        cases += 6
+            for rr in (2 * p.l, 6 * p.l):
+                d = torch.from_numpy(rng.integers(
+                    -32, 33, (G, rr, p.N), dtype=np.int32)).to(dev)
+                keys = random_key(p, K, rr, rng, dev)
+                idx = None if K == 1 else torch.from_numpy(
+                    rng.integers(0, 2, G).astype(np.int32))
+                same(extprod.extprod1(d, keys, idx, p),
+                     extprod.extprod1_ref(d, keys, idx, p),
+                     f"K6 K={K} RR={rr} G={G}")
+                if extprod.last_launch()[:2] != (br.CLUSTER * G, br.CLUSTER):
+                    raise AssertionError(f"K6 launched "
+                                         f"{extprod.last_launch()}")
+        cases += 9
     return cases
 
 
 def sweep(p, sizes, rng, dev="cuda"):
     """ms of a blind rotation at full depth of K4, K3 (M = 1, 3) and K5
-    (n launches), and of one K6 call (2l rows, K = 2), per batch."""
+    (n launches), and of one K6 call (2l and 3*2l rows, K = 2), per
+    batch."""
     nh = (p.n + 1) // 2
     plain = random_key(p, p.n, 2 * p.l, rng, dev)
     unrolled = random_key(p, nh, 6 * p.l, rng, dev)
-    keys2 = random_key(p, 2, 2 * p.l, rng, dev)
+    keys2 = {rr: random_key(p, 2, rr, rng, dev) for rr in (2 * p.l, 6 * p.l)}
     out = []
     for G in sizes:
         acc = random_acc(p, G, rng, dev)
         a = amounts(p, (p.n, G), rng, dev)
         st1 = br3.rotation_steps(a, plain, p)
         st3 = br3.rotation_steps(a, unrolled, p)
-        d = torch.from_numpy(rng.integers(-32, 32, (G, 2 * p.l, p.N),
-                                          dtype=np.int32)).to(dev)
-        idx = torch.from_numpy(rng.integers(0, 2, G).astype(np.int32)).to(dev)
-
-        def k5():
-            x = acc
-            for i in range(p.n):
-                x = br.br_step(x, a[i], plain[i], p)
-            return x
+        d = {rr: torch.from_numpy(rng.integers(-32, 32, (G, rr, p.N),
+                                               dtype=np.int32)).to(dev)
+             for rr in keys2}
+        idx = torch.from_numpy(rng.integers(0, 2, G).astype(np.int32))
 
         for name, fn in (
                 ("br_ntt_loop", lambda: br.br_loop(a, acc, plain, p)),
                 ("br3_ntt M=1", lambda: br3.br3(st1, acc, plain, p)),
                 ("br3_ntt M=3", lambda: br3.br3(st3, acc, unrolled, p)),
-                ("br_ntt_step", k5),
-                ("extprod1_ntt K=2",
-                 lambda: extprod.extprod1(d, keys2, idx, p))):
+                ("br_ntt_step", lambda: br.br_steps(a, acc, plain, p)),
+                *((f"extprod1_ntt K=2 RR={rr}", lambda rr=rr: extprod.extprod1(
+                    d[rr], keys2[rr], idx, p)) for rr in keys2)):
             reps = 20 if name.startswith("extprod") else 2 if G >= 1024 else 3
-            for nt in ((br.WIDE_THREADS, br.NARROW_THREADS)
-                       if name.startswith("br3") or name == "br_ntt_loop"
-                       else (None,)):
+            for nt in (br.WIDE_THREADS, br.NARROW_THREADS):
                 rec = {"kernel": name, "G": G}
                 with forced_threads(nt):
                     fn()
                     rec["ms"] = timing.timed_ms(fn, reps, dev)
-                if nt:
-                    launched = (br.last_launch() if name == "br_ntt_loop"
-                                else br3.last_launch())
-                    rec.update(threads=launched[2],
-                               picked=forced_threads.picked)
+                launched = (br3 if name.startswith("br3") else extprod
+                            if name.startswith("extprod") else br).last_launch()
+                rec.update(threads=launched[2], picked=forced_threads.picked)
                 out.append(rec)
                 print(json.dumps(rec), flush=True)
     return out
 
 
 class _Forced:
-    """forced_threads(nt): K3/K4 launches at nt threads a CTA within the
+    """forced_threads(nt): K3-K6 launches at nt threads a CTA within the
     block (None: the plan's own); .picked tells whether the plan would
     have picked nt for the last launch."""
 
@@ -185,7 +187,9 @@ def main(argv=None) -> int:
         print(f"[plan] clusters of {br.CLUSTER} CTAs of {nt} threads, "
               f"(smem B a CTA, clusters the card holds): K4 "
               f"{br.cluster_plan(p, nt)}, K3 M=1 {br3.cluster_plan(p, 1, nt)}"
-              f", K3 M=3 {br3.cluster_plan(p, 3, nt)}", flush=True)
+              f", K3 M=3 {br3.cluster_plan(p, 3, nt)}, K6 RR=2l "
+              f"{extprod.cluster_plan(p, 2 * p.l, nt)}, K6 RR=3*2l "
+              f"{extprod.cluster_plan(p, 6 * p.l, nt)}", flush=True)
     rng = np.random.default_rng(7)
     n = check(p, rng)
     print(f"[check] {n} kernel == twin cases at {p.name} on {smi}",

@@ -1,31 +1,51 @@
-"""Time variants of the K3/K4 cluster kernels built from edited copies of
-the kernel sources: a removal sequence, for where a step's time goes.
+"""Time variants of the cluster blind-rotation kernels (K3, K4, K5) built
+from edited copies of the kernel sources: a removal sequence, for where a
+step's time goes.
 
-    python3 -m iyokan_tpu_torch.tools.br_variants VARIANTS [SIZES]
+    python3 -m iyokan_tpu_torch.tools.br_variants VARIANTS [SIZES [KERNELS]]
 
 VARIANTS (a JSON object, or the path of a file holding one) maps a
 variant's name to its edits, each [file under csrc/, regular expression,
 replacement] (an edit that matches nothing raises; a name with no edits
 is the sources as they are).  Variants apply in the order given, each on
-top of the ones before it: the first copies csrc/, each later one the
-previous variant's sources, into build/br_variants/<name>/, edits them,
-builds them by ops/nvcc.py into its own directory and loads them in place
-of the repo's libraries (so a variant's time less the previous one's is
-what its own edits cost, in that order); then K4 and
-K3 (M = 3) run at the full step count on seeded random cggi128 keys at
-each batch of SIZES (default 1,64,2048), timed by CUDA events, and a
-variant named "base" is held against the twins first.  For measurement
-experiments only: the port never runs an edited kernel.  Needs a card.
+top of the ones before it: the first edits a copy of csrc/, each later one
+a copy of the previous variant's sources, in build/br_variants/<name>/.
+All variants build at once (ops/nvcc.py, one nvcc each, in parallel);
+then each in turn is loaded in place of the repo's libraries (so a
+variant's time less the previous one's is what its own edits cost, in
+that order) and KERNELS run at the full step count on seeded random
+cggi128 keys at each batch of SIZES (default 1,64,2048), timed by CUDA
+events; a variant named "base" is held against the twins first.  KERNELS
+(comma-separated, default br_ntt_loop,br3_ntt M=3): br_ntt_loop (K4, one
+launch a rotation), br3_ntt M=3 (K3 on the unrolled key), br_ntt_step
+(K5, n launches a rotation).  For measurement experiments only: the port
+never runs an edited kernel, and `run` gives the repo's libraries back
+when it ends.  Needs a card.
+
 tools/br_ablation.json is the sequence behind PERF.md's K3/K4 breakdown
 (cluster barriers, the forward transforms after the digit stages, the
 inverse, the key reads, Garner's CRT):
 
-    python3 -m iyokan_tpu_torch.tools.br_variants \
+    python3 -m iyokan_tpu_torch.tools.br_variants \\
         iyokan_tpu_torch/tools/br_ablation.json 1,64,2048
+
+tools/k5_launch_ablation.json is K5's per-launch split (what a launch of
+one step pays that K4's loop pays once; K5 with all of it removed, less
+K4, is the launches' ramp and drain), and tools/k5_pdl.json compares
+where a K5 step lets the next one launch (programmatic dependent launch:
+after the second cluster barrier, as built, at entry, after the first
+barrier, at exit, and without the attribute):
+
+    python3 -m iyokan_tpu_torch.tools.br_variants \\
+        iyokan_tpu_torch/tools/k5_launch_ablation.json 1,64,2048 \\
+        br_ntt_step,br_ntt_loop
+    python3 -m iyokan_tpu_torch.tools.br_variants \\
+        iyokan_tpu_torch/tools/k5_pdl.json 1,8,64,256,2048 br_ntt_step
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import re
@@ -39,59 +59,93 @@ from ..ops import br, br3, nvcc
 from . import br_profile, timing
 
 OUT = os.path.join(os.path.dirname(nvcc.BUILD_DIR), "br_variants")
+KERNELS = ("br_ntt_loop", "br3_ntt M=3")
+SOURCE_OF = {"br_ntt_loop": br.SOURCE, "br_ntt_step": br.SOURCE,
+             "br3_ntt M=3": br3.SOURCE}
 
 
-def build_variant(name: str, edits: list, src: str) -> str:
-    """Copy the sources in src to OUT/<name>, apply the edits, point
-    ops/nvcc.py at the copy (the libraries load from there from now on)
-    and return its directory."""
-    d = os.path.join(OUT, name)
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(src, d)
-    for fn, pat, rep in edits:
-        path = os.path.join(d, fn)
-        with open(path) as f:
-            text, n = re.subn(pat, rep, f.read())
-        if not n:
-            raise ValueError(f"{name}: {pat!r} matches nothing in {fn}")
-        with open(path, "w") as f:
-            f.write(text)
-    nvcc.CSRC, nvcc.BUILD_DIR = d, os.path.join(d, "build")
-    nvcc._libs.clear()
-    nvcc.build(br.SOURCE, br3.SOURCE)
-    return d
+def load_spec(arg: str) -> dict:
+    """VARIANTS from a JSON object or the path of a file holding one."""
+    if arg.lstrip().startswith("{"):
+        return json.loads(arg)
+    with open(arg) as f:
+        return json.load(f)
+
+
+def prepare(variants: dict) -> list:
+    """[(name, source directory)]: each variant's edits applied to a copy
+    of the previous variant's sources (the first: of csrc/); a variant
+    without edits keeps the previous directory."""
+    out, src = [], nvcc.CSRC
+    for name, edits in variants.items():
+        if edits:
+            d = os.path.join(OUT, name)
+            shutil.rmtree(d, ignore_errors=True)
+            shutil.copytree(src, d, ignore=shutil.ignore_patterns("build"))
+            for fn, pat, rep in edits:
+                path = os.path.join(d, fn)
+                with open(path) as f:
+                    text, n = re.subn(pat, rep, f.read())
+                if not n:
+                    raise ValueError(f"{name}: {pat!r} matches nothing in "
+                                     f"{fn}")
+                with open(path, "w") as f:
+                    f.write(text)
+            src = d
+        out.append((name, src))
+    return out
+
+
+def run(variants: dict, sizes, kernels=KERNELS, p=params.CGGI128,
+        dev="cuda") -> list:
+    """The timing records {variant, kernel, G, ms} of every variant, kernel
+    and batch; the repo's own libraries are loaded again at the end."""
+    dirs = prepare(variants)
+    saved = nvcc.CSRC, nvcc.BUILD_DIR
+    lib_dir = {d: saved[1] if d == saved[0] else os.path.join(d, "build")
+               for _, d in dirs}
+    srcs = sorted({SOURCE_OF[k] for k in kernels})
+    with concurrent.futures.ThreadPoolExecutor(len(lib_dir)) as ex:
+        list(ex.map(lambda d: nvcc.build(*srcs, csrc=d,
+                                         build_dir=lib_dir[d]), lib_dir))
+    rng = np.random.default_rng(3)
+    plain = br_profile.random_key(p, p.n, 2 * p.l, rng, dev)
+    unrolled = br_profile.random_key(p, (p.n + 1) // 2, 6 * p.l, rng, dev)
+    out = []
+    try:
+        for name, d in dirs:
+            nvcc.CSRC, nvcc.BUILD_DIR = d, lib_dir[d]
+            nvcc._libs.clear()
+            if name == "base":
+                br_profile.check(p, rng, dev)
+            for G in sizes:
+                acc = br_profile.random_acc(p, G, rng, dev)
+                a = br_profile.amounts(p, (p.n, G), rng, dev)
+                st = br3.rotation_steps(a, unrolled, p)
+                fns = {"br_ntt_loop": lambda: br.br_loop(a, acc, plain, p),
+                       "br_ntt_step": lambda: br.br_steps(a, acc, plain, p),
+                       "br3_ntt M=3": lambda: br3.br3(st, acc, unrolled, p)}
+                for kernel in kernels:
+                    fn = fns[kernel]
+                    fn()
+                    rec = {"variant": name, "kernel": kernel, "G": G,
+                           "ms": timing.timed_ms(fn, 2 if G >= 1024 else 3,
+                                                 dev)}
+                    out.append(rec)
+                    print(json.dumps(rec), flush=True)
+    finally:
+        nvcc.CSRC, nvcc.BUILD_DIR = saved
+        nvcc._libs.clear()
+    return out
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv[0].lstrip().startswith("{"):
-        variants = json.loads(argv[0])
-    else:
-        with open(argv[0]) as f:
-            variants = json.load(f)
+    variants = load_spec(argv[0])
     sizes = [int(x) for x in (argv[1] if len(argv) > 1
                               else "1,64,2048").split(",")]
-    p, dev = params.CGGI128, "cuda"
-    rng = np.random.default_rng(3)
-    plain = br_profile.random_key(p, p.n, 2 * p.l, rng, dev)
-    unrolled = br_profile.random_key(p, (p.n + 1) // 2, 6 * p.l, rng, dev)
-    out, src = [], nvcc.CSRC
-    for name, edits in variants.items():
-        src = build_variant(name, edits, src)
-        if name == "base":
-            br_profile.check(p, rng, dev)
-        for G in sizes:
-            acc = br_profile.random_acc(p, G, rng, dev)
-            a = br_profile.amounts(p, (p.n, G), rng, dev)
-            st = br3.rotation_steps(a, unrolled, p)
-            for kernel, fn in (
-                    ("br_ntt_loop", lambda: br.br_loop(a, acc, plain, p)),
-                    ("br3_ntt M=3", lambda: br3.br3(st, acc, unrolled, p))):
-                fn()
-                rec = {"variant": name, "kernel": kernel, "G": G,
-                       "ms": timing.timed_ms(fn, 2 if G >= 1024 else 3, dev)}
-                out.append(rec)
-                print(json.dumps(rec), flush=True)
+    kernels = argv[2].split(",") if len(argv) > 2 else KERNELS
+    out = run(variants, sizes, kernels)
     print(json.dumps({"variants": variants, "times": out}))
     return 0
 

@@ -132,15 +132,64 @@ def test_cmux_twin_equals_jax_kernel(toy_sk, toy_ek, mxu_keys, port_keys,
 
 
 def test_cmux_step_twin_is_one_step_of_the_loop(port_keys):
-    """br_step is one step of br_loop, on random accumulators."""
+    """br_step (the whole key and a step index) is one step of br_loop, on
+    random accumulators."""
     rng = np.random.default_rng(5)
     acc = _t32(rng.integers(0, 1 << 32, (3, 2, TP.N), dtype=np.uint32))
     rows = torch.from_numpy(rng.integers(0, 2 * TP.N, (2, 3),
                                          dtype=np.int32))
     bk = port_keys[0][:2].contiguous()
-    step = br.br_step(br.br_step(acc, rows[0], bk[0], TP), rows[1], bk[1], TP)
+    step = br.br_step(br.br_step(acc, rows[0], bk, 0, TP), rows[1], bk, 1, TP)
     assert torch.equal(step, br.br_loop(rows, acc, bk, TP))
     assert torch.equal(step, br.cmux_steps_ref(rows, acc, bk, TP))
+
+
+@pytest.mark.parametrize("first,S", [(0, 64), (5, 3), (63, 1)])
+def test_br_steps_equal_twin(port_keys, first, S):
+    """br_steps over the key's steps first .. first + S - 1 (one K5 launch
+    a step on the card) equals cmux_steps_ref on those steps and S calls of
+    br_step."""
+    rng = np.random.default_rng(first + S)
+    acc = _t32(rng.integers(0, 1 << 32, (4, 2, TP.N), dtype=np.uint32))
+    rows = torch.from_numpy(rng.integers(0, 2 * TP.N, (S, 4),
+                                         dtype=np.int32))
+    bk = port_keys[0]
+    got = br.br_steps(rows, acc, bk, TP, first=first)
+    assert torch.equal(got, br.cmux_steps_ref(rows, acc,
+                                              bk[first: first + S], TP))
+    step = acc
+    for i in range(S):
+        step = br.br_step(step, rows[i], bk, first + i, TP)
+    assert torch.equal(step, got)
+
+
+def test_br_steps_rotation_equals_jax_kernel(toy_sk, mxu_keys, port_keys):
+    """K5's whole rotation, br_steps over all n steps from the set-up, equals
+    the JAX kernel (pallas_br.blind_rotate_pallas, its fori_loop of n
+    launches) in interpret mode."""
+    from iyokan_tpu_torch.ops.tkey import _setup
+
+    ct = _batch(toy_sk, 5, 44)
+    tv = _testv(JP)
+    want = jcall(lambda t, bk: pallas_br.blind_rotate_pallas(
+        t, bk, jnp.asarray(tv), JP), ct, mxu_keys[0])
+    rows, acc = _setup(_t32(ct), _t32(tv), TP)
+    np.testing.assert_array_equal(
+        _u32(br.br_steps(rows, acc, port_keys[0], TP)), want)
+
+
+def test_br_steps_bad_inputs_raise(port_keys):
+    """A key step sliced off the key, a range past its end or a negative
+    step index raise."""
+    acc = torch.zeros((2, 2, TP.N), dtype=torch.int32)
+    rows = torch.zeros((3, 2), dtype=torch.int32)
+    bk = port_keys[0]
+    with pytest.raises(ValueError, match="key must be"):
+        br.br_step(acc, rows[0], bk[0], 0, TP)
+    with pytest.raises(ValueError, match="rotation amounts"):
+        br.br_steps(rows, acc, bk, TP, first=TP.n - 2)
+    with pytest.raises(ValueError, match="step index"):
+        br.br_step(acc, rows[0], bk, -1, TP)
 
 
 def test_cmux_bad_inputs_raise(port_keys):
@@ -332,11 +381,14 @@ def test_cluster_model_equals_twins(port_keys, case):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("kind", ["pallas2", "v3 M=1", "v3 M=3 odd n"])
+@pytest.mark.parametrize("kind", ["pallas", "pallas2", "v3 M=1",
+                                  "v3 M=3 odd n"])
 def test_cluster_model_equals_jax_kernel(toy_sk, mxu_keys, port_keys, kind):
     """Through the twins: the cluster-form model of a whole blind rotation
     equals the JAX kernel in interpret mode (pallas_br2; pallas_br3 on the
-    plain key and, at an odd n of 9 key bits, on random unrolled keys)."""
+    plain key and, at an odd n of 9 key bits, on random unrolled keys;
+    pallas_br with the model run one step a launch, K5's form: the
+    accumulator leaves the model after every step)."""
     from iyokan_tpu_torch.ops.tkey import _setup
 
     tv = _testv(JP)
@@ -353,12 +405,18 @@ def test_cluster_model_equals_jax_kernel(toy_sk, mxu_keys, port_keys, kind):
     else:
         jp, tp, key = JP, TP, port_keys[0]
         ct = _batch(toy_sk, 4, 21)
-        jfn = (pallas_br2.blind_rotate_pallas2 if kind == "pallas2"
-               else pallas_br3.blind_rotate_pallas3)
+        jfn = {"pallas": pallas_br.blind_rotate_pallas,
+               "pallas2": pallas_br2.blind_rotate_pallas2}.get(
+                   kind, pallas_br3.blind_rotate_pallas3)
         want = jcall(lambda t, bk: jfn(t, bk, jnp.asarray(tv), JP), ct,
                      mxu_keys[0])
     rows, acc = _setup(_t32(ct), _t32(tv), tp)
-    if kind == "pallas2":
+    if kind == "pallas":
+        got = acc
+        for i in range(tp.n):
+            got = _cluster_steps(rows[i: i + 1, None], got, key[i: i + 1],
+                                 tp, v3=False)
+    elif kind == "pallas2":
         got = _cluster_steps(rows[:, None], acc, key, tp, v3=False)
     else:
         got = _cluster_steps(br3.rotation_steps(rows, key, tp), acc, key, tp,
@@ -383,7 +441,8 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     assert nvcc.sources(br.SOURCE) == [br.SOURCE, "br_cluster.cuh", "ntt.cuh"]
     assert nvcc.sources(br3.SOURCE) == [br3.SOURCE, "br_cluster.cuh",
                                         "ntt.cuh"]
-    assert nvcc.sources("extprod1_ntt.cu") == ["extprod1_ntt.cu", "ntt.cuh"]
+    assert nvcc.sources("extprod1_ntt.cu") == ["extprod1_ntt.cu",
+                                               "br_cluster.cuh", "ntt.cuh"]
     (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n #include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("// b\n")
@@ -428,7 +487,7 @@ def test_cmux_kernels_equal_twin_on_card(params, G, steps):
     got = br.br_loop(rows, acc, key, p)
     step = acc
     for i in range(steps):
-        step = br.br_step(step, rows[i], key[i], p)
+        step = br.br_step(step, rows[i], key, i, p)
     torch.cuda.synchronize()
     assert (br.STEP_LAUNCHES, br.LOOP_LAUNCHES) == (before[0] + steps,
                                                     before[1] + 1)
@@ -491,6 +550,30 @@ def test_cluster_kernels_refuse_a_key_without_kernel_form():
         br.br_loop(a, acc, bare, p)
     with pytest.raises(ValueError, match="no kernel form"):
         br3.br3(a[:, None], acc, bare, p)
+    with pytest.raises(ValueError, match="no kernel form"):
+        br.br_steps(a, acc, bare, p)
+    with pytest.raises(ValueError, match="key must be"):
+        br.br_step(acc, a[0], key[0], 0, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 62, 63, 64, 256, 2048])
+def test_k5_equals_twin_at_cggi128(G):
+    """K5 at cggi128: 3 steps from one br_steps call are 3 launches, each
+    G clusters of four CTAs, == the twin; the 512/256-thread switch falls
+    where the card's cap puts it (62 clusters on an H100 80GB HBM3)."""
+    _card()
+    p = tparams.CGGI128
+    acc, a, key = _random_case(p, G, 3, 2 * p.l, G + 17)
+    want = br.cmux_steps_ref(a, acc, key, p)
+    before = br.STEP_LAUNCHES
+    got = br.br_steps(a, acc, key, p)
+    torch.cuda.synchronize()
+    assert br.STEP_LAUNCHES == before + 3
+    grid = br.last_launch()
+    cap = br.cluster_plan(p, br.NARROW_THREADS)[1]
+    assert grid == (br.CLUSTER * G, br.CLUSTER, br.threads_for(G, cap))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

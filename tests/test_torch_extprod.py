@@ -6,11 +6,17 @@ must equal, bit for bit,
   * the JAX Pallas kernel K6 (ops/pallas_ep.extprod1_fused) in interpret
     mode on an MXUBackend.prep1 + prep_kernel_key key (int8 matmuls, as on
     the TPU), and the JAX CRT64Backend.extprod1;
-  * per-row key selection (K = 2, the RAM write tree) row by row;
+  * per-row key selection (K = 2, the RAM write tree) row by row, with the
+    index on the host (its range checked there);
   * decompose1 / extprod_term / cmux / trgsw_invert of the JAX package;
   * the NTT blind-rotation route (IYOKAN_EP=pallas, IYOKAN_BR_IMPL not
     tkey): the JAX package's exact CRT64 blind rotation, per batch and
     through the whole engine on MAC-2.
+The kernel's cluster schedule (csrc/extprod1_ntt.cu: CTA (prime, part)
+reduces and transforms its half of the digit rows, Montgomery sums of l
+products against the prep1 key, the exchange of partials, the inverse
+scaled by N^-1 2^32, Garner) is modelled in torch and equals the twin and
+the JAX kernel at RR = 2l and 3*2l, K = 1 and 2, on digits at the edges.
 The CUDA kernel itself is held against the twin on the card (cuda-marked
 tests here, and chip_smoke.py at cggi128).
 """
@@ -35,10 +41,11 @@ from iyokan_tpu.engine.driver import Frontend as JFrontend
 from iyokan_tpu.ops import pallas_ep
 from iyokan_tpu_torch import params as tparams
 from iyokan_tpu_torch.circuit.blueprint import Blueprint as TBlueprint
+from iyokan_tpu_torch.crypto import ntt as tntt
 from iyokan_tpu_torch.crypto import ops as tops
 from iyokan_tpu_torch.crypto import polymul as tpm
 from iyokan_tpu_torch.engine.driver import Frontend as TFrontend
-from iyokan_tpu_torch.ops import extprod
+from iyokan_tpu_torch.ops import br, extprod
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 sys.path.insert(0, DATA)
@@ -147,6 +154,106 @@ def test_bad_inputs_raise():
         extprod.extprod1(dd.to(torch.int64), keys[:1], None, TP)
     with pytest.raises(ValueError, match="keys must be"):
         extprod.extprod1(dd[:, :5], keys[:1], None, TP)
+
+
+@pytest.mark.parametrize("bad", [-1, 2])
+def test_host_index_out_of_range_raises(bad):
+    """An index on the host is checked there: out of [0, K) raises, through
+    extprod1 and through the CMUX the RAM write tree calls."""
+    rows, d, _ = _inputs(5, 3, K=2)
+    keys = tpm.prep1(_t32(rows), TP)
+    idx = torch.tensor([0, bad, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="out of range"):
+        extprod.extprod1(torch.from_numpy(d), keys, idx, TP)
+    c = torch.zeros((3, 2, TP.N), dtype=torch.int32)
+    with pytest.raises(ValueError, match="out of range"):
+        tops.cmux(keys, c, c, TP, idx=idx)
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's cluster schedule, modelled in torch
+# --------------------------------------------------------------------------- #
+
+
+def _ep_cluster(digits, keys, idx, p):
+    """A torch model of csrc/extprod1_ntt.cu: CTA (prime pi, part u) takes
+    digit rows m*2l + u*l + j as residues, transforms them, forms the
+    partial products of both outputs v against the prep1 key (a Montgomery
+    sum of l products per m: x 2^-32), takes the other part's partial of
+    its output u, runs the unscaled inverse and scales it by N^-1 2^32
+    (Shoup, the host table's companion); Garner with the other prime's
+    CTA gives out[g, u]."""
+    from tests.test_torch_ntt import mont_sum, shoup_mul
+
+    G, RR, N = digits.shape
+    l, M = p.l, RR // (2 * p.l)
+    k = keys[idx.long() if idx is not None else torch.zeros(G, dtype=int)]
+    k = k.to(torch.int64) & tops.MASK32                # [G, RR, 2, P, N]
+    d = digits.to(torch.int64)
+    scale = tntt.kernel_tables(N, "cpu").scale
+    res = []
+    for pi, P in enumerate(tntt.PRIMES):
+        part = []
+        for u in range(2):
+            rows = [m * 2 * l + u * l + j for m in range(M) for j in range(l)]
+            x = d[:, rows]
+            dig = tntt.ntt_fwd(torch.where(x < 0, x + P, x), N, pi)
+            sums = []
+            for v in range(2):
+                sv = 0
+                for m in range(M):
+                    sl = slice(m * l, (m + 1) * l)
+                    t = mont_sum(dig[:, sl].transpose(1, 2),
+                                 k[:, rows[sl], v, pi].transpose(1, 2), P)
+                    sv = (sv + t) % P
+                sums.append(sv)
+            part.append(sums)
+        res.append([shoup_mul(tntt.ntt_inv((part[u][u] + part[1 - u][u]) % P,
+                                           N, pi) * N % P,
+                              scale[2 * pi], scale[2 * pi + 1], P)
+                    for u in range(2)])
+    out = [tntt.crt_center(res[0][u], res[1][u]) for u in range(2)]
+    return tops.from_u64(torch.stack(out, dim=1))
+
+
+def _edge_digits(rng, G, RR, Bg, N=TP.N):
+    """Random digits in [-Bg/2, Bg/2] with whole rows and runs at the edges
+    -Bg/2, 0 and Bg/2."""
+    d = rng.integers(-Bg // 2, Bg // 2 + 1, (G, RR, N)).astype(np.int32)
+    for r, e in zip(range(RR), (-Bg // 2, 0, Bg // 2)):
+        d[:, r] = e
+    d[:, :, : N // 4] = -Bg // 2
+    d[0, RR - 1, N // 2:] = Bg // 2
+    return d
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("G", [1, 8, 70])
+@pytest.mark.parametrize("RR", [6, 18])
+def test_cluster_model_equals_twin_and_k6_interpret(mxu_int8, RR, G, K):
+    """The cluster-form model == extprod1_ref (K = 2: mixed indices on the
+    host) == pallas_ep.extprod1_fused in interpret mode, row by row of its
+    key, at RR = 2l and 3*2l, on digits at the edges -Bg/2, 0, Bg/2."""
+    rng = np.random.default_rng(RR * 100 + G * 3 + K)
+    rows = rng.integers(0, 1 << 32, (K, RR, 2, TP.N), dtype=np.uint32)
+    d = _edge_digits(rng, G, RR, 1 << TP.Bgbit)
+    idx = None
+    if K > 1:
+        pol = rng.integers(0, K, G).astype(np.int32)
+        pol[: min(G, 2)] = [1, 0][: min(G, 2)]
+        idx = torch.from_numpy(pol)
+    keys = tpm.prep1(_t32(rows), TP)
+    got = _ep_cluster(torch.from_numpy(d), keys, idx, TP)
+    assert torch.equal(got, extprod.extprod1(torch.from_numpy(d), keys, idx,
+                                             TP))
+    jkey = pallas_ep.prep_kernel_key(mxu_int8.prep1(jnp.asarray(rows), JP),
+                                     JP.N)
+    fused = jax.jit(lambda x, k: pallas_ep.extprod1_fused(x, k, JP,
+                                                          interpret=True))
+    want = np.stack([np.asarray(fused(jnp.asarray(d), jkey[k]))
+                     for k in range(K)])
+    want = want[0] if idx is None else want[idx.numpy(), np.arange(G)]
+    np.testing.assert_array_equal(_u32(got), want)
 
 
 # --------------------------------------------------------------------------- #
@@ -266,6 +373,33 @@ def test_kernel_equals_twin_on_card(params, G, K):
     assert extprod.LAUNCHES == before + 1
     want = extprod.extprod1_ref(dd, keys, idx, p)
     torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("RR", [6, 18])
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("G", [1, 8, 63, 64, 1024, 2048])
+def test_cluster_kernel_equals_twin_at_cggi128(G, K, RR):
+    """K6 at cggi128, one cluster of four CTAs a row (512 or 256 threads by
+    the card's cap at that RR), == the twin on edge digits; K = 2 with a
+    host index."""
+    _card()
+    p = tparams.CGGI128
+    rng = np.random.default_rng(G * 7 + K + RR)
+    rows = rng.integers(0, 1 << 32, (K, RR, 2, p.N), dtype=np.uint32)
+    d = torch.from_numpy(_edge_digits(rng, G, RR, 1 << p.Bgbit, p.N)).cuda()
+    keys = tpm.prep1(_t32(rows).cuda(), p)
+    idx = None if K == 1 else torch.from_numpy(
+        rng.integers(0, K, G).astype(np.int32))
+    before = extprod.LAUNCHES
+    got = extprod.extprod1(d, keys, idx, p)
+    want = extprod.extprod1_ref(d, keys, idx, p)
+    torch.cuda.synchronize()
+    assert extprod.LAUNCHES == before + 1
+    cap = extprod.cluster_plan(p, RR, br.NARROW_THREADS)[1]
+    assert extprod.last_launch() == (br.CLUSTER * G, br.CLUSTER,
+                                     br.threads_for(G, cap))
     assert torch.equal(got, want)
 
 
