@@ -1090,12 +1090,60 @@ def phase_memory(files, data, smi):
 
 # Phase 14: the microbenchmark tools (T1-T3) at their own full shapes
 MICRO_STEPS, MICRO_INNER, MICRO_G = 100, 200, 1024
+# rounds a timed launch of the elementwise and small-K loops: at 0.06-1.4 us
+# a round, the tools' 200 last 12-280 us, short enough for event jitter to
+# move the difference method by percents
+TIME_INNER = 2000
 T1_BG = (512, 2048)
 # the Pallas kernel (or, for the elementwise bodies, the body) each record
 # replaces
 T1_LINES = {"fat": 40, "thin": 50, "pure": 64, "puret": 83}
 PK_LINES = {"vpu": 305, "f32": 315, "barrett": 325, "roll": 336,
             "i16": 349, "i32var": 359, "conv": 370, "select": 380}
+
+
+# round counts off the kernels' unrolling, held against the twins beside
+# INNER: alu_kernel (ALU_UNROLL), roll_kernel (ROLL_PERIOD), smallk_kernel
+# (two rounds an iteration)
+OFF_UNROLL = {"alu": (1, micro.ALU_UNROLL + 1, 2 * micro.ALU_UNROLL + 3),
+              "roll": (1, micro.ROLL_PERIOD + 1, 2 * micro.ROLL_PERIOD + 3),
+              "smallk": (1, 3)}
+
+# The elementwise bodies' bound: the fewest instructions one round of a
+# body issues on an element in an exact form, by the pipe each goes to,
+# against the per-SM rates of the CUDA C++ Programming Guide's throughput
+# table at compute capability 9.0: 64 a clock on the integer ALU pipe
+# (compare, logic, add), 64 IMAD, 128 FFMA / FMUL / FADD, and 4 x 32
+# instructions issued.  "either": an add, which issues on the ALU pipe or
+# as IMAD; "cvt": I2F, counted only as an issue slot (a lower bound).
+PIPE_LANES = {"alu": 64, "imad": 64, "ffma": 128}
+DISPATCH_LANES = 128
+BODY_MIX = {
+    "vpu": dict(imad=5, alu=1),               # 5 x IMAD, LOP3
+    "f32": dict(ffma=5, alu=1),               # 5 x FFMA, FMNMX
+    # I2F, FMUL, FADD (the round), IMAD (x - q p), add (+ 2^21)
+    "barrett": dict(cvt=1, ffma=2, imad=1, either=1),
+    "roll": dict(imad=1),                     # r (1 - 2m) + 1
+    "i16": dict(imad=5),                      # 5 x IMAD (mod 2^16)
+    "i32var": dict(imad=5, alu=5),            # 5 x (IMAD, LOP3)
+    "conv": dict(cvt=1, ffma=2, either=1),    # I2F, FMUL, FADD, IADD3
+    "select": dict(alu=5, either=5),          # 5 x (compare, guarded add)
+}
+
+
+def issue_bound(mix, n_elems, nbytes):
+    """(bound ms, "operations" or "bytes") of n_elems element-rounds of the
+    instruction mix `mix` (BODY_MIX) at the pipes' rates on 132 SMs at the
+    1.98 GHz boost clock, or of nbytes at the HBM rate."""
+    total = sum(mix.values())
+    ints = mix.get("alu", 0) + mix.get("imad", 0) + mix.get("either", 0)
+    clocks = max([total / DISPATCH_LANES, ints / (PIPE_LANES["alu"]
+                                               + PIPE_LANES["imad"])]
+                 + [mix.get(p, 0) / n for p, n in PIPE_LANES.items()])
+    t_ops = clocks * n_elems / (132 * 1.98e9)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def micro_check(label, kfn, tfn, sets, per=1):
@@ -1132,8 +1180,9 @@ def int_mm_lib(a_shape, b_shape, bt=False):
 
 
 def marginal_ms(run, inner):
-    """ms per round of run(n) by the tools' difference method."""
-    return timing.marginal(run, inner, "cuda") * 1e3
+    """ms per round of run(n) by the tools' difference method, after 0.2 s
+    of run(inner) (timing.marginal: the card idles while a twin runs)."""
+    return timing.marginal(run, inner, "cuda", warm_s=0.2) * 1e3
 
 
 def rand_i8(rng, shape):
@@ -1192,9 +1241,13 @@ def sass_products(path):
 
 
 def sass_loops(path):
-    """{kernel: {opcode: count}} of the inner loop (from the target of the
-    last backward branch to that branch) of each elementwise and small-K
-    kernel in the built library, from cuobjdump -sass."""
+    """{kernel: {opcode: count}} of the main loop of each elementwise and
+    small-K kernel in the built library, from cuobjdump -sass: the largest
+    innermost loop (from a backward branch's target to the branch, holding
+    no other backward branch), which in alu_kernel is ALU_UNROLL rounds of
+    its 16 bytes of elements, in roll_kernel ROLL_PERIOD rounds of its
+    words and in smallk_kernel the round loop.  Raises if a kernel is
+    missing."""
     text = sass_text(path)
     names = {f"alu_kernelILi{i}E": f"alu {b}"
              for b, (i, *_rest) in micro.BODIES.items() if i is not None}
@@ -1205,7 +1258,7 @@ def sass_loops(path):
                      None)
         if label is None:
             continue
-        seq, loop = [], None     # seq: (address, opcode)
+        seq, loops = [], []     # seq: (address, opcode); loops: (lo, hi)
         for line in fn.splitlines():
             m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                           r"([A-Z][A-Z0-9_]*)([^;]*);", line)
@@ -1215,11 +1268,32 @@ def sass_loops(path):
             seq.append((addr, m.group(2)))
             t = re.match(r"\s*(0x[0-9a-f]+)", m.group(3))
             if m.group(2) == "BRA" and t and int(t.group(1), 16) < addr:
-                loop = [op for a, op in seq if a >= int(t.group(1), 16)]
+                loops.append((int(t.group(1), 16), addr))
+        inner = [(lo, hi) for lo, hi in loops
+                 if not any(lo <= l2 and h2 < hi for l2, h2 in loops)]
+        lo, hi = max(inner, key=lambda lh: lh[1] - lh[0],
+                     default=(0, seq[-1][0] if seq else 0))
         ops_ = {}
-        for op in loop or [op for _, op in seq]:
-            ops_[op] = ops_.get(op, 0) + 1
+        for addr, op in seq:
+            if lo <= addr <= hi:
+                ops_[op] = ops_.get(op, 0) + 1
         out[label] = dict(sorted(ops_.items(), key=lambda kv: -kv[1]))
+    missing = sorted(set(names.values()) - set(out))
+    if missing:
+        raise AssertionError(f"no SASS for {missing} in {path}")
+    return out
+
+
+def ptxas_usage(src, pieces):
+    """{piece: ptxas -v's resource line} for each kernel of csrc/<src>
+    whose mangled name holds a piece (the build of this run)."""
+    out, cur = {}, None
+    for ln in nvcc.LOGS.get(src, "").splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((p for p in pieces if p in ln), None)
+        elif cur and ("spill" in ln or "Used" in ln):
+            out[cur] = (out.get(cur, "") + " " + ln.split(":", 1)[-1].strip()
+                        ).strip()
     return out
 
 
@@ -1233,6 +1307,11 @@ def phase_micro(smi):
     mixes = sass_loops(nvcc.lib_path(micro.SOURCE))
     for label, mix in mixes.items():
         say("micro", f"SASS inner loop of {label}: {json.dumps(mix)}")
+    pieces = ["smallk_kernel", "roll_kernel"] + [
+        f"alu_kernelILi{i}E" for i, *_ in micro.BODIES.values()
+        if i is not None]
+    for piece, use in ptxas_usage(micro.SOURCE, pieces).items():
+        say("micro", f"ptxas -v, {piece}: {use}")
     micro.LAUNCHES.clear()
     with knobs(BENCH_G=str(MICRO_G), BENCH_INNER=str(MICRO_INNER),
                BENCH_ITERS="20"):
@@ -1250,14 +1329,18 @@ def phase_micro(smi):
     recs = []
 
     def record(name, replaces, key, k_ms, checked, n_ops, peak, io, per,
-               lib=(None, "no single PyTorch call"), l2=None, tops="TOP/s"):
+               lib=(None, "no single PyTorch call"), l2=None, tops="TOP/s",
+               bnd=None):
         """l2: the L2 bytes a step the kernel's tiling implies
-        (micro.l2_bytes_per_step), printed as computed, not measured."""
+        (micro.l2_bytes_per_step), printed as computed, not measured; bnd:
+        the bound (ms, by) where it is not n_ops at peak beside io (the
+        elementwise bodies: issue_bound; n_ops then gives only the printed
+        rate, in the tool's own count)."""
         if not path.get(key):
             raise AssertionError(f"micro {name}: no launch of {key!r} on the "
                                  "tools' path")
         t_ms, err = checked
-        b_ms, b_by = bound(n_ops, peak, io)
+        b_ms, b_by = bnd or bound(n_ops, peak, io)
         lib_ms, why = lib
         recs.append({"name": f"micro {name}", "route": "cuda",
                      "source": f"iyokan_tpu_torch/csrc/{micro.SOURCE}",
@@ -1347,18 +1430,30 @@ def phase_micro(smi):
                micro.launch_key("mm_mask", *ash), k_ms, checked, 2 * macs,
                INT8_OPS_PER_S, (2 * a.numel() + b.numel()) / I, "inner", lib,
                micro.l2_bytes_per_step(micro.mm_config(a, b, mask)))
-    # T3d: K = 8 on dp4a
+    # T3d: K = 8 on mma.sync, INNER rounds a launch
     w, a = rand_i8(rng, (8, 8)), rand_i8(rng, (8, 3072, 128))
     checked = micro_check(
         "smallk_loop", lambda u, v: micro.smallk_loop(u, v, I),
         lambda u, v: micro.smallk_loop_ref(u, v, I),
         [("random", (w, a)), ("all-ones", (ones_i8(w.shape),
                                            ones_i8(a.shape)))], I)
-    k_ms = marginal_ms(lambda n: micro.smallk_loop(w, a, n), I)
+    for n in OFF_UNROLL["smallk"]:       # round counts off the unrolling
+        micro_check(f"smallk_loop inner={n}",
+                    lambda u, v: micro.smallk_loop(u, v, n),
+                    lambda u, v: micro.smallk_loop_ref(u, v, n),
+                    [("random", (w, a))])
+    k_ms = marginal_ms(lambda n: micro.smallk_loop(w, a, n), TIME_INNER)
+    Y = a[0].numel()
     record("smallk_loop pk_smallk", "tools/microbench.py:435",
            micro.launch_key("smallk_loop"), k_ms, checked, 2 * 8 * a.numel(),
            INT8_OPS_PER_S, (2 * a.numel() + 64) / I, "inner",
-           int_mm_lib((a[0].numel(), 8), (8, 8)))
+           int_mm_lib((Y, 8), (8, 8)))
+    say("micro", f"smallk_loop: the block-diagonal form's own floors a "
+        f"round: its {micro.SMALLK_GROUPS}x MACs at the int8 peak "
+        f"{2 * 8 * a.numel() * micro.SMALLK_GROUPS / INT8_OPS_PER_S * 1e6:.4f}"
+        f" us, its packing (one ALU-pipe instruction a result byte) "
+        f"{issue_bound(dict(alu=1), a.numel(), 0)[0] * 1e3:.4f} us; "
+        f"measured {k_ms * 1e3:.4f} us on {smi}")
     # T3b: the elementwise bodies
     for body, (_, dtype, per_elem, _) in micro.BODIES.items():
         ins = micro.alu_operands(body, "cuda", rng)
@@ -1368,26 +1463,38 @@ def phase_micro(smi):
             lambda *u: micro.alu_loop_ref(u[0], body, I, *u[1:]),
             [("random", ins),
              ("all-ones", micro.alu_operands(body, "cuda"))], I)
+        for n in OFF_UNROLL["roll" if body == "roll" else "alu"]:
+            micro_check(f"alu_loop {body} inner={n}",
+                        lambda *u: micro.alu_loop(u[0], body, n, *u[1:]),
+                        lambda *u: micro.alu_loop_ref(u[0], body, n, *u[1:]),
+                        [("random", ins)])
         k_ms = marginal_ms(lambda n: micro.alu_loop(ins[0], body, n,
-                                                    *ins[1:]), I)
+                                                    *ins[1:]), TIME_INNER)
+        io = (2 * ins[0].nbytes + sum(e.nbytes for e in ins[1:])) / I
         record(f"alu_loop {body}", f"tools/microbench.py:{PK_LINES[body]}",
                micro.launch_key("alu_loop", body), k_ms, checked,
                ins[0].numel() * per_elem,
                FP32_OPS_PER_S if dtype == torch.float32 else INT32_OPS_PER_S,
-               (2 * ins[0].nbytes + sum(e.nbytes for e in ins[1:])) / I,
-               "inner", (None, "no single PyTorch call runs the INNER-round "
-                               "chain (eager torch launches a kernel per op)"),
-               tops="Tops/s")
-        # the loop's multiply-adds as issued: its SASS count (one round of
-        # one element an iteration) x elements / time a round
+               io, "inner", (None, "no single PyTorch call runs the INNER-"
+                                   "round chain (eager torch launches a "
+                                   "kernel per op)"),
+               tops="Tops/s",
+               bnd=issue_bound(BODY_MIX[body], ins[0].numel(), io))
+        # the loop's multiply-adds as issued: the main loop's SASS count
+        # (ALU_UNROLL rounds of a thread's 16 bytes; roll: ROLL_PERIOD
+        # rounds of its ROLL_PERIOD words) over those element-rounds x
+        # elements / time a round
+        per_iter = (micro.ROLL_PERIOD ** 2 if body == "roll" else
+                    micro.ALU_UNROLL * 16 // ins[0].element_size())
+        label = "roll" if body == "roll" else f"alu {body}"
         for op, lanes in (("IMAD", INT32_MULS_PER_S),
                           ("FFMA", FP32_OPS_PER_S / 2)):
-            n_op = mixes.get(f"alu {body}", {}).get(op, 0)
+            n_op = mixes[label].get(op, 0) / per_iter
             if n_op:
                 rate = n_op * ins[0].numel() / (k_ms / 1e3)
-                say("micro", f"alu_loop {body}: {n_op} {op} a round in SASS "
-                    f"-> {rate:.4g} {op}/s = {rate / lanes:.3f} of the "
-                    f"{lanes:.4g}/s lane rate")
+                say("micro", f"alu_loop {body}: {n_op:.4g} {op} a round an "
+                    f"element in SASS -> {rate:.4g} {op}/s = "
+                    f"{rate / lanes:.3f} of the {lanes:.4g}/s lane rate")
     say("micro", f"phase {time.time() - t_phase:.1f} s, {len(recs)} records")
     return recs
 

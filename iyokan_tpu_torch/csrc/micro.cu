@@ -61,26 +61,56 @@
 //        and c + 128 in one thread's registers for w_d.
 //    pure vs puret now measures only that transpose.
 //
-// 2. smallk_kernel: a <- (W @ a & mask) as int8 with W [8, 8] (pk_smallk).
-//    mma.sync int8 needs K = 32 and M = 16, so a K = 8, M = 8 product would
-//    waste 7/8 of every tensor-core operation and need shuffles to bring
-//    each result back into the B layout; dp4a on the integer units has no
-//    waste: a thread owns one column of a in two registers, W lives in 16
-//    registers, and an iteration is 16 dp4a, 8 ANDs and the byte packing.
-//    Bound: the integer units, not memory (a stays in registers).
+// 2. smallk_kernel<GR, TW>: a <- (W @ a & mask) as int8, W [8, 8] (pk_smallk),
+//    on the tensor cores.  Each column of a is its own chain, so the rounds
+//    stay in registers: a warp holds TW tiles of 16 rows x GR groups of 8
+//    bytes, a row packing GR columns of a (k = 8 group + component), as the
+//    A fragment of mma.sync m16n8k(8 GR).s8, and B is the block diagonal of
+//    GR copies of W^T, so n-tile nt of the product is W times group nt of
+//    every row (GR x the real MACs).  The C fragment (rows g, g + 8,
+//    columns 8 nt + 2q + e; g = lane / 4, q = lane % 4, from the PTX ISA's
+//    tables) and the A fragment (the same rows, k = 16 s + 4q + b) hold the
+//    same rows in each thread, 2 GR values a row, so a fixed bijection pi
+//    between their columns takes C back to A with no shuffle: value (nt, e)
+//    of a row goes to byte b = 2 (nt % 2) + e of register s = nt / 2.  A
+//    column k therefore holds group 2 s + b / 2, component 2q + b % 2, and
+//    B's rows are permuted to match.  A round is GR mma a tile, then 3 PRMT
+//    (the low bytes) and one LOP3 (the mask in every byte) for each 4
+//    results: the low byte of z & mask is what .astype(int8) keeps, for
+//    every mask.  What bounds it: the packing, one ALU-pipe instruction a
+//    result byte (0.188 us a round at pk_smallk's 393,216 columns), and the
+//    mma, whose time adds to it rather than hiding under it on the H100
+//    (tools/micro_forms.json: GR = 2, m16n8k16, twice the real MACs, beats
+//    GR = 4, m16n8k32, by the difference in tensor work; two tiles a warp
+//    beat one and four).  ptxas -v (sm_90a), <2, 2>: 37 registers, no
+//    spills; 128 threads a CTA, 12 CTAs an SM, so pk_smallk's 6144 warps
+//    are all resident at once.
 //
 // 3. alu_kernel<BODY> and roll_kernel: INNER rounds of a body on operands
 //    held in registers (the TPU kept them in VMEM).  The bodies' constants
 //    arrive as kernel arguments, so nvcc cannot fold five multiply-adds into
 //    one or strength-reduce a multiply; the smoke run prints each loop's
 //    SASS opcodes to read the rate against the instructions issued.  f32
-//    multiply-adds are __fmaf_rn (the JAX CPU result fuses them); Barrett's
-//    float round is __float2int_rn (round half to even, as jnp.round).
-//    pk_roll's lane rotation (pltpu.roll by 128 of 1024 lanes) has no
-//    register form on a GPU that is not a rename the compiler would remove:
-//    a block keeps one 1024-word row in shared memory and each round reads
-//    the rotated word, so it measures a shared-memory permute and a barrier.
-//    Bound: the integer or FP32 lanes.
+//    multiply-adds are __fmaf_rn, one a step in order (the JAX CPU result
+//    fuses them); Barrett's float round is round half to even (as
+//    jnp.round), by adding 1.5 * 2^23 (exact for |x / p| < 2^22, which
+//    micro_alu holds 1/p to).  What bounds them is issue: a thread holds
+//    ALU_E = 16 bytes of elements (4 words, or 8 int16 in 32-bit registers:
+//    only their low 16 bits are stored), independent chains, loaded and
+//    stored 16 bytes at a time, the rounds unrolled by ALU_U with the
+//    remainder after, over a grid-stride loop of as many CTAs as the card
+//    holds.  select's step is a compare and a predicated add (2
+//    instructions, one on the integer ALU pipe, the other free to issue as
+//    IMAD), not a compare, an add and a select.  ptxas -v: 16-25 registers
+//    (roll_kernel 32), no spills, so 2048 threads an SM.
+//    pk_roll's lane rotation (pltpu.roll by 128 of 1024 lanes) is a renaming
+//    of registers: a thread holds words t + 128 j (j < 8) of a row, so a
+//    round moves nothing: register j holds logical slot (j + k) mod 8 after
+//    k rounds, the per-slot constant c = 1 - 2m (r + m (0 - 2r) = r c mod
+//    2^32) rotates with it, and a round is one IMAD a word.  The rounds run
+//    8 at a time (the renaming's period), the rest through an unrolled
+//    guarded block, and the store puts register j at its slot.  No shared
+//    memory and no barrier; the shift is fixed at compile time (ROLL_SHIFT).
 //
 // Built by iyokan_tpu_torch/ops/micro.py through ops/nvcc.py (plain C
 // interface, ctypes).
@@ -93,10 +123,6 @@
 namespace {
 
 enum Mode { TILE = 0, ACC = 1, MM = 2 };
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 struct StepArgs {
   int8_t* lnext;        // TILE, MM: the next LHS buffer
@@ -288,46 +314,113 @@ int launch_steps(const StepArgs& a, const CUtensorMap (&lmaps)[2],
 }
 
 // ---------------------------------------------------------------------------
-// small-K product: a <- (W @ a & mask), W [8, 8], a [8, Y]
+// small-K product on mma.sync: a <- (W @ a & mask), W [8, 8], a [8, Y]
 // ---------------------------------------------------------------------------
 
-__global__ void smallk_kernel(const int8_t* __restrict__ w,
-                              const int8_t* __restrict__ a,
-                              int8_t* __restrict__ out, int Y, int inner,
-                              int mask) {
-  const int y = blockIdx.x * blockDim.x + threadIdx.x;
-  if (y >= Y) return;
-  int wlo[8], whi[8];
+constexpr int SK_GR = 2;        // groups (columns of a) a fragment row
+constexpr int SK_TW = 2;        // 16-row tiles a warp
+constexpr int SK_THREADS = 128;
+
+// d = A B over one n-tile: A the GR registers of a 16 x 8GR s8 fragment,
+// B the GR/2 registers of an 8GR x 8 one
+template <int GR>
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[GR],
+                                       const uint32_t* b) {
+  if constexpr (GR == 4)
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "r"(0));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+        "{%4, %5}, {%6}, {%7, %7, %7, %7};"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(b[0]), "r"(0));
+}
+
+// the low bytes of four int32 sums, in order, as one register
+__device__ __forceinline__ uint32_t low_bytes(int c0, int c1, int c2,
+                                              int c3) {
+  return __byte_perm(__byte_perm(c0, c1, 0x0040), __byte_perm(c2, c3, 0x0040),
+                     0x5410);
+}
+
+// the column of a in byte b of A register r of the warp's tile t, in lane
+// group g (its component: 2q + b % 2)
+template <int GR, int TW>
+__device__ __forceinline__ long long smallk_col(long long warp, int t, int r,
+                                                int b, int g) {
+  return (warp * TW + t) * 16 * GR + 16 * (2 * (r >> 1) + (b >> 1)) + g +
+         8 * (r & 1);
+}
+
+// Warp w owns tiles TW w .. TW w + TW - 1; tile t holds columns y = 16 GR t
+// + 16 group + row.  Byte b of A register r of lane (g, q) is row g + 8 (r %
+// 2), group 2 (r / 2) + b / 2, component 2q + b % 2; B register s of n-tile
+// nt holds W[g][2q + b % 2] where group 2s + b / 2 is nt, else 0.
+template <int GR, int TW>
+__global__ void __launch_bounds__(SK_THREADS)
+smallk_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ a,
+              int8_t* __restrict__ out, int Y, int inner, uint32_t mask4) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const long long warp =
+      ((long long)blockIdx.x * SK_THREADS + threadIdx.x) >> 5;
+  uint32_t bf[GR][GR / 2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    wlo[i] = (int)ld32(w + 8 * i);
-    whi[i] = (int)ld32(w + 8 * i + 4);
-  }
-  uint32_t lo = 0, hi = 0;
+  for (int nt = 0; nt < GR; ++nt)
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    lo |= (uint32_t)(uint8_t)a[(size_t)k * Y + y] << (8 * k);
-    hi |= (uint32_t)(uint8_t)a[(size_t)(k + 4) * Y + y] << (8 * k);
-  }
-#pragma unroll 1
-  for (int it = 0; it < inner; ++it) {
-    uint32_t nl = 0, nh = 0;
+    for (int s = 0; s < GR / 2; ++s) {
+      uint32_t v = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int z0 = __dp4a(whi[i], (int)hi, __dp4a(wlo[i], (int)lo, 0));
-      const int z1 =
-          __dp4a(whi[i + 4], (int)hi, __dp4a(wlo[i + 4], (int)lo, 0));
-      nl |= (uint32_t)(z0 & mask) << (8 * i);
-      nh |= (uint32_t)(z1 & mask) << (8 * i);
+      for (int b = 0; b < 4; ++b)
+        if (2 * s + b / 2 == nt)
+          v |= (uint32_t)(uint8_t)w[8 * g + 2 * q + (b & 1)] << (8 * b);
+      bf[nt][s] = v;
     }
-    lo = nl;
-    hi = nh;
+  uint32_t af[TW][GR];
+#pragma unroll
+  for (int t = 0; t < TW; ++t)
+#pragma unroll
+    for (int r = 0; r < GR; ++r) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const long long y = smallk_col<GR, TW>(warp, t, r, b, g);
+        if (y < Y)
+          v |= (uint32_t)(uint8_t)a[(size_t)(2 * q + (b & 1)) * Y + y]
+               << (8 * b);
+      }
+      af[t][r] = v;
+    }
+#pragma unroll 2
+  for (int it = 0; it < inner; ++it) {
+#pragma unroll
+    for (int t = 0; t < TW; ++t) {
+      int c[GR][4];
+#pragma unroll
+      for (int nt = 0; nt < GR; ++nt) mma_s8<GR>(c[nt], af[t], bf[nt]);
+#pragma unroll
+      for (int s = 0; s < GR / 2; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          af[t][2 * s + h] = low_bytes(c[2 * s][2 * h], c[2 * s][2 * h + 1],
+                                       c[2 * s + 1][2 * h],
+                                       c[2 * s + 1][2 * h + 1]) &
+                             mask4;
+    }
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    out[(size_t)k * Y + y] = (int8_t)(lo >> (8 * k));
-    out[(size_t)(k + 4) * Y + y] = (int8_t)(hi >> (8 * k));
-  }
+  for (int t = 0; t < TW; ++t)
+#pragma unroll
+    for (int r = 0; r < GR; ++r)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const long long y = smallk_col<GR, TW>(warp, t, r, b, g);
+        if (y < Y)
+          out[(size_t)(2 * q + (b & 1)) * Y + y] =
+              (int8_t)(af[t][r] >> (8 * b));
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -343,111 +436,201 @@ struct AluConsts {
 enum Body { VPU = 0, F32 = 1, BARRETT = 2, I16 = 3, I32VAR = 4, CONV = 5,
             SELECT = 6 };
 
+constexpr int ALU_U = 4;          // rounds an unrolled iteration
+constexpr int ALU_THREADS = 256;
+
+// T: the stored element; R: its register (integer bodies compute in 32-bit
+// words: i16 keeps the low 16 bits, which its products mod 2^16 depend on)
 template <int BODY>
-struct Elem { using T = int32_t; };
-template <> struct Elem<F32> { using T = float; };
-template <> struct Elem<I16> { using T = int16_t; };
-template <> struct Elem<SELECT> { using T = uint32_t; };
+struct Elem { using T = int32_t; using R = uint32_t; };
+template <> struct Elem<F32> { using T = float; using R = float; };
+template <> struct Elem<I16> { using T = int16_t; using R = uint32_t; };
 
 template <int BODY>
-__device__ __forceinline__ typename Elem<BODY>::T body(
-    typename Elem<BODY>::T x, int32_t y, const AluConsts& k) {
+constexpr int ALU_E = 16 / (int)sizeof(typename Elem<BODY>::T);
+
+// x = x > c ? x + a : x as a compare and a predicated add
+__device__ __forceinline__ uint32_t add_if_above(uint32_t x, uint32_t c,
+                                                 uint32_t a) {
+  asm("{\n\t.reg .pred p;\n\tsetp.gt.u32 p, %0, %1;\n\t"
+      "@p add.u32 %0, %0, %2;\n\t}"
+      : "+r"(x) : "r"(c), "r"(a));
+  return x;
+}
+
+// round half to even of |f| < 2^22, as jnp.round: the float sum f + 1.5 *
+// 2^23 has a unit last place, so its rounding is the round, and its low
+// mantissa bits are the integer (an FADD and an integer add, where F2I
+// runs on the 16-lane conversion unit)
+__device__ __forceinline__ int round_f32(float f) {
+  return (int)(__float_as_uint(__fadd_rn(f, 12582912.0f)) - 0x4B400000u);
+}
+
+// one round of a body
+template <int BODY>
+__device__ __forceinline__ typename Elem<BODY>::R body(
+    typename Elem<BODY>::R x, uint32_t y, const AluConsts& k) {
+  const uint32_t mul = k.i_mul, add = k.i_add, msk = k.i_mask;
   if constexpr (BODY == VPU) {          // 5 x (x * 3 + 1), & 0xFFFFF
 #pragma unroll
-    for (int i = 0; i < 5; ++i)
-      x = (int32_t)((uint32_t)x * (uint32_t)k.i_mul + (uint32_t)k.i_add);
-    return x & k.i_mask;
+    for (int i = 0; i < 5; ++i) x = x * mul + add;
+    return x & msk;
   } else if constexpr (BODY == F32) {   // 5 x fma(x, 1.0001, 0.5), min 1e6
 #pragma unroll
     for (int i = 0; i < 5; ++i) x = __fmaf_rn(x, k.f_mul, k.f_add);
     return fminf(x, k.f_max);
   } else if constexpr (BODY == BARRETT) {  // x - round(x/p)*p + 2^21
-    const int q = __float2int_rn(__fmul_rn(__int2float_rn(x), k.f_inv_p));
-    return (int32_t)((uint32_t)x - (uint32_t)q * (uint32_t)k.i_p +
-                     (uint32_t)k.i_off);
+    const int q = round_f32(__fmul_rn(__int2float_rn((int32_t)x), k.f_inv_p));
+    return x - (uint32_t)q * (uint32_t)k.i_p + (uint32_t)k.i_off;
   } else if constexpr (BODY == I16) {   // 5 x (x * 12289 + 1) mod 2^16
 #pragma unroll
-    for (int i = 0; i < 5; ++i)
-      x = (int16_t)(uint16_t)((uint32_t)(uint16_t)x * (uint32_t)k.i_mul +
-                              (uint32_t)k.i_add);
+    for (int i = 0; i < 5; ++i) x = x * mul + add;
     return x;
   } else if constexpr (BODY == I32VAR) {  // 5 x ((x * y + 1) & 0xFFFFF)
 #pragma unroll
-    for (int i = 0; i < 5; ++i)
-      x = (int32_t)((uint32_t)x * (uint32_t)y + (uint32_t)k.i_add) &
-          k.i_mask;
+    for (int i = 0; i < 5; ++i) x = (x * y + add) & msk;
     return x;
   } else if constexpr (BODY == CONV) {  // x - round(x/p) + 7
-    const int q = __float2int_rn(__fmul_rn(__int2float_rn(x), k.f_inv_p));
-    return (int32_t)((uint32_t)x - (uint32_t)q + (uint32_t)k.i_off);
+    const int q = round_f32(__fmul_rn(__int2float_rn((int32_t)x), k.f_inv_p));
+    return x - (uint32_t)q + (uint32_t)k.i_off;
   } else {                              // 5 x (x > 5 ? x + 1 : x), unsigned
 #pragma unroll
-    for (int i = 0; i < 5; ++i)
-      x = x > (uint32_t)k.i_mask ? x + (uint32_t)k.i_add : x;
+    for (int i = 0; i < 5; ++i) x = add_if_above(x, msk, add);
     return x;
+  }
+}
+
+// 16 bytes of elements <-> ALU_E registers
+template <int BODY>
+__device__ __forceinline__ void unpack16(uint4 u,
+                                         typename Elem<BODY>::R* v) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (BODY == I16) {
+      v[2 * j] = w[j] & 0xFFFFu;
+      v[2 * j + 1] = w[j] >> 16;
+    } else if constexpr (BODY == F32) {
+      v[j] = __uint_as_float(w[j]);
+    } else {
+      v[j] = w[j];
+    }
   }
 }
 
 template <int BODY>
-__global__ void alu_kernel(const typename Elem<BODY>::T* __restrict__ x,
-                           const int32_t* __restrict__ y,
-                           typename Elem<BODY>::T* __restrict__ out,
-                           long long n, int inner, AluConsts k) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  typename Elem<BODY>::T v = x[i];
-  const int32_t yv = BODY == I32VAR ? y[i] : 0;
+__device__ __forceinline__ uint4 pack16(const typename Elem<BODY>::R* v) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (BODY == I16)
+      w[j] = __byte_perm(v[2 * j], v[2 * j + 1], 0x5410);
+    else if constexpr (BODY == F32)
+      w[j] = __float_as_uint(v[j]);
+    else
+      w[j] = v[j];
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// nvec vectors of ALU_E elements (16 bytes); y (I32VAR) likewise, as words
+template <int BODY>
+__global__ void __launch_bounds__(ALU_THREADS)
+alu_kernel(const uint4* __restrict__ x, const uint4* __restrict__ y,
+           uint4* __restrict__ out, long long nvec, int inner, AluConsts k) {
+  constexpr int E = ALU_E<BODY>;
+  using R = typename Elem<BODY>::R;
+  for (long long i = (long long)blockIdx.x * ALU_THREADS + threadIdx.x;
+       i < nvec; i += (long long)gridDim.x * ALU_THREADS) {
+    R v[E];
+    uint32_t yv[E];
+    unpack16<BODY>(x[i], v);
+    if constexpr (BODY == I32VAR) {
+      const uint4 u = y[i];
+      yv[0] = u.x; yv[1] = u.y; yv[2] = u.z; yv[3] = u.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) yv[e] = 0;
+    }
+    int it = 0;
 #pragma unroll 1
-  for (int it = 0; it < inner; ++it) v = body<BODY>(v, yv, k);
-  out[i] = v;
+    for (; it + ALU_U <= inner; it += ALU_U)
+#pragma unroll
+      for (int u = 0; u < ALU_U; ++u)
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[e] = body<BODY>(v[e], yv[e], k);
+#pragma unroll 1
+    for (; it < inner; ++it)
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = body<BODY>(v[e], yv[e], k);
+    out[i] = pack16<BODY>(v);
+  }
 }
 
 // pk_roll: rows of 1024 u32 words; per round r = roll(x, 128) (r[i] =
-// x[(i - 128) mod 1024]), r += m * (0 - 2r) (mod 2^32), r += 1
+// x[(i - 128) mod 1024]), r += m * (0 - 2r) (mod 2^32), r += 1.  Thread t
+// of a row holds words t + ROLL_SHIFT j in register j (header).
 constexpr int ROLL_N = 1024;
+constexpr int ROLL_SHIFT = 128;
+constexpr int ROLL_SLOTS = ROLL_N / ROLL_SHIFT;   // the renaming's period
 constexpr int ROLL_THREADS = 256;
 
 __global__ void __launch_bounds__(ROLL_THREADS)
 roll_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ m,
-            uint32_t* __restrict__ out, int inner, int shift, uint32_t add) {
-  __shared__ uint32_t buf[2][ROLL_N];
-  const uint32_t* xr = x + (size_t)blockIdx.x * ROLL_N;
-  constexpr int PER = ROLL_N / ROLL_THREADS;
-  uint32_t mk[PER];
+            uint32_t* __restrict__ out, int rows, int inner, uint32_t add) {
+  constexpr int S = ROLL_SLOTS;
+  const long long gt = (long long)blockIdx.x * ROLL_THREADS + threadIdx.x;
+  const long long row = gt / ROLL_SHIFT;
+  const int t = (int)(gt % ROLL_SHIFT);
+  if (row >= rows) return;
+  const uint32_t* xr = x + row * ROLL_N + t;
+  uint32_t v[S], c[S];
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = threadIdx.x + j * ROLL_THREADS;
-    buf[0][i] = xr[i];
-    mk[j] = m[i];
+  for (int j = 0; j < S; ++j) {
+    v[j] = xr[ROLL_SHIFT * j];
+    c[j] = 1u - 2u * m[t + ROLL_SHIFT * j];
   }
-  __syncthreads();
+  // before round k, register j holds slot (j + k) mod S; the round makes it
+  // the word of slot (j + k + 1) mod S, whose constant it takes
+  int it = 0;
 #pragma unroll 1
-  for (int it = 0; it < inner; ++it) {
-    const uint32_t* src = buf[it & 1];
-    uint32_t* dst = buf[(it & 1) ^ 1];
+  for (; it + S <= inner; it += S)
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = threadIdx.x + j * ROLL_THREADS;
-      const uint32_t r = src[(i - shift) & (ROLL_N - 1)];
-      dst[i] = r + mk[j] * (0u - 2u * r) + add;
-    }
-    __syncthreads();
-  }
+    for (int r = 0; r < S; ++r)
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = threadIdx.x + j * ROLL_THREADS;
-    out[(size_t)blockIdx.x * ROLL_N + i] = buf[inner & 1][i];
-  }
+      for (int j = 0; j < S; ++j) v[j] = v[j] * c[(j + r + 1) % S] + add;
+  const int rem = inner - it;
+#pragma unroll
+  for (int r = 0; r < S - 1; ++r)
+    if (r < rem)
+#pragma unroll
+      for (int j = 0; j < S; ++j) v[j] = v[j] * c[(j + r + 1) % S] + add;
+  uint32_t* o = out + row * ROLL_N + t;
+#pragma unroll
+  for (int j = 0; j < S; ++j) o[ROLL_SHIFT * ((j + inner) % S)] = v[j];
 }
 
 template <int BODY>
 int launch_alu(const void* x, const void* y, void* out, long long n,
                int inner, const AluConsts& k, cudaStream_t st) {
-  using T = typename Elem<BODY>::T;
-  const int blocks = (int)((n + 255) / 256);
-  alu_kernel<BODY><<<blocks, 256, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(y),
-      static_cast<T*>(out), n, inner, k);
+  static int resident = 0;   // CTAs the card holds at once
+  if (resident == 0) {
+    int dev, sms, per_sm;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, alu_kernel<BODY>, ALU_THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    resident = sms * per_sm;
+  }
+  const long long nvec = n / ALU_E<BODY>;
+  const long long need = (nvec + ALU_THREADS - 1) / ALU_THREADS;
+  const int blocks = (int)(need < resident ? need : resident);
+  alu_kernel<BODY><<<blocks, ALU_THREADS, 0, st>>>(
+      static_cast<const uint4*>(x), static_cast<const uint4*>(y),
+      static_cast<uint4*>(out), nvec, inner, k);
   return (int)cudaGetLastError();
 }
 
@@ -529,21 +712,35 @@ extern "C" int micro_mm_loop(int mode, int bt, void* lhs, void* lhs2,
 extern "C" int micro_smallk(const void* w, const void* a, void* out, int Y,
                             int inner, int mask, void* stream) {
   if (Y <= 0 || inner < 0) return (int)cudaErrorInvalidValue;
-  smallk_kernel<<<(Y + 255) / 256, 256, 0,
-                  reinterpret_cast<cudaStream_t>(stream)>>>(
+  constexpr int cols = 16 * SK_GR * SK_TW;   // columns a warp
+  const long long warps = ((long long)Y + cols - 1) / cols;
+  const int blocks = (int)((warps * 32 + SK_THREADS - 1) / SK_THREADS);
+  smallk_kernel<SK_GR, SK_TW><<<blocks, SK_THREADS, 0,
+                                reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(w), static_cast<const int8_t*>(a),
-      static_cast<int8_t*>(out), Y, inner, mask);
+      static_cast<int8_t*>(out), Y, inner,
+      (uint32_t)(mask & 0xFF) * 0x01010101u);
   return (int)cudaGetLastError();
 }
 
 // body: 0 vpu, 1 f32, 2 barrett, 3 i16, 4 i32var (y [n] int32), 5 conv,
-// 6 select; x and out [n] of the body's element type.
+// 6 select; x and out [n] of the body's element type, n a multiple of 16
+// bytes' elements, every pointer 16-byte aligned.
 extern "C" int micro_alu(int body_id, const void* x, const void* y,
                          void* out, long long n, int inner, int i_mul,
                          int i_add, int i_mask, int i_p, int i_off,
                          float f_mul, float f_add, float f_max,
                          float f_inv_p, void* stream) {
-  if (n <= 0 || inner < 0) return (int)cudaErrorInvalidValue;
+  const int bytes = body_id == I16 ? 2 : 4;
+  const auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  // the float round's range: |x / p| <= 2^31 |1/p| < 2^22
+  const bool rounds = body_id == BARRETT || body_id == CONV;
+  if (n <= 0 || inner < 0 || n * bytes % 16 != 0 || misaligned(x) ||
+      misaligned(out) || (body_id == I32VAR && misaligned(y)) ||
+      (rounds && !(f_inv_p >= -0x1p-10f && f_inv_p <= 0x1p-10f)))
+    return (int)cudaErrorInvalidValue;
   const AluConsts k{i_mul, i_add, i_mask, i_p, i_off,
                     f_mul, f_add, f_max, f_inv_p};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -559,14 +756,17 @@ extern "C" int micro_alu(int body_id, const void* x, const void* y,
   }
 }
 
-// x, out uint32 [rows, 1024], m uint32 [1024]
+// x, out uint32 [rows, 1024], m uint32 [1024]; shift must be ROLL_SHIFT
+// (the kernel's renaming is fixed at compile time).
 extern "C" int micro_roll(const void* x, const void* m, void* out, int rows,
                           int inner, int shift, unsigned add, void* stream) {
-  if (rows <= 0 || inner < 0) return (int)cudaErrorInvalidValue;
-  roll_kernel<<<rows, ROLL_THREADS, 0,
-                reinterpret_cast<cudaStream_t>(stream)>>>(
+  if (rows <= 0 || inner < 0 || shift != ROLL_SHIFT)
+    return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)rows * ROLL_SHIFT;
+  roll_kernel<<<(int)((threads + ROLL_THREADS - 1) / ROLL_THREADS),
+                ROLL_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(m),
-      static_cast<uint32_t*>(out), inner, shift, add);
+      static_cast<uint32_t*>(out), rows, inner, add);
   return (int)cudaGetLastError();
 }
 

@@ -48,7 +48,17 @@ MASK32 = 0xFFFFFFFF
 BARRETT_P = 59393                  # PRIMES1[3] of iyokan_tpu/crypto/polymul
 F32_MUL, F32_ADD, F32_MAX = np.float32(1.0001), np.float32(0.5), \
     np.float32(1e6)
-ROLL_SHIFT = 128
+ROLL_SHIFT = 128                   # the only shift roll_kernel is built for
+
+# the elementwise kernels' unrolling (csrc/micro.cu): alu_kernel runs
+# ALU_UNROLL rounds an iteration on 16 bytes of elements a thread;
+# roll_kernel ROLL_PERIOD = 1024 / ROLL_SHIFT rounds (its renaming's
+# period) on as many words a thread
+ALU_UNROLL = 4
+ROLL_PERIOD = 1024 // ROLL_SHIFT
+# smallk_kernel packs SMALLK_GROUPS columns of a into a row of its mma.sync
+# fragments (m16n8k16: twice the real MACs)
+SMALLK_GROUPS = 2
 
 # body -> (C id, dtype, the tool's ops per element and round, extras)
 BODIES = {
@@ -497,6 +507,13 @@ def alu_operands(body: str, device, rng=None, rows: int = 512) -> list:
     return [torch.from_numpy(a).to(device) for a in ins]
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (the kernels' vector
+    loads): t itself where it is, else a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def alu_loop_ref(x, body: str, inner: int, *extra):
     """The twin of alu_loop."""
     for _ in range(inner):
@@ -517,7 +534,7 @@ def alu_loop(x: torch.Tensor, body: str, inner: int, *extra):
     if not _operands(x, dtype=dtype):
         return alu_loop_ref(x, body, inner, *extra)
     lib = _lib()
-    x = x.contiguous()
+    x = _aligned(x)
     out = torch.empty_like(x)
     if body == "roll":
         m = extra[0].reshape(-1)
@@ -528,12 +545,17 @@ def alu_loop(x: torch.Tensor, body: str, inner: int, *extra):
                             out.data_ptr(), x.numel() // 1024, inner,
                             ROLL_SHIFT, 1, _stream(x))
     else:
+        per = 16 // x.element_size()
+        if x.numel() % per:
+            raise ValueError(f"{body}: the kernel takes 16 bytes a thread; "
+                             f"{x.numel()} elements is not a multiple of "
+                             f"{per}")
         y = None
         if body == "i32var":
-            y = extra[0].contiguous()
-            if y.shape != x.shape:
+            if extra[0].shape != x.shape:
                 raise ValueError("i32var: y must have x's shape")
-            _operands(x, y, dtype=torch.int32)
+            _operands(x, extra[0], dtype=torch.int32)
+            y = _aligned(extra[0])
         # integers: multiplier, addend, mask (select: the threshold),
         # prime, offset; floats: multiplier, addend, clamp, 1/p
         ints = {"vpu": (3, 1, 0xFFFFF, 0, 0), "barrett": (0, 0, 0, BARRETT_P,

@@ -72,14 +72,18 @@ def load_spec(arg: str) -> dict:
         return json.load(f)
 
 
-def prepare(variants: dict) -> list:
+def prepare(variants: dict, root: str = OUT,
+            cumulative: bool = True) -> list:
     """[(name, source directory)]: each variant's edits applied to a copy
-    of the previous variant's sources (the first: of csrc/); a variant
-    without edits keeps the previous directory."""
+    of the previous variant's sources (the first: of csrc/; with
+    cumulative False, every one of csrc/), under root; a variant without
+    edits keeps the previous directory (csrc/)."""
     out, src = [], nvcc.CSRC
     for name, edits in variants.items():
+        if not cumulative:
+            src = nvcc.CSRC
         if edits:
-            d = os.path.join(OUT, name)
+            d = os.path.join(root, name)
             shutil.rmtree(d, ignore_errors=True)
             shutil.copytree(src, d, ignore=shutil.ignore_patterns("build"))
             for fn, pat, rep in edits:

@@ -3,7 +3,8 @@
   timed_ms(fn, reps, device)   mean ms of fn() over reps calls: CUDA events
                                on the card, the host clock on the CPU;
   marginal(run, n, device)     seconds per unit of run(n) by the difference
-                               method, (t(run(4n)) - t(run(n))) / 3n;
+                               method, (t(run(4n)) - t(run(n))) / 3n (after
+                               warm_s seconds of run(n));
   int_mm_ms(a, b, reps)        mean ms of torch._int_mm(a, b) after a
                                warm-up (raises what torch._int_mm raises).
 
@@ -35,9 +36,17 @@ def timed_ms(fn, reps: int, device) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def marginal(run, n: int, device) -> float:
+def marginal(run, n: int, device, warm_s: float = 0.0) -> float:
     """Seconds per unit: (t(run(4n)) - t(run(n))) / 3n, each the minimum of
-    3 runs after a warm-up of both."""
+    3 runs after a warm-up of both, and first of warm_s seconds of run(n):
+    a card that idled (while a twin ran on the host) climbs back to its
+    clock during the first runs, which inflates t(n) and shrinks the
+    difference."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        run(n)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
     run(n)
     run(4 * n)
     if torch.device(device).type == "cuda":

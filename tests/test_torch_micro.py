@@ -17,6 +17,7 @@ card.
 
 import importlib.util
 import os
+import re
 import sys
 import zlib
 
@@ -314,6 +315,214 @@ def test_step_plan_covers_the_card(name, cfg):
 
 
 # --------------------------------------------------------------------------- #
+# CPU models of the kernels' register layouts (csrc/micro.cu)
+# --------------------------------------------------------------------------- #
+
+# the PTX ISA's fragment tables of mma.sync m16n8k16 / m16n8k32 with s8
+# operands (GR = 2 / 4 registers of A), for lane (g, q) = (lane / 4,
+# lane % 4): A row-major 16 x 8GR, B column-major 8GR x 8, C s32 16 x 8
+
+
+def _a_pos(g, q, r, b):
+    """(row, k) of byte b of A register r."""
+    return g + 8 * (r % 2), 16 * (r // 2) + 4 * q + b
+
+
+def _b_pos(g, q, s, b):
+    """(k, n) of byte b of B register s."""
+    return 16 * s + 4 * q + b, g
+
+
+def _c_pos(g, q, i):
+    """(row, n) of C element i."""
+    return g + 8 * (i // 2), 2 * q + i % 2
+
+
+def _smallk_pi(GR):
+    """{C column 8 nt + n: A column} of the kernel's repacking: element
+    i = 2h + e of n-tile nt goes to byte 2 (nt % 2) + e of A register
+    2 (nt / 2) + h, in the same lane; raises unless every lane and row
+    agrees on the row and the column."""
+    pi = {}
+    for lane in range(32):
+        g, q = lane // 4, lane % 4
+        for nt in range(GR):
+            for i in range(4):
+                row, n = _c_pos(g, q, i)
+                h, e = i // 2, i % 2
+                arow, k = _a_pos(g, q, 2 * (nt // 2) + h, 2 * (nt % 2) + e)
+                assert arow == row, (lane, nt, i)
+                assert pi.setdefault(8 * nt + n, k) == k, (lane, nt, i)
+    return pi
+
+
+@pytest.mark.parametrize("GR", (2, 4))
+def test_smallk_fragment_permutation_is_a_bijection(GR):
+    """The repacking pi of smallk_kernel<GR> takes every C column of a
+    row to one A column of the same row in the same lane, one to one, so
+    a round's results become the next round's A fragment with no
+    shuffle."""
+    pi = _smallk_pi(GR)
+    assert sorted(pi) == list(range(8 * GR))
+    assert sorted(pi.values()) == list(range(8 * GR))
+
+
+def _smallk_model(w, a, inner, mask, GR, TW=2):
+    """smallk_kernel<GR, TW>'s schedule in torch: tiles of 16 rows x 8 GR
+    bytes, A column pi(8 g + c) holding component c of group g (the
+    column y = 16 GR tile + 16 g + row), B the block diagonal of W^T with
+    its rows permuted by pi and built as the kernel builds its registers,
+    a round [rows, 8 GR] x [8 GR, 8 GR] then the low byte of each sum &
+    mask back in pi order."""
+    pi = _smallk_pi(GR)
+    K = 8 * GR
+    group = {k: c // 8 for c, k in pi.items()}
+    comp = {k: c % 8 for c, k in pi.items()}
+    # B as the kernel loads it: register s of n-tile nt, byte b, lane (g, q)
+    # holds W[g][2q + b % 2] where group 2s + b / 2 is nt
+    B = torch.zeros((K, K), dtype=torch.int64)
+    for lane in range(32):
+        g, q = lane // 4, lane % 4
+        for nt in range(GR):
+            for s in range(GR // 2):
+                for b in range(4):
+                    k, n = _b_pos(g, q, s, b)
+                    if 2 * s + b // 2 == nt:
+                        B[k, 8 * nt + n] = int(w[g, 2 * q + b % 2])
+    # ... which is the block diagonal of W^T with rows permuted by pi
+    want_b = torch.zeros((K, K), dtype=torch.int64)
+    for k in range(K):
+        for c in range(K):
+            if group[k] == c // 8:
+                want_b[k, c] = int(w[c % 8, comp[k]])
+    assert torch.equal(B, want_b)
+    a = a.reshape(8, -1).to(torch.int64)
+    Y = a.shape[1]
+    tiles = -(-Y // (16 * GR * TW)) * TW
+    A = torch.zeros((16 * tiles, K), dtype=torch.int64)
+    y = torch.tensor([[16 * GR * (r // 16) + 16 * group[k] + r % 16
+                       for k in range(K)] for r in range(16 * tiles)])
+    cmp = torch.tensor([comp[k] for k in range(K)]).expand_as(y)
+    live = y < Y
+    A[live] = a[cmp[live], y[live]]
+    order = torch.tensor([pi[c] for c in range(K)])
+    for _ in range(inner):
+        C = A @ B
+        nxt = torch.empty_like(A)
+        nxt[:, order] = micro._wrap(C & mask, 8)
+        A = nxt
+    out = torch.zeros((8, Y), dtype=torch.int64)
+    out[cmp[live], y[live]] = A[live]
+    return out.to(torch.int8)
+
+
+@pytest.mark.parametrize("GR", (2, 4))
+@pytest.mark.parametrize("mask", (63, 127, 255))
+def test_smallk_schedule_model_equals_twin(GR, mask):
+    """The kernel's schedule (fragment layout, permuted B, repacking) ==
+    smallk_loop_ref, at inner 0, 1, 2, 5 and a Y that fills no tile."""
+    rng = np.random.default_rng(GR * 1000 + mask)
+    w = _t(_i8(rng, (8, 8)))
+    for Y in (16 * 8 * GR + 13, 5):
+        a = _t(_i8(rng, (8, Y)))
+        for inner in (0, 1, 2, 5):
+            got = _smallk_model(w, a, inner, mask, GR)
+            assert torch.equal(got, micro.smallk_loop_ref(w, a, inner,
+                                                          mask)), (Y, inner)
+
+
+def _roll_model(x, m, inner):
+    """roll_kernel's renaming in torch: thread t of a row keeps word t +
+    ROLL_SHIFT j in register j; before round k register j holds slot (j +
+    k) mod P (P = ROLL_PERIOD) and a round is v[j] = v[j] c[(j + k + 1)
+    mod P] + 1 with c[s] = 1 - 2 m[t + ROLL_SHIFT s]; the rounds run P at
+    a time, the rest after; register j is stored at slot (j + inner) mod
+    P."""
+    P, S = micro.ROLL_PERIOD, micro.ROLL_SHIFT
+    M32 = micro.MASK32
+    xs = x.reshape(-1, P, S).to(torch.int64) & M32    # [row, slot, t]
+    c = (1 - 2 * (m.reshape(P, S).to(torch.int64) & M32)) & M32
+    v = [xs[:, j] for j in range(P)]
+    full = inner - inner % P
+    for k in list(range(0, full, P)) + [full]:
+        for r in range(P if k < full else inner - full):
+            v = [(v[j] * c[(j + r + 1) % P] + 1) & M32 for j in range(P)]
+    out = torch.empty_like(xs)
+    slots = [(j + inner) % P for j in range(P)]
+    assert sorted(slots) == list(range(P))          # every word stored once
+    for j in range(P):
+        out[:, slots[j]] = v[j]
+    return micro._wrap(out.reshape(x.shape)).to(torch.int32)
+
+
+def test_roll_renaming_model_equals_twin():
+    """roll_kernel's register renaming == the twin (torch.roll each round)
+    for inner 0..17, two periods and a remainder, on random words and a
+    random mask (not only 0/1)."""
+    rng = np.random.default_rng(17)
+    x = _t(rng.integers(-2**31, 2**31, (3, 2, 1024), dtype=np.int32))
+    for m in (_t(rng.integers(0, 2, (1, 1, 1024), dtype=np.int32)),
+              _t(rng.integers(-2**31, 2**31, (1, 1, 1024), dtype=np.int32))):
+        for inner in range(18):
+            assert torch.equal(_roll_model(x, m, inner),
+                               micro.alu_loop_ref(x, "roll", inner, m)), inner
+
+
+def test_kernel_constants_match_the_source():
+    """ops/micro.py's copies of csrc/micro.cu's layout constants (the
+    chip run divides SASS counts by them; the tests pick round counts off
+    the unrolling by them) are the source's."""
+    src = open(os.path.join(ROOT, "iyokan_tpu_torch", "csrc",
+                            "micro.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("ALU_U") == micro.ALU_UNROLL
+    assert const("ROLL_SHIFT") == micro.ROLL_SHIFT
+    assert const("ROLL_N") // const("ROLL_SHIFT") == micro.ROLL_PERIOD
+    assert const("SK_GR") == micro.SMALLK_GROUPS
+
+
+def test_micro_forms_spec_edits_the_source(tmp_path):
+    """tools/micro_forms.json (micro_variants' comparison of the loops'
+    forms): every variant's edits match csrc/micro.cu, each on its own
+    copy of csrc/, and a variant without edits is csrc/ itself."""
+    from iyokan_tpu_torch.ops import nvcc
+    from iyokan_tpu_torch.tools import br_variants
+    spec = br_variants.load_spec(os.path.join(
+        ROOT, "iyokan_tpu_torch", "tools", "micro_forms.json"))
+    dirs = dict(br_variants.prepare(spec, str(tmp_path), cumulative=False))
+    base = open(os.path.join(nvcc.CSRC, "micro.cu")).read()
+    for name, edits in spec.items():
+        if not edits:
+            assert dirs[name] == nvcc.CSRC
+            continue
+        text = open(os.path.join(dirs[name], "micro.cu")).read()
+        assert text != base, name
+        want = base
+        for _, pat, rep in edits:
+            want = re.sub(pat, rep, want)
+        assert text == want, name
+
+
+def test_float_round_by_magic_add_is_round_half_even():
+    """alu_kernel's round of |f| < 2^22 (barrett, conv): the bits of f +
+    1.5 * 2^23 less 0x4B400000 == round half to even, at ties, near the
+    range's ends and on the bodies' own products x * f32(1/p)."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(-2**31, 2**31, 200000, dtype=np.int64)
+    f = np.concatenate([
+        x.astype(np.float32) * np.float32(1.0 / micro.BARRETT_P),
+        x.astype(np.float32) * np.float32(2.0 ** -10),   # micro_alu's limit
+        np.arange(-40, 41, dtype=np.float32) / 2,        # ties
+        np.float32([2**22 - 0.5, -2**22 + 0.5, 2**21 + 0.5, -0.0])])
+    assert np.abs(f).max() < 2**22
+    s = (f + np.float32(12582912.0)).astype(np.float32)
+    got = (s.view(np.uint32).astype(np.int64) - 0x4B400000)
+    assert np.array_equal(got, np.round(f).astype(np.int64))
+
+
+# --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
 
@@ -378,9 +587,43 @@ def test_matrix_kernels_equal_twins_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("body", BODIES)
 def test_alu_kernel_equals_twin_on_card(body):
+    """Each body's kernel == its twin at round counts on and off the
+    kernel's unrolling (ALU_UNROLL; roll: ROLL_PERIOD)."""
     _card()
     ins = [_t(a) for a in _alu_inputs(body, np.random.default_rng(7))]
-    assert _same(*_both(micro.alu_loop, ins[0], body, 5, *ins[1:]))
+    U = micro.ROLL_PERIOD if body == "roll" else micro.ALU_UNROLL
+    for inner in (0, 1, U - 1, U, U + 1, 2 * U + 3):
+        assert _same(*_both(micro.alu_loop, ins[0], body, inner,
+                            *ins[1:])), inner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((8, 1000), (8, 3, 37), (8, 3072, 128)))
+def test_smallk_kernel_equals_twin_on_card(shape):
+    """The mma.sync small-K loop == its twin at round counts on and off its
+    unrolling, at Y = 1000 and 111 (tails of its 64-column warps) and
+    pk_smallk's own 393,216, for the masks 63, 127 and 255."""
+    _card()
+    rng = np.random.default_rng(shape[1])
+    w, a = _t(_i8(rng, (8, 8))), _t(_i8(rng, shape))
+    for mask in (63, 127, 255):
+        for inner in (0, 1, 2, 3, 7):
+            assert _same(*_both(micro.smallk_loop, w, a, inner, mask)), (
+                mask, inner)
+
+
+@pytest.mark.cuda
+def test_alu_kernel_refuses_what_its_layout_does_not_take():
+    """16 bytes a thread: a body whose elements are not a multiple of 16
+    bytes raises on the card (the twin takes any shape)."""
+    _card()
+    x = torch.ones(6, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16 bytes"):
+        micro.alu_loop(x, "vpu", 3)
+    with pytest.raises(ValueError, match="1024"):
+        micro.alu_loop(torch.ones((2, 512), dtype=torch.int32,
+                                  device="cuda"), "roll", 3,
+                       torch.ones(512, dtype=torch.int32, device="cuda"))
 
 
 @pytest.mark.cuda
