@@ -1441,7 +1441,8 @@ def phase_micro(smi):
         micro_check(f"smallk_loop inner={n}",
                     lambda u, v: micro.smallk_loop(u, v, n),
                     lambda u, v: micro.smallk_loop_ref(u, v, n),
-                    [("random", (w, a))])
+                    [("random", (w, a)), ("all-ones", (ones_i8(w.shape),
+                                                       ones_i8(a.shape)))])
     k_ms = marginal_ms(lambda n: micro.smallk_loop(w, a, n), TIME_INNER)
     Y = a[0].numel()
     record("smallk_loop pk_smallk", "tools/microbench.py:435",
@@ -1457,17 +1458,17 @@ def phase_micro(smi):
     # T3b: the elementwise bodies
     for body, (_, dtype, per_elem, _) in micro.BODIES.items():
         ins = micro.alu_operands(body, "cuda", rng)
+        sets = [("random", ins),
+                ("all-ones", micro.alu_operands(body, "cuda"))]
         checked = micro_check(
             f"alu_loop {body}",
             lambda *u: micro.alu_loop(u[0], body, I, *u[1:]),
-            lambda *u: micro.alu_loop_ref(u[0], body, I, *u[1:]),
-            [("random", ins),
-             ("all-ones", micro.alu_operands(body, "cuda"))], I)
+            lambda *u: micro.alu_loop_ref(u[0], body, I, *u[1:]), sets, I)
         for n in OFF_UNROLL["roll" if body == "roll" else "alu"]:
             micro_check(f"alu_loop {body} inner={n}",
                         lambda *u: micro.alu_loop(u[0], body, n, *u[1:]),
                         lambda *u: micro.alu_loop_ref(u[0], body, n, *u[1:]),
-                        [("random", ins)])
+                        sets)
         k_ms = marginal_ms(lambda n: micro.alu_loop(ins[0], body, n,
                                                     *ins[1:]), TIME_INNER)
         io = (2 * ins[0].nbytes + sum(e.nbytes for e in ins[1:])) / I

@@ -615,7 +615,8 @@ def test_smallk_kernel_equals_twin_on_card(shape):
 @pytest.mark.cuda
 def test_alu_kernel_refuses_what_its_layout_does_not_take():
     """16 bytes a thread: a body whose elements are not a multiple of 16
-    bytes raises on the card (the twin takes any shape)."""
+    bytes raises on the card (the twin takes any shape), as do a roll row
+    of other than 1024 words and a shift other than 128."""
     _card()
     x = torch.ones(6, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="16 bytes"):
@@ -624,6 +625,12 @@ def test_alu_kernel_refuses_what_its_layout_does_not_take():
         micro.alu_loop(torch.ones((2, 512), dtype=torch.int32,
                                   device="cuda"), "roll", 3,
                        torch.ones(512, dtype=torch.int32, device="cuda"))
+    # roll_kernel's renaming is built for ROLL_SHIFT = 128 alone
+    x = torch.ones((2, 1024), dtype=torch.int32, device="cuda")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(micro, "ROLL_SHIFT", 64)
+        with pytest.raises(RuntimeError, match="micro_alu launch failed"):
+            micro.alu_loop(x, "roll", 3, torch.ones_like(x[0]))
 
 
 @pytest.mark.cuda
