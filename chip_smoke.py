@@ -104,7 +104,30 @@ Phases, one line each or more:
                    equals plain mode and the integers, and K3's launch count
                    grew from 0 during the encrypted run, its last launch a
                    grid of clusters of 4;
- 14. micro      -- the microbenchmark tools T1-T3 (csrc/micro.cu): the SASS
+ 14. fusion     -- the engine's execution modes as CUDA graphs: first
+                   DeviceKeys.from_evalkey twice on an empty slab disk cache
+                   (IYOKAN_SLAB_CACHE; the in-process cache cleared before
+                   each): build + write, then read, the read slab == the
+                   built one, both times; then MAC-16 x 3 cycles on the
+                   tkey route (K1's mma.sync form) and on v3 (K3) under
+                   IYOKAN_FUSE_LEVELS=1, 8 and all (IYOKAN_SCAN_CHUNK=2),
+                   on pallas (K5, IYOKAN_UNROLL_MAX=0) under 1 and all, and
+                   memmac x 3 cycles under 1 and all at
+                   IYOKAN_RAM_REFRESH_PERIOD=2 (cycles 1-2 one span of
+                   refresh flags [on, off]: CB, K6, the ROM/RAM trees, both
+                   refresh graphs, K1's wgmma form), through the Frontend:
+                   each fused result packet (RAM images included) == the
+                   route's FUSE=1 packet byte for byte, decrypted == plain
+                   == the integers; every level group, cycle and scan
+                   prologue a graph replayed once per use, the route's
+                   kernels launched by the replays; s/cycle beside FUSE=1's,
+                   graphs captured and replayed, the wrapper launches and
+                   nodes each holds (cuGraphGetNodes), warm-up, capture and
+                   instantiation seconds, the graph pool's bytes.  Phases
+                   7, 8, 10 and 13 pin IYOKAN_FUSE_LEVELS=1 (level by
+                   level), so their numbers stay comparable with earlier
+                   runs;
+ 15. micro      -- the microbenchmark tools T1-T3 (csrc/micro.cu): the SASS
                    opcodes of each elementwise and small-K inner loop; the
                    tools' entry points as a user runs them (tk_mm_bench at
                    BG 512 and 2048 x STEPS 100, tk_width_bench's six cases at
@@ -793,6 +816,15 @@ SLICE_ROUTES = {
 }
 
 
+def mac_operands(W, cycles):
+    """The MAC-W runs' operands a, b (one a cycle, from SEED) and the
+    accumulator they must give."""
+    rng = np.random.default_rng(SEED)
+    av = [int(x) for x in rng.integers(0, 1 << W, cycles)]
+    bv = [int(x) for x in rng.integers(0, 1 << W, cycles)]
+    return av, bv, sum(x * y for x, y in zip(av, bv)) % (1 << (2 * W))
+
+
 def phase_slice(smi, phase="slice"):
     """MAC-16 through the CLIs at cggi128: encrypted == plain == integers.
     "slice" runs the default (tkey) route on fresh keys and request; the
@@ -801,10 +833,7 @@ def phase_slice(smi, phase="slice"):
     env, route_launches = SLICE_ROUTES[phase]
     W, cycles = 16, SLICE_CYCLES
     bp_path = os.path.join(ROOT, "tests", "data", f"mac{W}.toml")
-    rng = np.random.default_rng(SEED)
-    av = [int(x) for x in rng.integers(0, 1 << W, cycles)]
-    bv = [int(x) for x in rng.integers(0, 1 << W, cycles)]
-    want = sum(x * y for x, y in zip(av, bv)) % (1 << (2 * W))
+    av, bv, want = mac_operands(W, cycles)
 
     def stream(vals):
         bits = np.array([(v >> k) & 1 for v in vals for k in range(W)],
@@ -848,7 +877,9 @@ def phase_slice(smi, phase="slice"):
     reset_launches()
     t0 = time.time()
     try:
-        with knobs(**env):
+        # level by level, comparable with earlier runs (phase 14 runs
+        # the execution modes)
+        with knobs(IYOKAN_FUSE_LEVELS="1", **env):
             iyokan_cli.main(["tfhe", "--blueprint", bp_path, "-i",
                              f["req.enc"], "-o", f["res.enc"], "--evalkey",
                              f["ek"], "-c", str(cycles), "--quiet"])
@@ -1035,9 +1066,10 @@ def phase_memory(files, data, smi):
     reset_launches()
     t0 = time.time()
     try:
-        iyokan_cli.main(["tfhe", "--blueprint", bp_path, "-i", f["req.enc"],
-                         "-o", f["res.enc"], "--evalkey", f["ek"],
-                         "-c", str(cycles), "--quiet"])
+        with knobs(IYOKAN_FUSE_LEVELS="1"):
+            iyokan_cli.main(["tfhe", "--blueprint", bp_path, "-i",
+                             f["req.enc"], "-o", f["res.enc"], "--evalkey",
+                             f["ek"], "-c", str(cycles), "--quiet"])
     finally:
         lg.removeHandler(handler)
         lg.propagate = True
@@ -1088,7 +1120,288 @@ def phase_memory(files, data, smi):
     return launches, s_cycle, stages
 
 
-# Phase 14: the microbenchmark tools (T1-T3) at their own full shapes
+# Phase 14: the execution modes (engine/tfhe.py) as CUDA graphs.  Each
+# route's IYOKAN_FUSE_LEVELS=1 run first (the reference), then its fused
+# runs: (label, blueprint, memory design?, route knobs, [mode knobs], the
+# launch counts the graphs' replays must raise).  The pallas route takes
+# IYOKAN_UNROLL_MAX=0, or its batches of at most 256 rows would take the
+# unrolled key (extprod1 per key-bit pair) instead of K5.
+SCAN2 = {"IYOKAN_FUSE_LEVELS": "all", "IYOKAN_SCAN_CHUNK": "2"}
+FUSION_RUNS = (
+    ("tkey", "mac16.toml", False, {}, [{"IYOKAN_FUSE_LEVELS": "8"}, SCAN2],
+     ("tkey.FORM_LAUNCHES.mma",)),
+    ("v3", "mac16.toml", False, {"IYOKAN_BR_IMPL": "v3"},
+     [{"IYOKAN_FUSE_LEVELS": "8"}, SCAN2], ("br3.LAUNCHES",)),
+    ("pallas", "mac16.toml", False,
+     {"IYOKAN_BR_IMPL": "pallas", "IYOKAN_UNROLL_MAX": "0"}, [SCAN2],
+     ("br.STEP_LAUNCHES",)),
+    ("memmac", "memmac.toml", True, {"IYOKAN_RAM_REFRESH_PERIOD": "2"},
+     [SCAN2], ("tkey.FORM_LAUNCHES.mma", "tkey.FORM_LAUNCHES.wgmma",
+               "extprod.LAUNCHES")),
+)
+
+
+def slab_cache_times(ek):
+    """DeviceKeys.from_evalkey twice on an empty slab disk cache, the
+    in-process cache cleared before each: the first builds the slab and
+    writes it, the second reads it.  Returns (build s, read s, MiB)."""
+    d = os.path.join(WORK, "slabs")
+    shutil.rmtree(d, ignore_errors=True)
+    times, slabs = [], []
+    with knobs(IYOKAN_SLAB_CACHE=d):
+        for _ in range(2):
+            ops.clear_device_key_cache()
+            t0 = time.time()
+            dk = ops.DeviceKeys.from_evalkey(ek, "cuda", with_cb=False)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            slabs.append(dk.bk_tk)
+    files = os.listdir(d)
+    if len(files) != 1 or not torch.equal(slabs[0], slabs[1]):
+        raise AssertionError(f"slab disk cache: files {files}, read slab "
+                             "!= built slab")
+    mib = os.path.getsize(os.path.join(d, files[0])) / 2**20
+    shutil.rmtree(d, ignore_errors=True)
+    return times[0], times[1], mib
+
+
+def fused_run(bp_path, req, ek, env, cycles):
+    """One tfhe run through the Frontend under the knobs env: (result
+    packet, [(cycles, us)] of each logged cycle or span, the engine's
+    graph records, launches by the wrappers (warm-ups and anything run
+    eagerly) and by the graphs' replays)."""
+    from iyokan_tpu_torch.engine import tfhe
+    from iyokan_tpu_torch.engine.driver import Frontend
+
+    lines = []
+
+    class Spans(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            m = re.match(r"#(\d+)\.\.#(\d+)", msg)
+            if m:
+                lines.append([int(m.group(2)) - int(m.group(1)) + 1, None])
+            elif re.match(r"#\d+$", msg):
+                lines.append([1, None])
+            m = re.match(r"\s*done\. \((\d+) us\)", msg)
+            if m:
+                lines[-1][1] = int(m.group(1))
+
+    lg = logging.getLogger("iyokan")
+    lg.setLevel(logging.INFO)
+    handler = Spans()
+    lg.addHandler(handler)
+    reset_launches()
+    try:
+        with knobs(**env):
+            fe = Frontend("tfhe", Blueprint(bp_path), req, eval_key=ek,
+                          device="cuda")
+            fe.go(cycles)
+            res = fe.make_result_packet()
+    finally:
+        lg.removeHandler(handler)
+    eng = fe.engine
+    out = (res, lines, eng.graph_stats(), tfhe.launch_counts(),
+           eng.graph_launches())
+    del fe, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fusion(smi, mem_files, mem_data):
+    """MAC-16 on tkey, v3 and pallas and memmac on tkey, FUSION_CYCLES
+    cycles at cggi128, each route under IYOKAN_FUSE_LEVELS=1 and its fused
+    modes: every fused result packet (RAM images included) == the route's
+    FUSE=1 packet byte for byte, decrypted == plain == integers, every
+    fused group, cycle and scan prologue a graph replayed once per use."""
+    from iyokan_tpu_torch.engine.driver import Frontend
+
+    W, cycles = 16, SLICE_CYCLES
+    f = {k: os.path.join(WORK, k) for k in ("sk", "ek", "req.enc",
+                                            "req.plain")}
+    sk, ek = host.SecretKey.load(f["sk"]), host.EvalKey.load(f["ek"])
+    t_build, t_read, mib = slab_cache_times(ek)
+    say("fusion", f"slab disk cache: DeviceKeys.from_evalkey {t_build:.2f} "
+        f"s building and writing the slab ({mib:.0f} MiB .npy), "
+        f"{t_read:.2f} s reading it back (in-process cache cleared "
+        f"before each); read slab == built slab; {smi}")
+    _, _, want_acc = mac_operands(W, cycles)
+    rom, rams, streams = mem_data
+    want_mem, want_ram = gen_mac.memmac_expected(rom, rams, streams, cycles)
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    out = []
+    for label, bp_name, mem, route, modes, must in FUSION_RUNS:
+        bp_path = os.path.join(ROOT, "tests", "data", bp_name)
+        files = mem_files if mem else f
+        r_sk = host.SecretKey.load(files["sk"])
+        r_ek = ek if not mem else host.EvalKey.load(files["ek"])
+        req = packet_mod.TFHEPacket.load(files["req.enc"])
+        plain_fe = Frontend("plain", Blueprint(bp_path),
+                            packet_mod.PlainPacket.load(files["req.plain"]),
+                            device="cuda")
+        plain_fe.go(cycles)
+        plain = plain_fe.make_result_packet()
+        ref_path = os.path.join(WORK, f"fusion.{label}.1.res")
+        for mode in [{"IYOKAN_FUSE_LEVELS": "1"}] + modes:
+            env = {**route, "IYOKAN_SCAN_CHUNK": None, **mode}
+            res, lines, graphs, eager, replayed = fused_run(
+                bp_path, req, r_ek, env, cycles)
+            tag = " ".join(f"{k[7:]}={v}" for k, v in mode.items())
+            path = os.path.join(WORK, f"fusion.{label}.res")
+            res.save(path)
+            if mode["IYOKAN_FUSE_LEVELS"] == "1":
+                shutil.copy(path, ref_path)
+            with open(path, "rb") as a, open(ref_path, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"fusion {label} {tag}: result "
+                                         "packet != the FUSE=1 packet")
+            dec = res.decrypt(r_sk)
+            if mem:
+                word = lambda bits: sum(int(b) << k for k, b in  # noqa
+                                        enumerate(bits))
+                for name, v in want_mem.items():
+                    if not word(dec.bits[name]) == word(
+                            plain.bits[name]) == v:
+                        raise AssertionError(f"fusion {label} {tag}: "
+                                             f"@{name} wrong")
+                for name, bits in want_ram.items():
+                    if not (np.array_equal(dec.ram[name], plain.ram[name])
+                            and np.array_equal(dec.ram[name], bits)):
+                        raise AssertionError(f"fusion {label} {tag}: RAM "
+                                             f"{name} wrong")
+            else:
+                acc = sum(int(b) << k for k, b in enumerate(dec.bits["acc"]))
+                p_acc = sum(int(b) << k
+                            for k, b in enumerate(plain.bits["acc"]))
+                if not acc == p_acc == want_acc:
+                    raise AssertionError(f"fusion {label} {tag}: acc {acc} "
+                                         f"/ plain {p_acc} / {want_acc}")
+            # the reset settle and each cycle outside a span
+            settles = (Blueprint(bp_path).at("reset") is not None) + sum(
+                1 for n, _ in lines if n == 1)
+            if mode["IYOKAN_FUSE_LEVELS"] != "1":
+                check_replays(label, tag, graphs, lines, settles)
+                if not all(replayed.get(k) for k in must):
+                    raise AssertionError(f"fusion {label} {tag}: the "
+                                         f"replays launched {replayed}, "
+                                         f"need {must}")
+            n_last, us_last = lines[-1]
+            row = {"route": label, "mode": mode, "cycles_us": lines,
+                   "s_per_cycle": us_last / n_last / 1e6,
+                   "graphs": len(graphs),
+                   "replays": sum(g["replays"] for g in graphs),
+                   "warmup_s": sum(g["warmup_s"] for g in graphs),
+                   "capture_s": sum(g["capture_s"] for g in graphs),
+                   "instantiate_s": sum(g["instantiate_s"] for g in graphs),
+                   "pool_bytes": sum(g["pool_bytes"] for g in graphs),
+                   "nodes": [g["nodes"] for g in graphs],
+                   "kernel_nodes": [g["kernel_nodes"] for g in graphs],
+                   "graph_launches": replayed,
+                   "eager_launches": {k: v for k, v in eager.items() if v}}
+            out.append(row)
+            ref = next(r for r in out if r["route"] == label)
+            say("fusion", f"{label} {bp_name} x {cycles} cycles, {tag}: "
+                "packet == FUSE=1's byte for byte, decrypts == plain == "
+                f"integers; {row['s_per_cycle']:.4f} s/cycle (last "
+                f"{'span' if n_last > 1 else 'cycle'}; FUSE=1 "
+                f"{ref['s_per_cycle']:.4f}); cycles/spans (n, us) {lines}; "
+                f"{row['graphs']} graphs captured, {row['replays']} "
+                f"replays; warm-up {row['warmup_s']:.2f} s, capture "
+                f"{row['capture_s']:.2f} s, instantiation "
+                f"{row['instantiate_s']:.2f} s; pool "
+                f"{row['pool_bytes'] / 2**20:.1f} MiB of the card's "
+                f"{card_gib:.1f} GiB; launches by replays {replayed}, eager "
+                f"(warm-ups, "
+                f"memory levels) {row['eager_launches']}; {smi}")
+            for g in graphs:
+                if not g["name"].startswith("level group"):
+                    say("fusion", f"  {label} {tag} {g['name']}: "
+                        f"{g['replays']} replays, holds {g['kernels']} "
+                        f"wrapper launches, {g['nodes']} nodes "
+                        f"({g['kernel_nodes']} kernels), capture "
+                        f"{g['capture_s']:.3f} s, instantiation "
+                        f"{g['instantiate_s']:.3f} s, pool "
+                        f"{g['pool_bytes'] / 2**20:.1f} MiB")
+            groups = [g for g in graphs if g["name"].startswith("level")]
+            if groups:
+                say("fusion", f"  {label} {tag}: {len(groups)} level-group "
+                    f"graphs, {sum(g['nodes'] or 0 for g in groups)} nodes "
+                    f"({sum(g['kernel_nodes'] or 0 for g in groups)} "
+                    f"kernels) in all")
+        if mem:
+            design = build_design(Blueprint(bp_path))
+            G = sum(len(i.addr_nodes) for i in (
+                *design.rom_insts.values(), *design.ram_insts.values()))
+            eager, replay, kernels = cb_graph_times(mem_files, G)
+            out.append({"route": "cb", "G": G, "eager_s": eager,
+                        "replay_s": replay, "kernel_nodes": kernels})
+            say("fusion", f"circuit bootstrapping of memmac's {G} address "
+                f"bits: {eager:.4f} s eager, {replay:.4f} s as one graph's "
+                f"replay ({kernels} kernel nodes), replay == eager; {smi}")
+        ops.clear_device_key_cache()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cb_graph_times(files, G, reps=3):
+    """Circuit bootstrapping of G encrypted bits (memmac's address bits a
+    cycle) on the card, run eagerly and as the replay of one CUDA graph:
+    (eager s, replay s, kernel nodes); the replay's TRGSWs == the eager
+    ones.  Host clock around synced eager calls, CUDA events around the
+    replays."""
+    from iyokan_tpu_torch.engine import tfhe
+
+    p = params.CGGI128
+    sk, ek = host.SecretKey.load(files["sk"]), host.EvalKey.load(files["ek"])
+    dk = ops.DeviceKeys.from_evalkey(ek, "cuda")
+    rng = np.random.default_rng(SEED + 5)
+    ct = ops.u32_tensor(host.encrypt_bits(
+        sk, rng.integers(0, 2, G, dtype=np.uint8), rng), "cuda")
+
+    def cb():
+        return ops.circuit_bootstrap(ct, dk.bk2, dk.pksk_f64, p)
+
+    want = cb()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        cb()
+    torch.cuda.synchronize()
+    eager = (time.time() - t0) / reps
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        got = cb()
+    graph.instantiate()
+    replay = timing.timed_ms(graph.replay, reps, "cuda") / 1e3
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("CB replayed from a graph != CB run eagerly")
+    nodes = tfhe.graph_nodes(graph)
+    del graph, got
+    torch.cuda.empty_cache()
+    return eager, replay, None if nodes is None else nodes[1]
+
+
+def check_replays(label, tag, graphs, lines, settles):
+    """Every fused group and cycle ran as a replay: each level-group graph
+    once a settle (the reset settle and each cycle), the cycle graphs once
+    a settle or scanned cycle, each scan prologue once a scanned cycle (a
+    graph's warm-up runs eagerly on a state it puts back)."""
+    scanned = sum(n for n, _ in lines if n > 1)
+    cyc = sum(g["replays"] for g in graphs if g["name"].startswith("cycle"))
+    pro = sum(g["replays"] for g in graphs if g["name"].startswith("scan"))
+    grp = [g["replays"] for g in graphs if g["name"].startswith("level")]
+    if grp:
+        ok = all(n == settles for n in grp) and not cyc and not pro
+    else:
+        ok = cyc == settles + scanned and pro == scanned
+    if not graphs or not ok:
+        raise AssertionError(f"fusion {label} {tag}: replays {grp} groups, "
+                             f"{cyc} cycles, {pro} prologues for {settles} "
+                             f"settles, {scanned} scanned cycles")
+
+
+# Phase 15: the microbenchmark tools (T1-T3) at their own full shapes
 MICRO_STEPS, MICRO_INNER, MICRO_G = 100, 200, 1024
 # rounds a timed launch of the elementwise and small-K loops: at 0.06-1.4 us
 # a round, the tools' 200 last 12-280 us, short enough for event jitter to
@@ -1594,6 +1907,9 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
 
 
 def main() -> int:
+    # no slab files outside phase 14's own measurement (the other
+    # phases time every slab build)
+    os.environ.setdefault("IYOKAN_SLAB_CACHE", "0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi, name = phase_device()
@@ -1644,6 +1960,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k5_split = phase_k5_split(smi)
     k3_launches, v3_s_cycle = phase_slice(smi, "br-slice")
+    fusion = phase_fusion(smi, files, data)
     micro_recs = phase_micro(smi)
 
     say("summary", json.dumps({
@@ -1656,7 +1973,8 @@ def main() -> int:
         "ntt_unrolled_route": unrolled, "br_gates": br_gates,
         "mac16_v3_s_per_cycle": v3_s_cycle, "tk_layouts": tk_layouts,
         "mac16_tk_small_s_per_cycle": tk_s_cycle,
-        "tkey_forms": form_rows, "wgmma_min_g": tkey.WGMMA_MIN_G}))
+        "tkey_forms": form_rows, "wgmma_min_g": tkey.WGMMA_MIN_G,
+        "fusion": fusion}))
     print(smi)
     print(json.dumps({"kernels": kernel_records(
         p, times, worst, gate_launches, launches, ep_rows, ep_worst, br_rows,

@@ -24,8 +24,11 @@ Shapes (i32 = int32 bit patterns of u32, i64 = int64 bit patterns of u64):
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import os
+import tempfile
 import warnings
 
 import numpy as np
@@ -61,8 +64,9 @@ def u32_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def u32_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 bit-pattern tensor -> numpy uint32 array (host copy)."""
-    return t.detach().cpu().numpy().view(np.uint32)
+    """int32 bit-pattern tensor -> numpy uint32 array (a host copy, also of
+    a CPU tensor: the engine updates its state in place)."""
+    return t.detach().to("cpu", copy=True).numpy().view(np.uint32)
 
 
 def u64_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -132,10 +136,10 @@ def extprod_term(g_prep: torch.Tensor, c: torch.Tensor, p: Params,
 
     g_prep: one prepared TRGSW [2l, 2, P, N], or, with idx, a stack
     [K, 2l, 2, P, N] of which row r of c takes key idx[r] (idx: int
-    [...] over c's leading dims, best on the host: ops/extprod.py checks
-    its range there and copies it to the card without a device sync).
-    Runs ops/extprod.extprod1: the extprod1_ntt kernel for a CUDA tensor,
-    its plain twin on the CPU."""
+    [...] over c's leading dims; ops/extprod.py checks a host index's range
+    there and copies it to the card, and a card index's on the card, with
+    no device sync either way).  Runs ops/extprod.extprod1: the
+    extprod1_ntt kernel for a CUDA tensor, its plain twin on the CPU."""
     from ..ops.extprod import extprod1
 
     lead = c.shape[:-2]
@@ -160,12 +164,13 @@ def cmux(g_prep: torch.Tensor, c1: torch.Tensor, c0: torch.Tensor,
 def trgsw_invert(trgsw: torch.Tensor, p: Params) -> torch.Tensor:
     """TRGSW(1-m) from TRGSW(m): the trivial gadget of 1 minus the rows
     (TFHEpp's CircuitBootstrappingFFTwithInv pair)."""
+    # the gadget 2^(32 - (j+1) Bgbit) made on the device (no host copy)
+    val = torch.ones(p.l, dtype=torch.int64, device=trgsw.device) << (
+        32 - p.Bgbit * torch.arange(1, p.l + 1, device=trgsw.device))
     g = torch.zeros((2 * p.l, 2, p.N), dtype=torch.int64,
                     device=trgsw.device)
-    for j in range(p.l):
-        val = 1 << (32 - (j + 1) * p.Bgbit)
-        g[j, 0, 0] = val
-        g[p.l + j, 1, 0] = val
+    g[: p.l, 0, 0] = val
+    g[p.l:, 1, 0] = val
     return from_u64(g - to_u64(trgsw))
 
 
@@ -476,9 +481,9 @@ def circuit_bootstrap(tlwe0: torch.Tensor, bk2_prep: torch.Tensor,
     j*G + g) with per-row test vectors.
     """
     G = tlwe0.shape[0]
-    mus = torch.tensor([1 << (64 - j * p.Bgbit - 1)
-                        for j in range(1, p.l + 1)],
-                       dtype=torch.int64, device=tlwe0.device)
+    # mu_j made on the device (no host copy: a graph can hold it)
+    mus = torch.ones(p.l, dtype=torch.int64, device=tlwe0.device) << (
+        63 - p.Bgbit * torch.arange(1, p.l + 1, device=tlwe0.device))
     mus = mus.repeat_interleave(G)                       # [l*G]
     acc2 = blind_rotate2(tlwe0.repeat(p.l, 1), bk2_prep,
                          mus[:, None].expand(p.l * G, p.N2), p)
@@ -559,15 +564,97 @@ def _warn_unquantized(src: np.ndarray, L: int) -> None:
             "by default) or set IYOKAN_TKEY_LIMBS=4.")
 
 
+# Knobs that change what from_evalkey prepares (the JAX package's list):
+# part of both caches' fingerprint.
+PREP_KNOBS = ("IYOKAN_BR_IMPL", "IYOKAN_TK_LAYOUT", "IYOKAN_TKEY_LIMBS",
+              "IYOKAN_NO_UNROLL", "IYOKAN_TK_UNROLL", "IYOKAN_EP",
+              "IYOKAN_TK_LB", "IYOKAN_TK_SMALL", "IYOKAN_UNROLL_MAX",
+              "IYOKAN_KS_I8")
+
+# The in-process LRU of prepared keys (iyokan_tpu/crypto/ops.py's
+# _DEVICE_KEY_CACHE): one key set holds GBs on the card at cggi128 (the
+# slab alone 2.5 GB), so only the IYOKAN_KEY_CACHE_SLOTS (default 2) most
+# recent are kept.
+_DEVICE_KEY_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def clear_device_key_cache() -> None:
+    """Drop every prepared key set the in-process cache holds."""
+    _DEVICE_KEY_CACHE.clear()
+
+
+def key_fingerprint(ek: EvalKey, with_cb: bool) -> tuple:
+    """The JAX package's fingerprint of a key preparation: parameter set,
+    CB material, a hash of the leading rows of each key component (an
+    eval key's components come from one RNG stream, so any difference
+    shows there) and every PREP_KNOBS value."""
+    h = hashlib.sha1()
+    h.update(np.asarray(ek.bk[:2]).tobytes())
+    h.update(np.asarray(ek.ksk[:1]).tobytes())
+    if with_cb:
+        h.update(np.asarray(ek.bk2[:1]).tobytes())
+        h.update(np.asarray(ek.pksk[:1, :1]).tobytes())
+        if ek.bk2u is not None and ek.bk2u.size:
+            h.update(np.asarray(ek.bk2u[:1]).tobytes())
+    if ek.bku is not None:
+        h.update(np.asarray(ek.bku[:1]).tobytes())
+    return (ek.params.name, bool(with_cb), h.hexdigest(),
+            tuple(os.environ.get(k) for k in PREP_KNOBS))
+
+
+def slab_cache_path(fingerprint: tuple, role: str):
+    """The on-disk cache file of a tkey slab (role "main" or "small") of
+    the preparation `fingerprint`, or None: IYOKAN_SLAB_CACHE=0 turns the
+    cache off, a directory value moves it; by default it lies in
+    IYOKAN_KEY_CACHE, else the temporary directory's iyokan-keys
+    (/tmp/iyokan-keys where TMPDIR is unset).  The host build of a
+    cggi128 slab takes seconds that np.load saves every new process."""
+    d = os.environ.get("IYOKAN_SLAB_CACHE", "")
+    if d == "0":
+        return None
+    if not d:
+        d = os.environ.get("IYOKAN_KEY_CACHE",
+                           os.path.join(tempfile.gettempdir(), "iyokan-keys"))
+    tag = hashlib.sha1(repr((fingerprint, role)).encode()).hexdigest()[:16]
+    return os.path.join(d, f"tkslab-{tag}.npy")
+
+
+def _load_slab(path, steps: int):
+    """A cached slab (int8, `steps` steps), or None where the file is
+    missing, unreadable or not such a slab."""
+    if not path or not os.path.exists(path):
+        return None
+    try:
+        slab = np.load(path)
+    except (OSError, ValueError, EOFError):
+        return None
+    if slab.dtype != np.int8 or slab.ndim < 3 or slab.shape[0] != steps:
+        return None
+    return slab
+
+
 def _slab(src: np.ndarray, p: Params, L: int, layout: str, lb: int,
-          device) -> torch.Tensor:
+          device, path=None) -> torch.Tensor:
     """The tkey slab of `src` on `device`, stored K-contiguous (the
     kernel's storage; ops/tkey.py:k_contiguous) with the logical shape
-    tkey_kernel_key gives."""
+    tkey_kernel_key gives.  path: its disk cache file (slab_cache_path):
+    the logical row-major slab is read from there, or built and written
+    there atomically (os.replace)."""
     from ..ops.tkey import k_contiguous
 
-    return k_contiguous(polymul.tkey_kernel_key(src, p, L, layout, lb=lb),
-                        device)
+    slab = _load_slab(path, src.shape[0])
+    if slab is None:
+        slab = polymul.tkey_kernel_key(src, p, L, layout, lb=lb)
+        if path:
+            try:
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                tmp = f"{path}.tmp{os.getpid()}"
+                with open(tmp, "wb") as f:
+                    np.save(f, slab)
+                os.replace(tmp, path)
+            except OSError:
+                pass
+    return k_contiguous(slab, device)
 
 
 @dataclasses.dataclass
@@ -666,8 +753,31 @@ class DeviceKeys:
         packages) to `device` as the port's tensors.  The circuit-
         bootstrapping material is carried when with_cb and the key has it
         (ek.bk2 non-empty), as iyokan_tpu's DeviceKeys.from_evalkey does;
-        NTT preparation runs on `device`."""
+        NTT preparation runs on `device`.
+
+        Both caches of the JAX package (neither changes a result): the
+        in-process LRU returns the DeviceKeys of an earlier call with the
+        same key_fingerprint on the same device (IYOKAN_KEY_CACHE_SLOTS
+        entries, default 2), and each tkey slab goes through its disk
+        cache (slab_cache_path, IYOKAN_SLAB_CACHE)."""
         device = check_device(device)
+        with_cb = bool(with_cb and ek.bk2.shape[0] != 0)
+        fp = key_fingerprint(ek, with_cb)
+        slots = int(os.environ.get("IYOKAN_KEY_CACHE_SLOTS", "2"))
+        hit = _DEVICE_KEY_CACHE.get((fp, str(device)))
+        if hit is not None:
+            _DEVICE_KEY_CACHE.move_to_end((fp, str(device)))
+            return hit
+        dk = DeviceKeys._prepare(ek, device, with_cb, fp)
+        if slots > 0:
+            _DEVICE_KEY_CACHE[(fp, str(device))] = dk
+            while len(_DEVICE_KEY_CACHE) > slots:
+                _DEVICE_KEY_CACHE.popitem(last=False)
+        return dk
+
+    @staticmethod
+    def _prepare(ek: EvalKey, device, with_cb: bool, fp: tuple
+                 ) -> "DeviceKeys":
         p = ek.params
         # the tkey slab unless IYOKAN_BR_IMPL names another route (the
         # port's default, as the JAX package's on the TPU)
@@ -687,10 +797,12 @@ class DeviceKeys:
                    and os.environ.get("IYOKAN_TK_UNROLL", "0") != "0")
             src = bku if tku else ek.bk
             _warn_unquantized(src, L)
-            bk_tk = _slab(src, p, L, lay, lb, device)
+            bk_tk = _slab(src, p, L, lay, lb, device,
+                          slab_cache_path(fp, "main"))
             if (not tku and bku is not None and lay == "fat"
                     and os.environ.get("IYOKAN_TK_SMALL", "0") == "1"):
-                bk_tk_small = _slab(bku, p, L, "fat", lb, device)
+                bk_tk_small = _slab(bku, p, L, "fat", lb, device,
+                                    slab_cache_path(fp, "small"))
         if (bku is not None and not no_unroll
                 and (not tkey or unroll_max(True) > 0)):
             bk_ntt_u = polymul.prep1(u32_tensor(bku, device), p)
@@ -703,7 +815,7 @@ class DeviceKeys:
         ksk_mat = u32_tensor(ek.ksk.reshape(p.N * p.ks_t, p.n + 1), device)
         dk = DeviceKeys(p, device, bk_tk, ksk_mat, ksk_mat.to(torch.float64),
                         bk_ntt, bk_ntt_u, bk_tk_small)
-        if with_cb and ek.bk2.shape[0] != 0:
+        if with_cb:
             # the depth-halved unrolled key whenever present, as the JAX
             # package's bk2_for (CB batches are small: l rows per address
             # bit, so the rotation is latency-bound)

@@ -20,9 +20,13 @@ device, converted to numpy at the packet and snapshot boundaries, so
 runs the JAX package's periodic CMUX-RAM refresh schedule
 (IYOKAN_RAM_REFRESH_PERIOD, default 16); with DEBUG logging (--verbose) it
 also logs each cycle's seconds per stage (gates / simple / cb / rom_read /
-ram_read / ram_write), syncing the device at each stage.  The JAX
-package's multi-cycle scan has no counterpart (the port runs level by
-level).
+ram_read / ram_write), syncing the device at each stage, which forces the
+engine's level-by-level path for that cycle.  The execution mode is the JAX
+package's (IYOKAN_FUSE_LEVELS, default 8; engine/tfhe.py), logged in the
+same words at go() start; under IYOKAN_FUSE_LEVELS=all with no per-cycle
+observation, every cycle past the first runs in spans of IYOKAN_SCAN_CHUNK
+cycles (default 4, or "max") through engine.run_cycles, the counterpart of
+the JAX package's lax.scan.
 """
 
 from __future__ import annotations
@@ -242,6 +246,18 @@ class Frontend:
                 self.vals, [pt[0] for pt in ports], np.asarray(rows)
             )
 
+    def _circular_input_rows(self, start: int, k: int):
+        """Input nodes + their next k cycles of circular stream rows
+        (u32 [k, n_in, n+1]), for the multi-cycle scan path."""
+        ports = self._circular_input_ports()
+        nodes = [pt[0] for pt in ports]
+        width1 = self.vals.shape[1]
+        rows = np.zeros((k, len(ports), width1), np.uint32)
+        for j, (_, stream, width, bit) in enumerate(ports):
+            for c in range(k):
+                rows[c, j] = stream[(width * (start + c) + bit) % len(stream)]
+        return nodes, rows
+
     def _reset_node(self) -> Optional[int]:
         port = self.bp.at("reset")
         if port is None or port.kind != "input":
@@ -249,6 +265,37 @@ class Frontend:
         return _resolve(self.design, port)
 
     # ------------------------------------------------------------------ #
+    def _log_execution_mode(self, can_scan, chunk_env, dump_prefix,
+                            stdout_csv, dump_time_csv_prefix,
+                            show_combinational_progress, on_cycle) -> None:
+        """One line at go() start naming the execution mode actually
+        chosen, in the JAX package's words (dump/CSV/progress flags force
+        the per-cycle path)."""
+        if self.mode != "tfhe":
+            log.info("execution mode: plain (per-level batched eval)")
+            return
+        fuse_env = os.environ.get("IYOKAN_FUSE_LEVELS", "8")
+        if can_scan:
+            log.info("execution mode: whole-cycle fusion + multi-cycle "
+                     "lax.scan (chunk=%s)", chunk_env)
+            return
+        if fuse_env == "all":
+            forced_by = [name for name, on in (
+                ("IYOKAN_PROFILE", os.environ.get("IYOKAN_PROFILE")),
+                ("--dump-prefix", dump_prefix is not None),
+                ("--stdout-csv", stdout_csv),
+                ("--dump-time-csv-prefix", dump_time_csv_prefix is not None),
+                ("--show-combinational-progress",
+                 show_combinational_progress),
+                ("on_cycle callback", on_cycle is not None),
+            ) if on]
+            log.info("execution mode: whole-cycle fusion, per-cycle dispatch"
+                     " (multi-cycle scan disabled by: %s)",
+                     ", ".join(forced_by) or "unknown")
+            return
+        log.info("execution mode: per-level dispatch, gate levels fused in "
+                 "groups of %s (IYOKAN_FUSE_LEVELS)", fuse_env)
+
     def go(self, num_cycles: Optional[int], skip_reset: bool = False,
            dump_prefix: Optional[str] = None,
            dump_sk: Optional[host.SecretKey] = None,
@@ -291,10 +338,62 @@ class Frontend:
             return period == 1 or (cycle_idx + 1) % period == 0
 
         finflag_port = self.bp.at("finflag")
-        log.info("execution mode: %s, level by level on %s", self.mode,
-                 self.device)
+        # multi-cycle scan: with whole-cycle fusion on and no per-cycle
+        # observation requested, every cycle past the first runs inside
+        # one span of engine.run_cycles
+        can_scan = (
+            self.mode == "tfhe"
+            and os.environ.get("IYOKAN_FUSE_LEVELS") == "all"
+            and not os.environ.get("IYOKAN_PROFILE")
+            and dump_prefix is None
+            and not stdout_csv
+            and dump_time_csv_prefix is None
+            and not show_combinational_progress
+            and on_cycle is None
+        )
+        # scan chunk: cycles run in spans of this many; "max" runs the
+        # whole remainder as one span
+        chunk_env = os.environ.get("IYOKAN_SCAN_CHUNK", "4")
+        if chunk_env != "max":
+            try:
+                if int(chunk_env) < 1:
+                    raise ValueError(chunk_env)
+            except ValueError:
+                log.warning(
+                    "invalid IYOKAN_SCAN_CHUNK=%r (want a positive int or "
+                    "'max'); using the default of 4", chunk_env)
+                chunk_env = "4"
+        self._log_execution_mode(can_scan, chunk_env, dump_prefix,
+                                 stdout_csv, dump_time_csv_prefix,
+                                 show_combinational_progress, on_cycle)
         i = 0
         while num_cycles < 0 or i < num_cycles:
+            remaining = num_cycles - i
+            if can_scan:
+                chunk = remaining if chunk_env == "max" else int(chunk_env)
+                span = min(chunk, remaining)
+            else:
+                chunk = span = 0
+            if can_scan and span > 1 and remaining >= chunk \
+                    and self.current_cycle != 0:
+                log.info("#%d..#%d (scanned)", self.current_cycle + 1,
+                         self.current_cycle + span)
+                t0 = time.time()
+                nodes, rows = self._circular_input_rows(
+                    self.current_cycle, span)
+                flags = [refresh_at(self.current_cycle + j)
+                         for j in range(span)]
+                self.vals, self.rams = eng.run_cycles(
+                    self.vals, self.rams, self.roms, nodes, rows,
+                    refresh_flags=flags)
+                eng.block_until_ready(self.vals)
+                log.info("\tdone. (%d us)", int((time.time() - t0) * 1e6))
+                for c in range(self.current_cycle, self.current_cycle + span):
+                    self._dump_graph_files(dump_graph_json_prefix,
+                                           dump_graph_dot_prefix, c)
+                i += span
+                self.current_cycle += span
+                continue
             log.info("#%d", self.current_cycle + 1)
             if stdout_csv:
                 print(f"{time.time()},start,{self.current_cycle + 1}",
@@ -353,18 +452,8 @@ class Frontend:
                           "w") as f:
                     progress.dump_time_csv(self.compiled, self.current_cycle,
                                            level_times, dt, f)
-            if dump_graph_json_prefix:
-                from . import progress
-
-                with open(f"{dump_graph_json_prefix}-{self.current_cycle}"
-                          ".json", "w") as f:
-                    progress.dump_graph_json(self.compiled, f)
-            if dump_graph_dot_prefix:
-                from . import progress
-
-                with open(f"{dump_graph_dot_prefix}-{self.current_cycle}"
-                          ".dot", "w") as f:
-                    progress.dump_graph_dot(self.compiled, f)
+            self._dump_graph_files(dump_graph_json_prefix,
+                                   dump_graph_dot_prefix, self.current_cycle)
             if stdout_csv:
                 print(f"{time.time()},end,{self.current_cycle + 1}",
                       flush=True)
@@ -383,6 +472,18 @@ class Frontend:
                 if int(self.vals[node]) == 1:
                     log.info("break.")
                     break
+
+    def _dump_graph_files(self, json_prefix, dot_prefix, cycle: int):
+        """--dump-graph-json-prefix / --dump-graph-dot-prefix: the
+        circuit graph's file of one cycle."""
+        from . import progress
+
+        if json_prefix:
+            with open(f"{json_prefix}-{cycle}.json", "w") as f:
+                progress.dump_graph_json(self.compiled, f)
+        if dot_prefix:
+            with open(f"{dot_prefix}-{cycle}.dot", "w") as f:
+                progress.dump_graph_dot(self.compiled, f)
 
     # ------------------------------------------------------------------ #
     def make_result_packet(self):

@@ -12,9 +12,10 @@ with a per-row key index idx int32 [G] in [0, K) (None: every row takes
 key 0).  K = 1 is K6's shared key step (the ROM and RAM-read CMUX trees,
 the NTT blind rotation); K = 2 serves the RAM write tree, where each
 address row picks the normal or the inverted selector of one address bit.
-The index may come on the host (a CPU tensor, as the engine builds it):
-its range is checked there and the wrapper copies it to the card without
-a device sync; an index on the card is checked with one sync.
+The index may come on the host (a CPU tensor): its range is checked there
+and the wrapper copies it to the card; an index on the card (the engine
+builds the RAM write tree's once) is checked on the card by a device-side
+assertion.  Neither syncs, so a CUDA graph can hold the call.
 
 `extprod1` runs the hand-written Hopper kernel (csrc/extprod1_ntt.cu) for a
 CUDA tensor and the plain torch twin (`extprod1_ref` = the CRT64 backend's
@@ -60,11 +61,14 @@ def _check(digits: torch.Tensor, keys: torch.Tensor, idx, p: Params):
                 torch.device("cpu"), digits.device):
             raise ValueError(f"idx must be [G={digits.shape[0]}] on the "
                              f"host or on {digits.device}")
-        # on the host no device sync, on the card one
-        lo, hi = torch.stack(torch.aminmax(idx)).tolist() if idx.numel() \
-            else (0, 0)
-        if lo < 0 or hi >= keys.shape[0]:
-            raise ValueError(f"idx out of range [0, {keys.shape[0]})")
+        if idx.is_cuda:
+            # on the card, asynchronously: no sync, capturable
+            torch._assert_async(((idx >= 0) & (idx < keys.shape[0])).all(),
+                                f"idx out of range [0, {keys.shape[0]})")
+        elif idx.numel():
+            lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+            if lo < 0 or hi >= keys.shape[0]:
+                raise ValueError(f"idx out of range [0, {keys.shape[0]})")
     elif keys.shape[0] != 1:
         raise ValueError("a stack of K > 1 keys needs idx")
 
