@@ -127,7 +127,22 @@ Phases, one line each or more:
                    7, 8, 10 and 13 pin IYOKAN_FUSE_LEVELS=1 (level by
                    level), so their numbers stay comparable with earlier
                    runs;
- 15. micro      -- the microbenchmark tools T1-T3 (csrc/micro.cu): the SASS
+ 15. mesh       -- the gate-batch mesh (iyokan_tpu_torch/parallel) on the one
+                   card: phase 14's no-mesh cycle graphs hold their
+                   recorded nodes (NO_MESH_CYCLE_NODES: an unset mesh adds
+                   nothing); 2048
+                   NANDs at cggi128 under make_mesh(4) == the unsharded
+                   batch byte for byte, 0 wrong, K1 launched 4 times
+                   (counters) on 512 rows each, gate bootstraps/s both
+                   ways, K1 at 512 rows == its twin; MAC-16 (tkey) and
+                   memmac x 3 cycles under make_mesh(2) at
+                   IYOKAN_FUSE_LEVELS=all, IYOKAN_SCAN_CHUNK=2: each packet
+                   == phase 14's FUSE=1 packet byte for byte, memmac's
+                   4096-row RAM refresh split, s/cycle and graph nodes
+                   beside phase 14's; then the error-rate tool
+                   (tools/measure_error_rate.py) at its defaults on the
+                   tkey route: 0 wrong, sigma and margin;
+ 16. micro      -- the microbenchmark tools T1-T3 (csrc/micro.cu): the SASS
                    opcodes of each elementwise and small-K inner loop; the
                    tools' entry points as a user runs them (tk_mm_bench at
                    BG 512 and 2048 x STEPS 100, tk_width_bench's six cases at
@@ -150,7 +165,9 @@ and at 3*2l rows (the ntt-unrolled route's, G = 64); no PyTorch call
 computes a blind rotation or an external product,
 so their library_ms is null; the micro records time torch._int_mm on the
 same per-step product where it takes it, per step or round like their
-ms), the last line the device record.  Any failure raises (non-zero exit, no result line).  Needs
+ms; K1 also at a mesh shard's 512 rows, launched 4 times by the
+mesh phase), the script's total seconds on a line before them, the last
+line the device record.  Any failure raises (non-zero exit, no result line).  Needs
 no JAX: the expected values come from the port's plain engine and Python
 integers.
 """
@@ -1173,33 +1190,12 @@ def fused_run(bp_path, req, ek, env, cycles):
     from iyokan_tpu_torch.engine import tfhe
     from iyokan_tpu_torch.engine.driver import Frontend
 
-    lines = []
-
-    class Spans(logging.Handler):
-        def emit(self, record):
-            msg = record.getMessage()
-            m = re.match(r"#(\d+)\.\.#(\d+)", msg)
-            if m:
-                lines.append([int(m.group(2)) - int(m.group(1)) + 1, None])
-            elif re.match(r"#\d+$", msg):
-                lines.append([1, None])
-            m = re.match(r"\s*done\. \((\d+) us\)", msg)
-            if m:
-                lines[-1][1] = int(m.group(1))
-
-    lg = logging.getLogger("iyokan")
-    lg.setLevel(logging.INFO)
-    handler = Spans()
-    lg.addHandler(handler)
     reset_launches()
-    try:
-        with knobs(**env):
-            fe = Frontend("tfhe", Blueprint(bp_path), req, eval_key=ek,
-                          device="cuda")
-            fe.go(cycles)
-            res = fe.make_result_packet()
-    finally:
-        lg.removeHandler(handler)
+    with timing.cycle_log() as lines, knobs(**env):
+        fe = Frontend("tfhe", Blueprint(bp_path), req, eval_key=ek,
+                      device="cuda")
+        fe.go(cycles)
+        res = fe.make_result_packet()
     eng = fe.engine
     out = (res, lines, eng.graph_stats(), tfhe.launch_counts(),
            eng.graph_launches())
@@ -1401,7 +1397,194 @@ def check_replays(label, tag, graphs, lines, settles):
                              f"settles, {scanned} scanned cycles")
 
 
-# Phase 15: the microbenchmark tools (T1-T3) at their own full shapes
+# Phase 15: the gate-batch mesh (iyokan_tpu_torch/parallel) on the one card
+MESH_NAND_SHARDS = 4     # 2048 NANDs: 4 shards of 512 rows, K1's wgmma form
+MESH_FUSED_SHARDS = 2    # MAC-16 and memmac under whole-cycle fusion
+# the no-mesh cycle graphs' nodes as first measured with the graphs
+# (phase 14, before any mesh existed):
+# a mesh that is not set must add no node
+NO_MESH_CYCLE_NODES = {"tkey": [92455], "v3": [11383], "pallas": [51639],
+                       "memmac": [144442, 145832]}
+
+
+def k1_bound(p, G):
+    """The bound of K1 (fat slab, the route's default knobs) at G rows:
+    (ms, what sets it)."""
+    L, _, lb = ops.tkey_default_config(p)
+    RT, C = (p.l + lb) * p.N, 2 * L * 128
+    io = G * (p.n + 1) * 4 + p.N * 4 + G * 2 * p.N * 4
+    return bound(2 * p.n * G * (p.N // 128) * RT * C, INT8_OPS_PER_S,
+                 p.n * RT * C + io)
+
+
+@contextlib.contextmanager
+def recorded(mod, name, log, rows_of):
+    """mod.name wrapped to append rows_of(args) to log for each call."""
+    real = getattr(mod, name)
+
+    def rec(*args):
+        log.append(rows_of(*args))
+        return real(*args)
+
+    setattr(mod, name, rec)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def phase_mesh(smi, mem_files, fusion):
+    """The mesh on the card: 2048 NANDs under make_mesh(4) == the unsharded
+    batch byte for byte, 0 wrong, K1 launched once a shard at 512 rows;
+    MAC-16 (tkey) and memmac x 3 cycles under make_mesh(2) at FUSE=all,
+    scan chunk 2: each packet == phase 14's FUSE=1 packet, memmac's
+    4096-row refresh split; phase 14's no-mesh cycle graphs kept their
+    recorded nodes (NO_MESH_CYCLE_NODES); then the error-rate tool at its
+    defaults on the tkey route."""
+    from iyokan_tpu_torch.parallel import mesh as mesh_mod
+    from iyokan_tpu_torch.tools import measure_error_rate
+
+    for row in fusion:
+        want = NO_MESH_CYCLE_NODES.get(row["route"])
+        if want is None or row["mode"] != SCAN2:
+            continue
+        got = sorted(n for n in row["nodes"] if n > 3)
+        if got != want:
+            raise AssertionError(f"mesh: phase 14's {row['route']} cycle "
+                                 f"graphs hold {got} nodes, recorded {want}")
+    say("mesh", f"no mesh set: phase 14's cycle graphs keep their nodes "
+        f"{NO_MESH_CYCLE_NODES}")
+
+    p = params.CGGI128
+    f = {k: os.path.join(WORK, k) for k in ("sk", "ek", "req.enc")}
+    sk, ek = host.SecretKey.load(f["sk"]), host.EvalKey.load(f["ek"])
+    dk = ops.DeviceKeys.from_evalkey(ek, "cuda", with_cb=False)
+    G, n = 2048, MESH_NAND_SHARDS
+    pre, want = nand_inputs(p, sk, np.random.default_rng(SEED + 11), G)
+
+    def nand():
+        lvl1 = ops.gate_bootstrap_tlwe1(pre, dk.bk_for(G), p)
+        return ops.keyswitch_10(lvl1, dk.ksk_f64, p)
+
+    whole = nand()
+    ms_whole = cuda_ms(nand, 3)
+    rows = []
+    mesh_mod.set_mesh(mesh_mod.make_mesh(n))
+    try:
+        with recorded(tkey, "blind_rotate_tkey", rows,
+                      lambda t, *a: t.shape[0]):
+            reset_launches()
+            sharded = nand()
+            torch.cuda.synchronize()
+            counts = (tkey.LAUNCHES, dict(tkey.FORM_LAUNCHES),
+                      all_launches())
+        ms_mesh = cuda_ms(nand, 3)
+    finally:
+        mesh_mod.set_mesh(None)
+    if counts != (n, {"wgmma": n, "mma": 0}, n) or rows != [G // n] * n:
+        raise AssertionError(f"mesh: 2048 NANDs on {n} shards launched "
+                             f"{counts} (K1, by form, all) on rows {rows}")
+    if not torch.equal(sharded, whole):
+        raise AssertionError("mesh: 2048 NANDs on 4 shards != unsharded")
+    wrong = int((host.decrypt_bits(sk, ops.u32_numpy(sharded))
+                 != want).sum())
+    if wrong:
+        raise AssertionError(f"mesh: {wrong}/{G} wrong NANDs")
+    rate_whole, rate_mesh = G / (ms_whole / 1e3), G / (ms_mesh / 1e3)
+    say("mesh", f"{G} NANDs under make_mesh({n}): == the unsharded batch "
+        f"byte for byte, 0 wrong; K1 launched {counts[0]} times ({n} "
+        f"wgmma-form, rows {rows}); gate_bootstraps_per_sec "
+        f"{rate_mesh:.1f} sharded ({ms_mesh:.2f} ms a batch) vs "
+        f"{rate_whole:.1f} whole ({ms_whole:.2f} ms); {smi}")
+    # K1 at a shard's rows against its twin
+    testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
+    part = pre[:G // n]
+    err = max_diff(tkey.blind_rotate_tkey(part, dk.bk_tk, testv, p),
+                   tkey.blind_rotate_tkey_ref(part, dk.bk_tk, testv, p))
+    if err:
+        raise AssertionError(f"mesh: K1 != twin at G={G // n}: {err}")
+    k_ms = cuda_ms(lambda: tkey.blind_rotate_tkey(part, dk.bk_tk, testv, p),
+                   3)
+    t_ms = cuda_ms(
+        lambda: tkey.blind_rotate_tkey_ref(part, dk.bk_tk, testv, p), 1)
+    b_ms, b_by = k1_bound(p, G // n)
+    k1 = {"name": f"tkey_blind_rotate (mesh phase: {n} shards of "
+                  f"{G // n} rows)", "route": "cuda",
+          "source": "iyokan_tpu_torch/csrc/tkey_blind_rotate.cu",
+          "replaces": "iyokan_tpu/ops/pallas_tk.py:219", "launches": n,
+          "max_abs_err": err, "ms": k_ms, "plain_ms": t_ms,
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+          "at_G": G // n}
+    say("mesh", f"K1 at a shard's {G // n} rows: == twin, {k_ms:.3f} ms "
+        f"(twin {t_ms:.1f} ms, bound {b_ms:.3f} ms by {b_by})")
+    del dk, pre, whole, sharded, part
+    ops.clear_device_key_cache()
+    torch.cuda.empty_cache()
+
+    out = {"nands": {"shards": n, "rows": rows, "ms_sharded": ms_mesh,
+                     "ms_whole": ms_whole, "rate_sharded": rate_mesh,
+                     "rate_whole": rate_whole}, "fused": []}
+    for label, bp_name, files, route in (
+            ("tkey", "mac16.toml", f, {}),
+            ("memmac", "memmac.toml", mem_files,
+             {"IYOKAN_RAM_REFRESH_PERIOD": "2"})):
+        bp_path = os.path.join(ROOT, "tests", "data", bp_name)
+        req = packet_mod.TFHEPacket.load(files["req.enc"])
+        r_ek = host.EvalKey.load(files["ek"])
+        splits = []
+        mesh_mod.set_mesh(mesh_mod.make_mesh(MESH_FUSED_SHARDS))
+        try:
+            with recorded(mesh_mod, "_all_gather", splits,
+                          lambda m, t, axis: t.shape[axis]):
+                res, lines, graphs, _, replayed = fused_run(
+                    bp_path, req, r_ek, {**route, **SCAN2}, SLICE_CYCLES)
+        finally:
+            mesh_mod.set_mesh(None)
+        path = os.path.join(WORK, f"mesh.{label}.res")
+        res.save(path)
+        with open(path, "rb") as a, open(
+                os.path.join(WORK, f"fusion.{label}.1.res"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"mesh {label}: result packet under "
+                                     "make_mesh(2) != the FUSE=1 packet")
+        if not splits or (label == "memmac" and 4096 not in splits):
+            raise AssertionError(f"mesh {label}: batches split {splits}")
+        n_last, us_last = lines[-1]
+        ref = next(r for r in fusion
+                   if r["route"] == label and r["mode"] == SCAN2)
+        row = {"route": label, "shards": MESH_FUSED_SHARDS,
+               "s_per_cycle": us_last / n_last / 1e6,
+               "no_mesh_s_per_cycle": ref["s_per_cycle"],
+               "cycles_us": lines, "split_rows": sorted(set(splits)),
+               "nodes": [g["nodes"] for g in graphs],
+               "graph_launches": replayed}
+        out["fused"].append(row)
+        say("mesh", f"{label} {bp_name} x {SLICE_CYCLES} cycles under "
+            f"make_mesh({MESH_FUSED_SHARDS}), FUSE=all chunk 2: packet == "
+            f"FUSE=1's byte for byte; {row['s_per_cycle']:.4f} s/cycle "
+            f"(no mesh {ref['s_per_cycle']:.4f}); batches split (rows) "
+            f"{row['split_rows']}; graph nodes {row['nodes']} (no mesh "
+            f"{ref['nodes']}); launches by replays {replayed}; {smi}")
+        ops.clear_device_key_cache()
+        torch.cuda.empty_cache()
+
+    with knobs(ER_G=None, ER_BATCHES=None, ER_CASCADE=None, ER_PARAMS=None,
+               IYOKAN_BR_IMPL=None,
+               ER_OUT=os.path.join(WORK, "error_rate.tkey.json")):
+        rec = measure_error_rate.main()
+    ops.clear_device_key_cache()
+    torch.cuda.empty_cache()
+    out["error_rate"] = rec
+    say("mesh", f"error rate (tkey, ER defaults): {rec['gates']} gates, "
+        f"{rec['wrong']} wrong; cascade {rec['cascade_gates']} gates, "
+        f"{rec['cascade_wrong']} wrong; sigma 2^{rec['sigma_log2']:.3f}, "
+        f"margin {rec['margin_sigmas']:.2f} sigma; "
+        f"{(rec['gates'] + rec['cascade_gates']) / rec['gate_s']:.1f} "
+        f"gates/s; {json.dumps(rec)}")
+    return out, k1
+
+
+# Phase 16: the microbenchmark tools (T1-T3) at their own full shapes
 MICRO_STEPS, MICRO_INNER, MICRO_G = 100, 200, 1024
 # rounds a timed launch of the elementwise and small-K loops: at 0.06-1.4 us
 # a round, the tools' 200 last 12-280 us, short enough for event jitter to
@@ -1828,24 +2011,16 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
     widest level), and the bound of that shape's work."""
     i32 = 4
     G = 2048
-    L, _, lb = ops.tkey_default_config(p)
-    RT, C = (p.l + lb) * p.N, 2 * L * 128
-    io = G * (p.n + 1) * i32 + p.N * i32 + G * 2 * p.N * i32
     recs = [("tkey_blind_rotate", "tkey_blind_rotate.cu",
              "iyokan_tpu/ops/pallas_tk.py:219", gate_launches,
-             worst, next(r for r in times if r["G"] == G),
-             bound(2 * p.n * G * (p.N // 128) * RT * C, INT8_OPS_PER_S,
-                   p.n * RT * C + io))]
+             worst, next(r for r in times if r["G"] == G), k1_bound(p, G))]
     # the small-batch form, at the largest batch of phase 3 below the
     # threshold
     row = max((r for r in times if r["form"] == "mma"), key=lambda r: r["G"])
-    g = row["G"]
-    io_g = g * (p.n + 1) * i32 + p.N * i32 + g * 2 * p.N * i32
     recs.append(("tkey_blind_rotate conv_kernel (mma.sync form)",
                  "tkey_blind_rotate.cu", "iyokan_tpu/ops/pallas_tk.py:219",
                  launches["tkey mma form"], worst, row,
-                 bound(2 * p.n * g * (p.N // 128) * RT * C, INT8_OPS_PER_S,
-                       p.n * RT * C + io_g)))
+                 k1_bound(p, row["G"])))
     RR = 2 * p.l
     for name, rr, g, K, n_launch in (
             ("extprod1_ntt", RR, G, 2, launches["extprod1_ntt"]),
@@ -1907,6 +2082,7 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
 
 
 def main() -> int:
+    t_start = time.time()
     # no slab files outside phase 14's own measurement (the other
     # phases time every slab build)
     os.environ.setdefault("IYOKAN_SLAB_CACHE", "0")
@@ -1961,6 +2137,7 @@ def main() -> int:
     k5_split = phase_k5_split(smi)
     k3_launches, v3_s_cycle = phase_slice(smi, "br-slice")
     fusion = phase_fusion(smi, files, data)
+    mesh, mesh_k1 = phase_mesh(smi, files, fusion)
     micro_recs = phase_micro(smi)
 
     say("summary", json.dumps({
@@ -1974,12 +2151,14 @@ def main() -> int:
         "mac16_v3_s_per_cycle": v3_s_cycle, "tk_layouts": tk_layouts,
         "mac16_tk_small_s_per_cycle": tk_s_cycle,
         "tkey_forms": form_rows, "wgmma_min_g": tkey.WGMMA_MIN_G,
-        "fusion": fusion}))
+        "fusion": fusion, "mesh": mesh}))
+    say("summary", f"chip_smoke.py took {time.time() - t_start:.1f} s in "
+        "all")
     print(smi)
     print(json.dumps({"kernels": kernel_records(
         p, times, worst, gate_launches, launches, ep_rows, ep_worst, br_rows,
         br_gates, k3_launches, tk_layouts, tk_small_launches, unrolled)
-        + micro_recs}))
+        + [mesh_k1] + micro_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..params import Params
+from ..parallel import mesh as mesh_mod
 from . import polymul
 from .host import EvalKey
 
@@ -320,7 +321,11 @@ def blind_rotate(tlwe0: torch.Tensor, bk_prep: torch.Tensor,
     if route == "tkey":
         from ..ops.tkey import blind_rotate_tkey
 
-        return blind_rotate_tkey(tlwe0, bk_prep, testv, p)
+        # under a mesh each shard runs the kernel on its own rows against
+        # the one slab (iyokan_tpu's shard_map of the tkey kernel, on the
+        # same G % n and G // n rule)
+        return mesh_mod.shard_batch(
+            tlwe0, lambda t: blind_rotate_tkey(t, bk_prep, testv, p))
     if route in ("pallas", "pallas2"):
         from ..ops import br
 

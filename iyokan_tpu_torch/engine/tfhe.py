@@ -53,6 +53,15 @@ index and constant a cycle needs is a tensor built here beforehand.  A
 failed capture or replay raises, naming the graph; nothing falls back to
 eager execution.  On the CPU, which has no graphs, the same group, cycle
 and span functions run eagerly.
+
+Under a mesh (parallel/mesh.py: set_mesh) the level batches' rotations and
+the RAM write's refresh rows are sharded where the JAX engine shards them
+(shard_batch: each shard's rows run one after another, the results come
+back whole), and the tkey route shards any rotation (crypto/ops.py:
+blind_rotate); keys and rows' routes are chosen from the whole batch.  A
+mesh of shards on one card is captured like any other launch sequence;
+across processes the all-gathers are NCCL collectives inside the capture
+(gloo's, on the CPU, run eagerly as everything there does).
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ import torch
 from .. import gates as G
 from ..circuit.compile import Compiled
 from ..crypto import host, ops
+from ..parallel.mesh import replicated, shard_batch
 
 # Level batches bootstrap in chunks of at most this many rows: bounds the
 # kernel's digit scratch (rows x RT int8, RT up to 3*(l+lb)*N) and the
@@ -321,21 +331,28 @@ class TFHEEngine:
 
     def _chunked_bootstrap(self, boot, batch):
         """Gate-bootstrap a level batch (lvl0 -> TLWE lvl1 +-mu), each row
-        against its key of the level's _boot_plan."""
+        against its key of the level's _boot_plan.  Under a mesh each key's
+        rows are sharded on their own (the key was chosen from the whole
+        level, as the JAX engine chooses it before any split)."""
         testv = self._testv()
+
+        def rotate(bk, x):
+            return shard_batch(x, lambda t: self._blind_rotate(bk, t, testv))
+
         if len(boot) == 1:
-            acc = self._blind_rotate(boot[0][0], batch, testv)
+            acc = rotate(boot[0][0], batch)
         else:
             acc = torch.empty((batch.shape[0], 2, self.p.N),
                               dtype=torch.int32, device=batch.device)
             for bk, rows in boot:
-                acc[rows] = self._blind_rotate(bk, batch[rows], testv)
+                acc[rows] = rotate(bk, batch[rows])
         return ops.sample_extract(acc, 0)
 
     def _level_body(self, keys, vals, pp):
         """One level's gather -> batched bootstrap -> scatter."""
         p = self.p
         nb, nm = pp["nb"], pp["nm"]
+        vals = replicated(vals)
         pres = []
         if nb:
             pres.append(ops.gate_linear(vals[pp["bin_a"]], vals[pp["bin_b"]],
@@ -348,6 +365,9 @@ class TFHEEngine:
             pre1[:, p.n] -= p.mu
             pre2[:, p.n] -= p.mu
             pres.extend([ops.from_u64(pre1), ops.from_u64(pre2)])
+        # the batch is sharded for its rotation only: t1 comes back whole,
+        # so the MUX pairs (rows i and nm + i, on different shards) combine
+        # and the key switch runs on the whole batch
         t1 = self._chunked_bootstrap(pp["boot"], torch.cat(pres))
         rows = []
         if nb:
@@ -527,13 +547,18 @@ class TFHEEngine:
     def _refresh(self, keys, lvl1, testv):
         """Key-switch + blind-rotate TLWE lvl1 rows, BOOT_CHUNK at a time,
         all against the key of one JAX call over every row
-        (bk_for(lvl1.shape[0]))."""
+        (bk_for(lvl1.shape[0])); under a mesh the rows are sharded, each
+        shard key-switching and rotating its own."""
         bk = keys.bk_for(lvl1.shape[0])
-        outs = [self._blind_rotate(
-                    bk, ops.keyswitch_10(lvl1[i: i + BOOT_CHUNK],
-                                         keys.ksk_f64, self.p), testv)
-                for i in range(0, lvl1.shape[0], BOOT_CHUNK)]
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+        def refresh(rows):
+            outs = [self._blind_rotate(
+                        bk, ops.keyswitch_10(rows[i: i + BOOT_CHUNK],
+                                             keys.ksk_f64, self.p), testv)
+                    for i in range(0, rows.shape[0], BOOT_CHUNK)]
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+        return shard_batch(lvl1, refresh)
 
     def _ram_write_all(self, names, keys, vals, stores, gns, refresh=True):
         """All RAM instances' write paths: one MUXwoSE blind rotation,

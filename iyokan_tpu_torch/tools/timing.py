@@ -6,13 +6,18 @@
                                method, (t(run(4n)) - t(run(n))) / 3n (after
                                warm_s seconds of run(n));
   int_mm_ms(a, b, reps)        mean ms of torch._int_mm(a, b) after a
-                               warm-up (raises what torch._int_mm raises).
+                               warm-up (raises what torch._int_mm raises);
+  cycle_log()                  [cycles, us] of each cycle or scan span the
+                               Frontend logs while the block runs.
 
 Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import re
 import time
 
 import torch
@@ -61,3 +66,32 @@ def int_mm_ms(a: torch.Tensor, b: torch.Tensor, reps: int = 20) -> float:
     one warm-up call."""
     torch._int_mm(a, b)
     return timed_ms(lambda: torch._int_mm(a, b), reps, a.device)
+
+
+@contextlib.contextmanager
+def cycle_log():
+    """Yields a list that collects [cycles, us] of each cycle ("#c") or
+    scan span ("#a..#b") the Frontend logs at INFO while the block runs,
+    us from its "done. (N us)" line."""
+    lines = []
+
+    class Spans(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            m = re.match(r"#(\d+)\.\.#(\d+)", msg)
+            if m:
+                lines.append([int(m.group(2)) - int(m.group(1)) + 1, None])
+            elif re.match(r"#\d+$", msg):
+                lines.append([1, None])
+            m = re.match(r"\s*done\. \((\d+) us\)", msg)
+            if m and lines:
+                lines[-1][1] = int(m.group(1))
+
+    lg = logging.getLogger("iyokan")
+    lg.setLevel(logging.INFO)
+    handler = Spans()
+    lg.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        lg.removeHandler(handler)
