@@ -4,14 +4,15 @@
 
 Phases, one line each or more:
   1. device     -- nvidia-smi name + power limit, torch.cuda device name;
-  2. build      -- the five kernel sources, csrc/tkey_blind_rotate.cu,
-                   extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu and micro.cu (the
-                   first and last include csrc/wgmma_s8.cuh, the NTT ones
-                   csrc/ntt.cuh, K3-K6 through csrc/br_cluster.cuh), one
-                   nvcc each, started together (sm_90a), with ptxas's
-                   register lines; the cluster shape of K3, K4 (and K5,
-                   K4's kernel one step a launch) and K6 at 2l and 3*2l
-                   rows (4 CTAs a row: prime x part) with each one's
+  2. build      -- the six kernel sources, csrc/tkey_blind_rotate.cu,
+                   extprod1_ntt.cu, br_ntt.cu, br3_ntt.cu, br2_ntt.cu and
+                   micro.cu (the first and last include csrc/wgmma_s8.cuh,
+                   the NTT ones csrc/ntt.cuh, K3-K7 through
+                   csrc/br_cluster.cuh), one nvcc each, started together
+                   (sm_90a), with ptxas's register lines; the cluster shape
+                   of K3, K4 (and K5, K4's kernel one step a launch), K6 at
+                   2l and 3*2l rows and K7 at M = 1, 3 (4 CTAs a row:
+                   prime x part) with each one's
                    shared memory a CTA and the clusters the card holds at
                    once (cudaOccupancyMaxActiveClusters); then the SASS
                    opcode mix (cuobjdump -sass) of every int8 product
@@ -62,6 +63,21 @@ Phases, one line each or more:
                    launched (G clusters of 4), ms a call (CUDA events) and
                    on the device (torch.profiler: at small G the call is
                    the host's) vs twin ms;
+  9b. br2       -- K7 (csrc/br2_ntt.cu, ops/br2.py: circuit bootstrapping's
+                   lvl2 blind rotation, one launch) against its plain twin
+                   blind_rotate2_ref at cggi128 on the memmac key's CB key,
+                   unrolled (M = 3, 318 steps) and plain
+                   (IYOKAN_NO_UNROLL=1: M = 1, 635 steps), built by
+                   DeviceKeys with its kernel form (build time printed), at
+                   G = 1, 3, 24, 69 (memmac's 23 bits x l) and the wave
+                   threshold (the clusters the card holds at once, and one
+                   more), inputs from blind_rotate2's set-up on encrypted
+                   bits: max |diff| 0, the grid as launched and its waves,
+                   kernel ms (CUDA events), device ms (torch.profiler),
+                   twin ms, bound ms; then K7 at 512 threads a CTA beside
+                   its 1024 at G = 3, 24, 69 (tools/br_variants.py on
+                   tools/k7_threads.json, random keys, both held to the
+                   twin);
  10. memory     -- tests/data/memmac.toml (MAC-4 between a 128 x 32 CMUX ROM
                    and two 256 x 8 CMUX RAMs) at cggi128 through the CLIs
                    in-process: genkey, genevalkey (with circuit-bootstrapping
@@ -70,8 +86,8 @@ Phases, one line each or more:
                    decrypted @acc / @rdataA / @rdataB and both RAM images
                    equal the plain-mode run and the Python-integer model
                    (tests/data/gen_mac.py); both kernels' launch counts grew
-                   during the encrypted run; s/cycle and one synced cycle's
-                   seconds per stage;
+                   during the encrypted run (tkey, extprod1_ntt and K7);
+                   s/cycle and one synced cycle's seconds per stage;
  11. br-kernels -- the NTT blind-rotation kernels against their plain twins
                    at cggi128 on the CRT64 keys of phase 3's eval key (the
                    time to build their K3/K4 kernel form, ops/br.py:
@@ -114,8 +130,9 @@ Phases, one line each or more:
                    on pallas (K5, IYOKAN_UNROLL_MAX=0) under 1 and all, and
                    memmac x 3 cycles under 1 and all at
                    IYOKAN_RAM_REFRESH_PERIOD=2 (cycles 1-2 one span of
-                   refresh flags [on, off]: CB, K6, the ROM/RAM trees, both
-                   refresh graphs, K1's wgmma form), through the Frontend:
+                   refresh flags [on, off]: CB on K7, K6, the ROM/RAM
+                   trees, both refresh graphs, K1's wgmma form), through
+                   the Frontend:
                    each fused result packet (RAM images included) == the
                    route's FUSE=1 packet byte for byte, decrypted == plain
                    == the integers; every level group, cycle and scan
@@ -123,7 +140,10 @@ Phases, one line each or more:
                    kernels launched by the replays; s/cycle beside FUSE=1's,
                    graphs captured and replayed, the wrapper launches and
                    nodes each holds (cuGraphGetNodes), warm-up, capture and
-                   instantiation seconds, the graph pool's bytes.  Phases
+                   instantiation seconds, the graph pool's bytes; then
+                   CB of memmac's 23 address bits eagerly and as one graph
+                   holding one K7 launch, its TRGSWs == the eager twin's
+                   (blind_rotate2_ref in K7's place).  Phases
                    7, 8, 10 and 13 pin IYOKAN_FUSE_LEVELS=1 (level by
                    level), so their numbers stay comparable with earlier
                    runs;
@@ -161,8 +181,9 @@ on its path, max |diff| against its twin, ms, twin ms, the bound of the
 same work on the card and what sets it; K1's wgmma form, its mma.sync
 form (small batches) and one record per K2 layout; K3 at the batch its
 MAC-16 path runs, G = 64, and at G = 256; K6 at 2l rows (memmac's path)
-and at 3*2l rows (the ntt-unrolled route's, G = 64); no PyTorch call
-computes a blind rotation or an external product,
+and at 3*2l rows (the ntt-unrolled route's, G = 64); K7 on the unrolled
+key at memmac's 69 rows, launched by the memory phase's run; no PyTorch
+call computes a blind rotation or an external product,
 so their library_ms is null; the micro records time torch._int_mm on the
 same per-step product where it takes it, per step or round like their
 ms; K1 also at a mesh shard's 512 rows, launched 4 times by the
@@ -201,7 +222,8 @@ from iyokan_tpu_torch.circuit.blueprint import Blueprint  # noqa: E402
 from iyokan_tpu_torch.cli import iyokan_cli, packet_cli  # noqa: E402
 from iyokan_tpu_torch.crypto import host, ops  # noqa: E402
 from iyokan_tpu_torch.engine.driver import build_design  # noqa: E402
-from iyokan_tpu_torch.ops import br, br3, extprod, micro, nvcc, tkey  # noqa
+from iyokan_tpu_torch.ops import br, br2, br3, extprod, micro, nvcc  # noqa
+from iyokan_tpu_torch.ops import tkey  # noqa: E402
 from iyokan_tpu_torch.tools import br_variants, microbench, timing  # noqa
 from iyokan_tpu_torch.tools import tk_mm_bench, tk_width_bench  # noqa: E402
 
@@ -295,7 +317,7 @@ def phase_build(p):
     queries report; returns each cluster kernel's narrow cap (clusters of
     512-thread CTAs the card holds at once: ops/br.py:threads_for)."""
     sources = (tkey.SOURCE, extprod.SOURCE, br.SOURCE, br3.SOURCE,
-               micro.SOURCE)
+               br2.SOURCE, micro.SOURCE)
     t0 = time.time()
     paths = nvcc.build(*sources)
     dt = time.time() - t0
@@ -315,6 +337,11 @@ def phase_build(p):
         say("build", f"clusters of {br.CLUSTER} CTAs (prime x part) of {nt} "
             "threads: " + "; ".join(f"{k} {v[0]} B a CTA, {v[1]} clusters "
                                     "at once" for k, v in plans.items()))
+    k7 = {m: br2.cluster_plan(p, m) for m in (1, 3)}
+    say("build", f"K7 (br2_ntt, N2 = {p.N2}): clusters of {br.CLUSTER} CTAs "
+        f"(prime x part) of {br2.THREADS} threads: " + "; ".join(
+            f"M={m} {v[0]} B a CTA, {v[1]} clusters (rows) at once"
+            for m, v in k7.items()))
     for k in caps[br.NARROW_THREADS]:
         cap = caps[br.NARROW_THREADS][k][1]
         say("build", f"{k} plan (one cluster a row, ops/br.py:threads_for): "
@@ -328,7 +355,8 @@ def phase_build(p):
                 f"{sum(v for k, v in mix.items() if 'GMMA' in k)} GMMA, "
                 f"{mix.get('IMMA', 0)} IMMA; top opcodes "
                 f"{json.dumps(dict(list(mix.items())[:12]))}")
-    return {k: v[1] for k, v in caps[br.NARROW_THREADS].items()}
+    return {**{k: v[1] for k, v in caps[br.NARROW_THREADS].items()},
+            **{f"K7 M={m}": k7[m][1] for m in (1, 3)}}
 
 
 @contextlib.contextmanager
@@ -706,7 +734,7 @@ def phase_br_gates(p, sk, dk, rng, smi, tkey_rate):
 
 
 def reset_launches():
-    tkey.LAUNCHES = extprod.LAUNCHES = br3.LAUNCHES = 0
+    tkey.LAUNCHES = extprod.LAUNCHES = br3.LAUNCHES = br2.LAUNCHES = 0
     br.STEP_LAUNCHES = br.LOOP_LAUNCHES = 0
     for layout in tkey.LAYOUT_LAUNCHES:
         tkey.LAYOUT_LAUNCHES[layout] = 0
@@ -716,7 +744,7 @@ def reset_launches():
 
 def all_launches():
     return (tkey.LAUNCHES + extprod.LAUNCHES + br3.LAUNCHES
-            + br.STEP_LAUNCHES + br.LOOP_LAUNCHES)
+            + br.STEP_LAUNCHES + br.LOOP_LAUNCHES + br2.LAUNCHES)
 
 
 def nand_inputs(p, sk, rng, G):
@@ -1059,6 +1087,120 @@ def phase_extprod(p, files, smi, caps):
     return rows, worst, t_cb
 
 
+# K7's batches: one address bit's l rows, the 8-bit phase's 8 x l and
+# memmac's 23 address bits x l (its CB batch a cycle)
+K7_SIZES = (1, 3, 24, 69)
+# K7 at 512 threads a CTA beside its 1024 (tools/br_variants.py)
+K7_THREADS = os.path.join(ROOT, "iyokan_tpu_torch", "tools",
+                          "k7_threads.json")
+
+
+def k7_mulmods(p, M):
+    """Mulmods one row's K7 step costs (ntt_mulmods' rule on the 64-bit
+    torus, two 32-bit halves): per prime the forward NTTs of the M*2l2
+    digit rows and the inverse NTTs of 2 outputs x 2 halves (N2/2 log2 N2
+    butterflies each), 2 x 2 x M*2l2 x N2 key products and 4 N2 scalings;
+    then 4 N2 Garner products."""
+    rr = M * 2 * p.l2
+    t = p.N2 // 2 * p.logN2
+    return 2 * ((rr + 4) * t + 4 * rr * p.N2 + 4 * p.N2) + 4 * p.N2
+
+
+def k7_bound(p, G, M, S):
+    """(ms, what sets it) of K7's work at G rows over S steps of M
+    rotations: 2 multiplies a mulmod at the card's integer rate, or the
+    kernel-form key, the amounts and the accumulator in and out once at
+    the HBM rate."""
+    nbytes = (S * 4 * M * p.l2 * 4 * p.N2 * 4 + S * M * G * 4
+              + 2 * G * 2 * p.N2 * 8)
+    return bound(2 * S * G * k7_mulmods(p, M), INT32_MULS_PER_S, nbytes)
+
+
+def phase_br2(p, files, smi, caps):
+    """K7 (csrc/br2_ntt.cu) against its twin blind_rotate2_ref at cggi128,
+    on the memmac run's CB key in both forms (DeviceKeys, the unrolled key
+    by default, the plain key under IYOKAN_NO_UNROLL), at K7_SIZES and the
+    wave threshold (caps: the clusters the card holds at once per M, and
+    one more), inputs made by blind_rotate2's own set-up from encrypted
+    bits and per-row test vectors: max |diff| 0, the grid as launched,
+    kernel ms (CUDA events), device ms (torch.profiler), twin ms, bound
+    ms."""
+    sk = host.SecretKey.load(files["sk"])
+    ek = host.EvalKey.load(files["ek"])
+    rng = np.random.default_rng(SEED + 6)
+    rows, worst = [], 0
+    for form, M, env in (("unrolled", 3, None), ("plain", 1, "1")):
+        ops.clear_device_key_cache()
+        t0 = time.time()
+        with ntt_route(), knobs(IYOKAN_NO_UNROLL=env):
+            dk = ops.DeviceKeys.from_evalkey(ek, "cuda")
+        torch.cuda.synchronize()
+        t_keys = time.time() - t0
+        bk2 = dk.bk2
+        if bk2.shape[1] != M * 2 * p.l2:
+            raise AssertionError(f"{form} CB key {tuple(bk2.shape)}")
+        t0 = time.time()
+        kk = br2.kernel_key2(bk2, p)
+        torch.cuda.synchronize()
+        t_kk = time.time() - t0
+        if not torch.equal(kk, br2.kernel_key2_of(bk2)):
+            raise AssertionError("DeviceKeys' K7 key form != kernel_key2")
+        say("br2", f"{form} CB key: DeviceKeys {t_keys:.1f} s; prep2 "
+            f"{tuple(bk2.shape)} int64, kernel form {tuple(kk.shape)} "
+            f"int32 ({kk.numel() * 4 / 1e6:.1f} MB) built in {t_kk:.3f} s")
+        del kk
+        cap = caps[f"K7 M={M}"]
+        S = bk2.shape[0]
+        for G in sorted(set(K7_SIZES) | {cap, cap + 1}):
+            bits = rng.integers(0, 2, G, dtype=np.uint8)
+            tl = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
+            testv = ops.u64_tensor(rng.integers(0, 1 << 64, (G, p.N2),
+                                                dtype=np.uint64), "cuda")
+            steps, acc = ops.blind_rotate2_setup(tl, bk2, testv, p)
+            got = br2.br2(steps, acc, bk2, p)
+            grid = br2.last_launch()
+            want, t_ms = timed(
+                lambda: br2.blind_rotate2_ref(steps, acc, bk2, p))
+            err = int((got - want).abs().max())
+            worst = max(worst, err)
+            if err or not torch.equal(got, want):
+                raise AssertionError(f"K7 != twin at G={G}, {form} key: "
+                                     f"max |diff| {err}")
+            if grid != (br.CLUSTER * G, br.CLUSTER, br2.THREADS):
+                raise AssertionError(f"K7 at G={G} launched {grid}")
+            k_ms = cuda_ms(lambda: br2.br2(steps, acc, bk2, p), 3)
+            dev_ms = device_ms(lambda: br2.br2(steps, acc, bk2, p),
+                               "br2_cluster_kernel", reps=3)
+            b_ms, b_by = k7_bound(p, G, M, S)
+            waves = -(-G // cap)
+            rows.append({"form": form, "M": M, "G": G, "grid": list(grid),
+                         "waves": waves, "kernel_ms": k_ms,
+                         "device_ms": dev_ms, "twin_ms": t_ms,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            say("br2", f"{form} key (M={M}, {S} steps) G={G}: == twin, max "
+                f"|diff| 0; grid {grid} (CTAs, cluster, threads), {waves} "
+                f"wave(s) of {cap} clusters; kernel {k_ms:.3f} ms ("
+                f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms on the "
+                f"device, torch.profiler), {k_ms * 1e3 / S / waves:.1f} us a "
+                f"step a wave; twin {t_ms:.1f} ms; bound {b_ms:.4f} ms by "
+                f"{b_by} ({b_ms / k_ms:.3f} of it); {smi}")
+        del dk, bk2
+        ops.clear_device_key_cache()
+        torch.cuda.empty_cache()
+    # the thread count: the same kernel built at 512 threads a CTA
+    # (tools/br_variants.py on K7_THREADS, random keys; base == twin)
+    recs = br_variants.run(br_variants.load_spec(K7_THREADS), K7_SIZES[1:],
+                           ("br2_ntt M=3", "br2_ntt M=1"))
+    ms = {(r["variant"], r["kernel"], r["G"]): r["ms"] for r in recs}
+    for kernel in ("br2_ntt M=3", "br2_ntt M=1"):
+        say("br2", f"{kernel} at {br2.THREADS} / 512 threads a CTA "
+            "(tools/br_variants.py, k7_threads.json): " + "; ".join(
+                f"G={G} {ms['base', kernel, G]:.3f} / "
+                f"{ms['512-threads', kernel, G]:.3f} ms"
+                for G in K7_SIZES[1:]) + f"; {smi}")
+    return rows, worst, recs
+
+
 def phase_memory(files, data, smi):
     """memmac through iyokan tfhe: encrypted == plain == Python integers."""
     rom, rams, streams = data
@@ -1094,10 +1236,11 @@ def phase_memory(files, data, smi):
     t_run = time.time() - t0
     launches = {"tkey_blind_rotate": tkey.LAUNCHES,
                 "extprod1_ntt": extprod.LAUNCHES,
+                "br2_ntt": br2.LAUNCHES,
                 "tkey mma form": tkey.FORM_LAUNCHES["mma"],
                 "tkey wgmma form": tkey.FORM_LAUNCHES["wgmma"]}
     if not (launches["tkey_blind_rotate"] and launches["extprod1_ntt"]
-            and launches["tkey mma form"]):
+            and launches["br2_ntt"] and launches["tkey mma form"]):
         raise AssertionError(f"the encrypted memory run launched {launches}")
 
     packet_cli.main(["dec", "--key", f["sk"], "--in", f["res.enc"],
@@ -1154,7 +1297,7 @@ FUSION_RUNS = (
      ("br.STEP_LAUNCHES",)),
     ("memmac", "memmac.toml", True, {"IYOKAN_RAM_REFRESH_PERIOD": "2"},
      [SCAN2], ("tkey.FORM_LAUNCHES.mma", "tkey.FORM_LAUNCHES.wgmma",
-               "extprod.LAUNCHES")),
+               "extprod.LAUNCHES", "br2.LAUNCHES")),
 )
 
 
@@ -1328,12 +1471,15 @@ def phase_fusion(smi, mem_files, mem_data):
             design = build_design(Blueprint(bp_path))
             G = sum(len(i.addr_nodes) for i in (
                 *design.rom_insts.values(), *design.ram_insts.values()))
-            eager, replay, kernels = cb_graph_times(mem_files, G)
+            eager, replay, kernels, k7 = cb_graph_times(mem_files, G)
             out.append({"route": "cb", "G": G, "eager_s": eager,
-                        "replay_s": replay, "kernel_nodes": kernels})
+                        "replay_s": replay, "kernel_nodes": kernels,
+                        "k7_launches": k7})
             say("fusion", f"circuit bootstrapping of memmac's {G} address "
-                f"bits: {eager:.4f} s eager, {replay:.4f} s as one graph's "
-                f"replay ({kernels} kernel nodes), replay == eager; {smi}")
+                f"bits ({G * params.CGGI128.l} lvl2 rows): {eager:.4f} s "
+                f"eager, {replay:.4f} s as one graph's replay ({kernels} "
+                f"kernel nodes, {k7} of them K7), replay == eager == the "
+                f"eager twin's TRGSWs; {smi}")
         ops.clear_device_key_cache()
         torch.cuda.empty_cache()
     return out
@@ -1341,10 +1487,11 @@ def phase_fusion(smi, mem_files, mem_data):
 
 def cb_graph_times(files, G, reps=3):
     """Circuit bootstrapping of G encrypted bits (memmac's address bits a
-    cycle) on the card, run eagerly and as the replay of one CUDA graph:
-    (eager s, replay s, kernel nodes); the replay's TRGSWs == the eager
-    ones.  Host clock around synced eager calls, CUDA events around the
-    replays."""
+    cycle) on the card, run eagerly and as the replay of one CUDA graph
+    with K7 in it: (eager s, replay s, kernel nodes, K7 launches the
+    capture holds); the replay's TRGSWs == the eager ones == those of the
+    eager twin (blind_rotate2_ref in K7's place).  Host clock around
+    synced eager calls, CUDA events around the replays."""
     from iyokan_tpu_torch.engine import tfhe
 
     p = params.CGGI128
@@ -1357,25 +1504,44 @@ def cb_graph_times(files, G, reps=3):
     def cb():
         return ops.circuit_bootstrap(ct, dk.bk2, dk.pksk_f64, p)
 
-    want = cb()
+    with swapped(br2, "br2", lambda st, acc, bk2, p_:
+                 br2.blind_rotate2_ref(st, acc, bk2, p_)):
+        want = cb()
+    got_eager = cb()
     torch.cuda.synchronize()
+    if not torch.equal(got_eager, want):
+        raise AssertionError("CB on K7 != CB on its twin")
     t0 = time.time()
     for _ in range(reps):
         cb()
     torch.cuda.synchronize()
     eager = (time.time() - t0) / reps
     graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = br2.LAUNCHES
     with torch.cuda.graph(graph):
         got = cb()
+    k7 = br2.LAUNCHES - before
     graph.instantiate()
     replay = timing.timed_ms(graph.replay, reps, "cuda") / 1e3
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("CB replayed from a graph != CB run eagerly")
+    if k7 != 1 or not torch.equal(got, want):
+        raise AssertionError(f"CB replayed from a graph ({k7} K7 launches "
+                             "captured) != CB on the twin")
     nodes = tfhe.graph_nodes(graph)
     del graph, got
     torch.cuda.empty_cache()
-    return eager, replay, None if nodes is None else nodes[1]
+    return eager, replay, None if nodes is None else nodes[1], k7
+
+
+@contextlib.contextmanager
+def swapped(mod, name, fn):
+    """mod.name replaced by fn for a block."""
+    real = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
 
 
 def check_replays(label, tag, graphs, lines, settles):
@@ -1401,10 +1567,11 @@ def check_replays(label, tag, graphs, lines, settles):
 MESH_NAND_SHARDS = 4     # 2048 NANDs: 4 shards of 512 rows, K1's wgmma form
 MESH_FUSED_SHARDS = 2    # MAC-16 and memmac under whole-cycle fusion
 # the no-mesh cycle graphs' nodes as first measured with the graphs
-# (phase 14, before any mesh existed):
+# (phase 14, before any mesh existed; memmac's again once circuit
+# bootstrapping became one K7 launch, 116,387 nodes fewer in each):
 # a mesh that is not set must add no node
 NO_MESH_CYCLE_NODES = {"tkey": [92455], "v3": [11383], "pallas": [51639],
-                       "memmac": [144442, 145832]}
+                       "memmac": [28055, 29445]}
 
 
 def k1_bound(p, G):
@@ -1998,7 +2165,7 @@ def phase_micro(smi):
 
 def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
                    ep_worst, br_rows, br_gates, k3_launches, tk_layouts,
-                   tk_small_launches, unrolled):
+                   tk_small_launches, unrolled, k7_rows, k7_worst):
     """The kernels' JSON records: launches on each kernel's path (the
     2048-NAND run for tkey_blind_rotate's wgmma form, the memmac run for
     its mma.sync form and extprod1_ntt at 2l rows, the ntt-unrolled route
@@ -2008,7 +2175,8 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
     max |diff| against the twin over every compared shape, ms and twin ms
     at one shape of that path (G = 2048; K3 at M = 3 and G = 64, the batch
     its MAC-16 path runs, and a second K3 record at G = 256, MAC-16's
-    widest level), and the bound of that shape's work."""
+    widest level; K7 on the unrolled key at memmac's 69 lvl2 rows, the
+    batch of its run), and the bound of that shape's work."""
     i32 = 4
     G = 2048
     recs = [("tkey_blind_rotate", "tkey_blind_rotate.cu",
@@ -2069,6 +2237,12 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
                      next(x for x in r["rotations"] if x["G"] == G),
                      bound(2 * steps * G * (p.N // 128) * RT * C,
                            INT8_OPS_PER_S, steps * RT * C + io)))
+    row = next(r for r in k7_rows if r["form"] == "unrolled"
+               and r["G"] == 69)
+    recs.append(("br2_ntt", "br2_ntt.cu",
+                 "none: the JAX fori_loop at iyokan_tpu/crypto/ops.py:464-515",
+                 launches["br2_ntt"], k7_worst, row,
+                 (row["bound_ms"], row["bound_by"])))
     out = []
     for name, src, rep, n_launch, err, row, (b_ms, b_by) in recs:
         out.append({
@@ -2122,13 +2296,14 @@ def main() -> int:
     files, data = memory_files()
     ep_rows, ep_worst, t_cb = phase_extprod(
         p, files, smi, {k: v for k, v in caps.items() if k.startswith("K6")})
+    k7_rows, k7_worst, k7_threads = phase_br2(p, files, smi, caps)
     launches, mem_s_cycle, stages = phase_memory(files, data, smi)
 
     bdk, t_key = br_keys(ek, p)
     # BR_SIZES and each cluster kernel's thread-plan switch (ops/br.py:
     # threads_for): the largest G at 512 threads a CTA and the next
     br_sizes = sorted(set(BR_SIZES) | {g for k, c in caps.items()
-                                       if not k.startswith("K6")
+                                       if k.startswith(("K3", "K4"))
                                        for g in (c, c + 1)})
     br_rows, _, unrolled = phase_br_kernels(p, sk, bdk, rng, smi, br_sizes)
     br_gates = phase_br_gates(p, sk, bdk, rng, smi, rate)
@@ -2144,7 +2319,8 @@ def main() -> int:
         "card": smi, "blind_rotate_ms": times,
         "gate_bootstraps_per_sec": rate, "ntt_gates": ntt,
         "mac16_s_per_cycle": s_cycle, "extprod_ms": ep_rows,
-        "cb_8bits_s": t_cb, "memmac_s_per_cycle": mem_s_cycle,
+        "cb_8bits_s": t_cb, "k7": k7_rows, "k7_threads": k7_threads,
+        "memmac_s_per_cycle": mem_s_cycle,
         "memmac_stage_s": stages, "br_kernels": br_rows,
         "br_kernel_key_s": t_key, "k5_launch_split_ms": k5_split,
         "ntt_unrolled_route": unrolled, "br_gates": br_gates,
@@ -2157,8 +2333,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": kernel_records(
         p, times, worst, gate_launches, launches, ep_rows, ep_worst, br_rows,
-        br_gates, k3_launches, tk_layouts, tk_small_launches, unrolled)
-        + [mesh_k1] + micro_recs}))
+        br_gates, k3_launches, tk_layouts, tk_small_launches, unrolled,
+        k7_rows, k7_worst) + [mesh_k1] + micro_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -107,13 +107,18 @@ def decompose1(x: torch.Tensor, p: Params) -> torch.Tensor:
     return dig.reshape(*dig.shape[:-3], 2 * p.l, dig.shape[-1])
 
 
-def decompose2(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """Signed gadget decomposition, 64-bit torus: i64 [..., 2, N2] ->
-    int32 [..., 2l2, N2] (row i*l2+j)."""
+def decompose2_offset(p: Params) -> int:
+    """decompose2's offset, below 2^64: Bg2/2 per level centres the digits,
+    half the last level's unit rounds the truncated tail to nearest."""
     offset = sum((p.Bg2 // 2) << (64 - (j + 1) * p.Bgbit2)
                  for j in range(p.l2))
-    offset += 1 << (63 - p.l2 * p.Bgbit2)
-    xp = x + _i64(offset)
+    return (offset + (1 << (63 - p.l2 * p.Bgbit2))) & ((1 << 64) - 1)
+
+
+def decompose2(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """Signed gadget decomposition, 64-bit torus: i64 [..., 2, N2] ->
+    int32 [..., 2l2, N2] (row i*l2+j; decompose2_offset)."""
+    xp = x + _i64(decompose2_offset(p))
     outs = [((xp >> (64 - (j + 1) * p.Bgbit2)) & (p.Bg2 - 1)) - p.Bg2 // 2
             for j in range(p.l2)]
     dig = torch.stack(outs, dim=-2).to(torch.int32)
@@ -401,35 +406,32 @@ def blind_rotate2(tlwe0: torch.Tensor, bk2_prep: torch.Tensor,
     [n, 2l2, 2, N2] or of the 2-bit-unrolled key [ceil(n/2), 3*2l2, 2, N2]
     (host.genevalkey's bk2u: one fused 3-product step per key-bit pair,
     half the sequential depth); testv: i64 [N2] or one per row [G, N2].
-    Returns i64 [G, 2, N2].  The external products are the CRT64 twin
-    (polymul.extprod2) on every device: the JAX package runs lvl2 on XLA,
-    with no Pallas kernel.
+    Returns i64 [G, 2, N2].  The set-up (modswitch, the test vector's
+    rotation, the steps' rotation amounts) is here; the loop is
+    ops/br2.br2: K7 (csrc/br2_ntt.cu, one launch, on the key's kernel form)
+    for a CUDA tensor, its plain twin (the CRT64 polymul.extprod2 per step)
+    for a CPU tensor.  The JAX package runs the loop as one XLA fori_loop.
     """
+    from ..ops import br2
+
+    steps, acc = blind_rotate2_setup(tlwe0, bk2_prep, testv, p)
+    return br2.br2(steps, acc, bk2_prep, p)
+
+
+def blind_rotate2_setup(tlwe0: torch.Tensor, bk2_prep: torch.Tensor,
+                        testv: torch.Tensor, p: Params) -> tuple:
+    """blind_rotate2's set-up: (the steps' rotation amounts int32
+    [S, M, G] of ops/br2.rotation_steps, the accumulator i64 [G, 2, N2] =
+    (0, testv * X^{-bbar}))."""
+    from ..ops import br2
+
     G = tlwe0.shape[0]
-    abar = _modswitch(tlwe0[:, : p.n], p.logN2).to(torch.int64)
+    abar = _modswitch(tlwe0[:, : p.n], p.logN2)
     bbar = _modswitch(tlwe0[:, p.n], p.logN2).to(torch.int64)
     acc_b = rot_poly(testv.expand(G, p.N2),
                      torch.remainder(-bbar, 2 * p.N2), p.N2)
     acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1)
-
-    if bk2_prep.shape[-4] == 6 * p.l2:
-        nh = bk2_prep.shape[0]
-        pad = 2 * nh - p.n
-        if pad:
-            abar = torch.cat([abar, abar.new_zeros((G, pad))], dim=1)
-        a1s, a2s = abar[:, 0::2], abar[:, 1::2]
-        rs = torch.stack([a1s, a2s, (a1s + a2s) % (2 * p.N2)])  # [3, G, nh]
-        for i in range(nh):
-            rot = rot_poly(acc[None], rs[:, :, i, None], p.N2)  # [3,G,2,N2]
-            d = decompose2(rot - acc[None], p)                  # [3,G,2l2,N2]
-            d = d.transpose(0, 1).reshape(G, 6 * p.l2, p.N2)
-            acc = acc + polymul.extprod2(d, bk2_prep[i], p)
-        return acc
-
-    for i in range(p.n):
-        rot = rot_poly(acc, abar[:, i, None], p.N2)
-        acc = acc + polymul.extprod2(decompose2(rot - acc, p), bk2_prep[i], p)
-    return acc
+    return br2.rotation_steps(abar.T, bk2_prep, p), acc
 
 
 # --------------------------------------------------------------------------- #
@@ -689,7 +691,9 @@ class DeviceKeys:
     bk2       i64  [nh, 3*2l2, 2, 4, N2]   prepared 2-bit-unrolled CB key
                                            (bk2u; [n, 2l2, ...] from bk2
                                            when the key has no bk2u or
-                                           IYOKAN_NO_UNROLL is set)
+                                           IYOKAN_NO_UNROLL is set), with
+                                           its K7 kernel form (ops/br2.py:
+                                           attach_kernel_key2), built here
     pksk_f64  2 x f64 [N2*t, 2N]           private key-switch keys, centred
     The last two are None without circuit-bootstrapping material.
 
@@ -829,6 +833,10 @@ class DeviceKeys:
             else:
                 src2 = ek.bk2
             dk.bk2 = polymul.prep2(u64_tensor(src2, device), p)
+            # K7 reads the CB key in its kernel form, built once here
+            from ..ops.br2 import attach_kernel_key2
+
+            attach_kernel_key2(dk.bk2, p)
             dk.pksk_f64 = tuple(
                 u32_tensor(ek.pksk[i].reshape(p.N2 * p.pks_t, 2 * p.N),
                            device).to(torch.float64)

@@ -14,7 +14,8 @@ copies are gathers.  The value array is updated in place.
 Built-in CMUX memories follow the reference dataflow as the JAX engine
 does (reference src/iyokan_tfhepp.hpp:675-889), bit for bit:
   CB:        one circuit-bootstrap batch over every address bit a level
-             reads (ops.circuit_bootstrap, the lvl2 CRT64 product) ->
+             reads (ops.circuit_bootstrap: the lvl2 blind rotation on K7,
+             ops/br2.py, on the card) ->
              normal + inverted TRGSW selectors, NTT-prepared;
   ROM read:  inter-word CMUX tree (inverted selectors) -> intra-word
              rotate ladder (normal selectors) -> per-bit sample extract ->
@@ -126,13 +127,13 @@ def jax_chunk_sizes(nb: int, nm: int, cap: int) -> np.ndarray:
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, flat: "module.NAME" (or
     "module.NAME.key" for a per-layout or per-form dict) -> int."""
-    from ..ops import br, br3, extprod, tkey
+    from ..ops import br, br2, br3, extprod, tkey
 
     out = {}
     for mod, name in ((tkey, "LAUNCHES"), (tkey, "LAYOUT_LAUNCHES"),
                       (tkey, "FORM_LAUNCHES"), (br, "STEP_LAUNCHES"),
                       (br, "LOOP_LAUNCHES"), (br3, "LAUNCHES"),
-                      (extprod, "LAUNCHES")):
+                      (extprod, "LAUNCHES"), (br2, "LAUNCHES")):
         v = getattr(mod, name)
         stem = f"{mod.__name__.rsplit('.', 1)[1]}.{name}"
         if isinstance(v, dict):
@@ -144,9 +145,10 @@ def launch_counts() -> dict:
 
 def _set_launch_counts(counts: dict) -> None:
     """Put the counts launch_counts() returned back into the wrappers."""
-    from ..ops import br, br3, extprod, tkey
+    from ..ops import br, br2, br3, extprod, tkey
 
-    mods = {"tkey": tkey, "br": br, "br3": br3, "extprod": extprod}
+    mods = {"tkey": tkey, "br": br, "br2": br2, "br3": br3,
+            "extprod": extprod}
     for key, n in counts.items():
         parts = key.split(".")
         if len(parts) == 2:

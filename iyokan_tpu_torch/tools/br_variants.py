@@ -1,6 +1,6 @@
-"""Time variants of the cluster blind-rotation kernels (K3, K4, K5) built
-from edited copies of the kernel sources: a removal sequence, for where a
-step's time goes.
+"""Time variants of the cluster blind-rotation kernels (K3, K4, K5, K7)
+built from edited copies of the kernel sources: a removal sequence, for
+where a step's time goes, or one alternative form.
 
     python3 -m iyokan_tpu_torch.tools.br_variants VARIANTS [SIZES [KERNELS]]
 
@@ -18,7 +18,10 @@ cggi128 keys at each batch of SIZES (default 1,64,2048), timed by CUDA
 events; a variant named "base" is held against the twins first.  KERNELS
 (comma-separated, default br_ntt_loop,br3_ntt M=3): br_ntt_loop (K4, one
 launch a rotation), br3_ntt M=3 (K3 on the unrolled key), br_ntt_step
-(K5, n launches a rotation).  For measurement experiments only: the port
+(K5, n launches a rotation), br2_ntt M=3 and br2_ntt M=1 (K7, circuit
+bootstrapping's lvl2 rotation on random unrolled and plain prep2 keys;
+"base" holds each against its twin at the first batch).  For
+measurement experiments only: the port
 never runs an edited kernel, and `run` gives the repo's libraries back
 when it ends.  Needs a card.
 
@@ -41,6 +44,13 @@ barrier, at exit, and without the attribute):
         br_ntt_step,br_ntt_loop
     python3 -m iyokan_tpu_torch.tools.br_variants \\
         iyokan_tpu_torch/tools/k5_pdl.json 1,8,64,256,2048 br_ntt_step
+
+tools/k7_threads.json builds K7 at 512 threads a CTA beside its 1024
+(chip_smoke.py's K7 phase runs it at G = 3, 24, 69):
+
+    python3 -m iyokan_tpu_torch.tools.br_variants \\
+        iyokan_tpu_torch/tools/k7_threads.json 3,24,69 \\
+        "br2_ntt M=3,br2_ntt M=1"
 """
 
 from __future__ import annotations
@@ -54,14 +64,28 @@ import sys
 
 import numpy as np
 
+import torch
+
 from .. import params
-from ..ops import br, br3, nvcc
+from ..crypto import polymul
+from ..ops import br, br2, br3, nvcc
 from . import br_profile, timing
 
 OUT = os.path.join(os.path.dirname(nvcc.BUILD_DIR), "br_variants")
 KERNELS = ("br_ntt_loop", "br3_ntt M=3")
 SOURCE_OF = {"br_ntt_loop": br.SOURCE, "br_ntt_step": br.SOURCE,
-             "br3_ntt M=3": br3.SOURCE}
+             "br3_ntt M=3": br3.SOURCE, "br2_ntt M=3": br2.SOURCE,
+             "br2_ntt M=1": br2.SOURCE}
+
+
+def random_key2(p, M, rng, device):
+    """A prep2 CB key of random lvl2 TRGSW rows, plain (M = 1, n steps) or
+    2-bit-unrolled (M = 3, ceil(n/2) steps), with its K7 kernel form."""
+    steps = p.n if M == 1 else (p.n + 1) // 2
+    rows = rng.integers(0, 1 << 64, (steps, 2 * p.l2 * M, 2, p.N2),
+                        dtype=np.uint64)
+    key = polymul.prep2(torch.from_numpy(rows.view(np.int64)).to(device), p)
+    return br2.attach_kernel_key2(key, p)
 
 
 def load_spec(arg: str) -> dict:
@@ -115,6 +139,8 @@ def run(variants: dict, sizes, kernels=KERNELS, p=params.CGGI128,
     rng = np.random.default_rng(3)
     plain = br_profile.random_key(p, p.n, 2 * p.l, rng, dev)
     unrolled = br_profile.random_key(p, (p.n + 1) // 2, 6 * p.l, rng, dev)
+    keys2 = {int(k[-1]): random_key2(p, int(k[-1]), rng, dev)
+             for k in kernels if k.startswith("br2_ntt")}
     out = []
     try:
         for name, d in dirs:
@@ -126,9 +152,23 @@ def run(variants: dict, sizes, kernels=KERNELS, p=params.CGGI128,
                 acc = br_profile.random_acc(p, G, rng, dev)
                 a = br_profile.amounts(p, (p.n, G), rng, dev)
                 st = br3.rotation_steps(a, unrolled, p)
+                acc2 = torch.from_numpy(rng.integers(
+                    0, 1 << 64, (G, 2, p.N2), dtype=np.uint64).view(
+                        np.int64)).to(dev)
+                st2 = {M: br2.rotation_steps(torch.from_numpy(
+                    rng.integers(0, 2 * p.N2, (p.n, G), dtype=np.int32)).to(
+                        dev), k, p) for M, k in keys2.items()}
                 fns = {"br_ntt_loop": lambda: br.br_loop(a, acc, plain, p),
                        "br_ntt_step": lambda: br.br_steps(a, acc, plain, p),
-                       "br3_ntt M=3": lambda: br3.br3(st, acc, unrolled, p)}
+                       "br3_ntt M=3": lambda: br3.br3(st, acc, unrolled, p),
+                       **{f"br2_ntt M={M}": (lambda M=M: br2.br2(
+                           st2[M], acc2, keys2[M], p)) for M in keys2}}
+                if name == "base" and G == sizes[0]:
+                    for M, k in keys2.items():
+                        br_profile.same(
+                            fns[f"br2_ntt M={M}"](),
+                            br2.blind_rotate2_ref(st2[M], acc2, k, p),
+                            f"K7 M={M} G={G}")
                 for kernel in kernels:
                     fn = fns[kernel]
                     fn()

@@ -27,7 +27,7 @@ names = ["iyokan_tpu_torch"] + [
 for n in names:
     importlib.import_module(n)
 for n in ("parallel", "parallel.mesh", "parallel.distributed",
-          "tools.measure_error_rate"):
+          "tools.measure_error_rate", "ops.br2"):
     assert "iyokan_tpu_torch." + n in names, n
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "iyokan_tpu")]
