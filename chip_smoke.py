@@ -11,8 +11,9 @@ Phases, one line each or more:
                    csrc/br_cluster.cuh), one nvcc each, started together
                    (sm_90a), with ptxas's register lines; the cluster shape
                    of K3, K4 (and K5, K4's kernel one step a launch), K6 at
-                   2l and 3*2l rows and K7 at M = 1, 3 (4 CTAs a row:
-                   prime x part) with each one's
+                   2l and 3*2l rows and K7 at M = 1, 3 and each rows a
+                   cluster up to R_MAX (4 CTAs a cluster: prime x part)
+                   with each one's
                    shared memory a CTA and the clusters the card holds at
                    once (cudaOccupancyMaxActiveClusters); then the SASS
                    opcode mix (cuobjdump -sass) of every int8 product
@@ -69,15 +70,19 @@ Phases, one line each or more:
                    unrolled (M = 3, 318 steps) and plain
                    (IYOKAN_NO_UNROLL=1: M = 1, 635 steps), built by
                    DeviceKeys with its kernel form (build time printed), at
-                   G = 1, 3, 24, 69 (memmac's 23 bits x l) and the wave
-                   threshold (the clusters the card holds at once, and one
-                   more), inputs from blind_rotate2's set-up on encrypted
-                   bits: max |diff| 0, the grid as launched and its waves,
-                   kernel ms (CUDA events), device ms (torch.profiler),
-                   twin ms, bound ms; then K7 at 512 threads a CTA beside
-                   its 1024 at G = 3, 24, 69 (tools/br_variants.py on
-                   tools/k7_threads.json, random keys, both held to the
-                   twin);
+                   G = 1, 3, 24, 69 (memmac's 23 bits x l) and the rows
+                   plan's thresholds at C clusters at once (C, C + 1,
+                   2C + 1, 3C, 3C + 1), inputs from blind_rotate2's set-up
+                   on encrypted bits: max |diff| 0, the grid as launched
+                   (== ops/br2.py:rows_per_cluster's plan), rows a cluster,
+                   shared memory a CTA and waves, kernel ms (CUDA events),
+                   device ms (torch.profiler), twin ms, bound ms; then K7's
+                   variants at G = 3, 24, 69 on random keys, built in one
+                   parallel round (tools/br_variants.py run_specs): 512
+                   threads a CTA (tools/k7_threads.json), R_MAX = 1
+                   (k7_rows.json) and a step's phases removed one after
+                   another (k7_ablation.json), the sources as they are
+                   held to the twin;
  10. memory     -- tests/data/memmac.toml (MAC-4 between a 128 x 32 CMUX ROM
                    and two 256 x 8 CMUX RAMs) at cggi128 through the CLIs
                    in-process: genkey, genevalkey (with circuit-bootstrapping
@@ -182,7 +187,8 @@ same work on the card and what sets it; K1's wgmma form, its mma.sync
 form (small batches) and one record per K2 layout; K3 at the batch its
 MAC-16 path runs, G = 64, and at G = 256; K6 at 2l rows (memmac's path)
 and at 3*2l rows (the ntt-unrolled route's, G = 64); K7 on the unrolled
-key at memmac's 69 rows, launched by the memory phase's run; no PyTorch
+key at memmac's 69 rows, launched by the memory phase's run, with its rows
+a cluster and shared memory a CTA; no PyTorch
 call computes a blind rotation or an external product,
 so their library_ms is null; the micro records time torch._int_mm on the
 same per-step product where it takes it, per step or round like their
@@ -339,9 +345,11 @@ def phase_build(p):
                                     "at once" for k, v in plans.items()))
     k7 = {m: br2.cluster_plan(p, m) for m in (1, 3)}
     say("build", f"K7 (br2_ntt, N2 = {p.N2}): clusters of {br.CLUSTER} CTAs "
-        f"(prime x part) of {br2.THREADS} threads: " + "; ".join(
-            f"M={m} {v[0]} B a CTA, {v[1]} clusters (rows) at once"
-            for m, v in k7.items()))
+        f"(prime x part) of {br2.THREADS} threads, up to R_MAX = "
+        f"{k7[3][3]} rows a cluster: " + "; ".join(
+            f"M={m} R={r}: {v[0]} B a CTA, {v[1]} clusters at once"
+            for m in (1, 3) for r in range(1, k7[m][3] + 1)
+            for v in [br2.cluster_plan(p, m, rows=r)]))
     for k in caps[br.NARROW_THREADS]:
         cap = caps[br.NARROW_THREADS][k][1]
         say("build", f"{k} plan (one cluster a row, ops/br.py:threads_for): "
@@ -1088,11 +1096,24 @@ def phase_extprod(p, files, smi, caps):
 
 
 # K7's batches: one address bit's l rows, the 8-bit phase's 8 x l and
-# memmac's 23 address bits x l (its CB batch a cycle)
+# memmac's 23 address bits x l (its CB batch a cycle); phase 9b adds each
+# rows-plan threshold (C, C + 1, 2C + 1, 3C, 3C + 1 at C clusters at once)
 K7_SIZES = (1, 3, 24, 69)
-# K7 at 512 threads a CTA beside its 1024 (tools/br_variants.py)
-K7_THREADS = os.path.join(ROOT, "iyokan_tpu_torch", "tools",
-                          "k7_threads.json")
+# K7's variants (tools/br_variants.py, one parallel build): 512 threads a
+# CTA beside its 1024, R_MAX = 1 (one row a cluster) beside R_MAX, and the
+# removal sequence of a step's phases
+K7_SPECS = {name: os.path.join(ROOT, "iyokan_tpu_torch", "tools",
+                               f"k7_{name}.json")
+            for name in ("threads", "rows", "ablation")}
+K7_VARIANT_SIZES = (3, 24, 69)
+
+
+def k7_sizes(cap):
+    """K7_SIZES and the rows plan's thresholds at `cap` clusters at once:
+    the last one-row wave and the first two-row one, the first three-row
+    one, the last one-wave batch and the first of two waves."""
+    return sorted(set(K7_SIZES) | {cap, cap + 1, 2 * cap + 1, 3 * cap,
+                                   3 * cap + 1})
 
 
 def k7_mulmods(p, M):
@@ -1119,12 +1140,12 @@ def k7_bound(p, G, M, S):
 def phase_br2(p, files, smi, caps):
     """K7 (csrc/br2_ntt.cu) against its twin blind_rotate2_ref at cggi128,
     on the memmac run's CB key in both forms (DeviceKeys, the unrolled key
-    by default, the plain key under IYOKAN_NO_UNROLL), at K7_SIZES and the
-    wave threshold (caps: the clusters the card holds at once per M, and
-    one more), inputs made by blind_rotate2's own set-up from encrypted
-    bits and per-row test vectors: max |diff| 0, the grid as launched,
-    kernel ms (CUDA events), device ms (torch.profiler), twin ms, bound
-    ms."""
+    by default, the plain key under IYOKAN_NO_UNROLL), at k7_sizes (caps:
+    the clusters the card holds at once per M at R_MAX rows a cluster),
+    inputs made by blind_rotate2's own set-up from encrypted bits and
+    per-row test vectors: max |diff| 0, the grid as launched against the
+    rows plan, kernel ms (CUDA events), device ms (torch.profiler), twin
+    ms, bound ms; then K7's variants (K7_SPECS)."""
     sk = host.SecretKey.load(files["sk"])
     ek = host.EvalKey.load(files["ek"])
     rng = np.random.default_rng(SEED + 6)
@@ -1151,7 +1172,7 @@ def phase_br2(p, files, smi, caps):
         del kk
         cap = caps[f"K7 M={M}"]
         S = bk2.shape[0]
-        for G in sorted(set(K7_SIZES) | {cap, cap + 1}):
+        for G in k7_sizes(cap):
             bits = rng.integers(0, 2, G, dtype=np.uint8)
             tl = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
             testv = ops.u64_tensor(rng.integers(0, 1 << 64, (G, p.N2),
@@ -1166,38 +1187,52 @@ def phase_br2(p, files, smi, caps):
             if err or not torch.equal(got, want):
                 raise AssertionError(f"K7 != twin at G={G}, {form} key: "
                                      f"max |diff| {err}")
-            if grid != (br.CLUSTER * G, br.CLUSTER, br2.THREADS):
-                raise AssertionError(f"K7 at G={G} launched {grid}")
+            R = br2.rows_per_cluster(G, cap, br2.R_MAX)
+            n = -(-G // R)
+            if grid != (br.CLUSTER * n, br.CLUSTER, br2.THREADS, R):
+                raise AssertionError(f"K7 at G={G} launched {grid}, the "
+                                     f"plan {n} clusters of {R} rows")
+            smem, cap_r, _, _ = br2.cluster_plan(p, M, rows=R)
+            waves = -(-n // cap_r)
             k_ms = cuda_ms(lambda: br2.br2(steps, acc, bk2, p), 3)
             dev_ms = device_ms(lambda: br2.br2(steps, acc, bk2, p),
                                "br2_cluster_kernel", reps=3)
             b_ms, b_by = k7_bound(p, G, M, S)
-            waves = -(-G // cap)
             rows.append({"form": form, "M": M, "G": G, "grid": list(grid),
+                         "rows_per_cluster": R, "smem_bytes": smem,
                          "waves": waves, "kernel_ms": k_ms,
                          "device_ms": dev_ms, "twin_ms": t_ms,
                          "bound_ms": b_ms, "bound_by": b_by})
             say("br2", f"{form} key (M={M}, {S} steps) G={G}: == twin, max "
-                f"|diff| 0; grid {grid} (CTAs, cluster, threads), {waves} "
-                f"wave(s) of {cap} clusters; kernel {k_ms:.3f} ms ("
-                f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms on the "
+                f"|diff| 0; grid {grid} (CTAs, cluster, threads, rows a "
+                f"cluster): {n} clusters of {R} rows, {smem} B a CTA, "
+                f"{waves} wave(s) of {cap_r} clusters; kernel {k_ms:.3f} ms "
+                f"({dev_ms if dev_ms is None else round(dev_ms, 3)} ms on the "
                 f"device, torch.profiler), {k_ms * 1e3 / S / waves:.1f} us a "
                 f"step a wave; twin {t_ms:.1f} ms; bound {b_ms:.4f} ms by "
                 f"{b_by} ({b_ms / k_ms:.3f} of it); {smi}")
         del dk, bk2
         ops.clear_device_key_cache()
         torch.cuda.empty_cache()
-    # the thread count: the same kernel built at 512 threads a CTA
-    # (tools/br_variants.py on K7_THREADS, random keys; base == twin)
-    recs = br_variants.run(br_variants.load_spec(K7_THREADS), K7_SIZES[1:],
-                           ("br2_ntt M=3", "br2_ntt M=1"))
-    ms = {(r["variant"], r["kernel"], r["G"]): r["ms"] for r in recs}
-    for kernel in ("br2_ntt M=3", "br2_ntt M=1"):
-        say("br2", f"{kernel} at {br2.THREADS} / 512 threads a CTA "
-            "(tools/br_variants.py, k7_threads.json): " + "; ".join(
-                f"G={G} {ms['base', kernel, G]:.3f} / "
-                f"{ms['512-threads', kernel, G]:.3f} ms"
-                for G in K7_SIZES[1:]) + f"; {smi}")
+    # the variants, on random keys (tools/br_variants.py; base == twin):
+    # the thread count, one row a cluster, and a step's phases removed one
+    # after another
+    kernels = ("br2_ntt M=3", "br2_ntt M=1")
+    recs = br_variants.run_specs(
+        {k: br_variants.load_spec(v) for k, v in K7_SPECS.items()},
+        K7_VARIANT_SIZES, kernels)
+    ms = {(r["spec"], r["variant"], r["kernel"], r["G"]): r["ms"]
+          for r in recs}
+    for spec in K7_SPECS:
+        names = list(br_variants.load_spec(K7_SPECS[spec]))
+        for kernel in kernels:
+            say("br2", f"{kernel} variants (tools/br_variants.py, "
+                f"k7_{spec}.json; ms at G = "
+                f"{', '.join(map(str, K7_VARIANT_SIZES))}): " + "; ".join(
+                    f"{name} " + " / ".join(
+                        f"{ms[spec, name, kernel, G]:.3f}"
+                        for G in K7_VARIANT_SIZES) for name in names)
+                + f"; {smi}")
     return rows, worst, recs
 
 
@@ -2251,7 +2286,9 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
             "launches": n_launch, "max_abs_err": err,
             "ms": row["kernel_ms"], "plain_ms": row["twin_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "at_G": row["G"]})
+            "at_G": row["G"],
+            **{k: row[k] for k in ("rows_per_cluster", "smem_bytes")
+               if k in row}})
     return out
 
 
@@ -2296,7 +2333,7 @@ def main() -> int:
     files, data = memory_files()
     ep_rows, ep_worst, t_cb = phase_extprod(
         p, files, smi, {k: v for k, v in caps.items() if k.startswith("K6")})
-    k7_rows, k7_worst, k7_threads = phase_br2(p, files, smi, caps)
+    k7_rows, k7_worst, k7_variants = phase_br2(p, files, smi, caps)
     launches, mem_s_cycle, stages = phase_memory(files, data, smi)
 
     bdk, t_key = br_keys(ek, p)
@@ -2319,7 +2356,7 @@ def main() -> int:
         "card": smi, "blind_rotate_ms": times,
         "gate_bootstraps_per_sec": rate, "ntt_gates": ntt,
         "mac16_s_per_cycle": s_cycle, "extprod_ms": ep_rows,
-        "cb_8bits_s": t_cb, "k7": k7_rows, "k7_threads": k7_threads,
+        "cb_8bits_s": t_cb, "k7": k7_rows, "k7_variants": k7_variants,
         "memmac_s_per_cycle": mem_s_cycle,
         "memmac_stage_s": stages, "br_kernels": br_rows,
         "br_kernel_key_s": t_key, "k5_launch_split_ms": k5_split,

@@ -22,16 +22,17 @@ for bit.
 `br2` launches csrc/br2_ntt.cu for CUDA tensors and runs the plain twin
 `blind_rotate2_ref` (the loop crypto/ops.py ran before K7) for CPU
 tensors; nothing else selects between them, and a failed build or launch
-raises.  The kernel is the cluster form of csrc/br_cluster.cuh (one
-cluster of br.CLUSTER = 4 CTAs a row, (prime, part)) at N2 = 2048, built for
-l2 = 5, Bgbit2 = 8 (every parameter set of the repo; another raises).  It
-reads the key in its kernel form (`kernel_key2`, built once beside the
-prep2 key by crypto/ops.py:DeviceKeys.from_evalkey, `attach_kernel_key2`).
-THREADS threads a CTA at every G (1024 measured faster than 512 at G = 1
-to 69 on both key forms); one 152 KiB CTA an SM, so the card holds
-`cluster_plan(...)[1]` clusters (rows) at once.  LAUNCHES counts the
-launches; `last_launch` reads the grid, cluster size and threads a CTA the
-C launcher last used.
+raises.  The kernel is the cluster form of csrc/br_cluster.cuh (clusters
+of br.CLUSTER = 4 CTAs, (prime, part)) at N2 = 2048, built for l2 = 5,
+Bgbit2 = 8 (every parameter set of the repo; another raises), with up to
+R_MAX rows a cluster sharing its key reads: a launch of G rows takes
+`rows_per_cluster(G, C)` rows a cluster, C the clusters the card holds at
+once at R_MAX's shared memory (`cluster_plan`), so up to R_MAX * C rows
+run in one wave.  It reads the key in its kernel form (`kernel_key2`,
+built once beside the prep2 key by crypto/ops.py:DeviceKeys.from_evalkey,
+`attach_kernel_key2`).  THREADS threads a CTA; one CTA an SM.  LAUNCHES
+counts the launches; `last_launch` reads the grid, cluster size, threads
+a CTA and rows a cluster the C launcher last used.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from . import br, nvcc
 LAUNCHES = 0          # K7 launches: one per lvl2 blind rotation
 SOURCE = "br2_ntt.cu"
 THREADS = 1024        # threads a K7 CTA (csrc/br2_ntt.cu: BR2_THREADS)
+R_MAX = 3             # rows a K7 cluster at most (csrc/br2_ntt.cu: BR2_R_MAX)
 
 
 def _m_of(bk2: torch.Tensor, p: Params) -> int:
@@ -181,9 +183,9 @@ def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.br2_ntt.restype = ci
     lib.br2_ntt.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                            ctypes.c_uint64, ci, vp]
+                            ctypes.c_uint64, ci, ci, vp]
     lib.br2_ntt_plan.restype = ci
-    lib.br2_ntt_plan.argtypes = [ci, ci, ci, ci,
+    lib.br2_ntt_plan.argtypes = [ci, ci, ci, ci, ci,
                                  ctypes.POINTER(ctypes.c_longlong)]
     lib.br2_ntt_last_launch.restype = None
     lib.br2_ntt_last_launch.argtypes = [ctypes.POINTER(ci)]
@@ -201,39 +203,55 @@ def _lib() -> ctypes.CDLL:
             from e
 
 
-def cluster_plan(p: Params, M: int, device=None) -> tuple:
-    """(dynamic shared memory bytes a CTA, clusters the card holds at once:
-    the rows of one wave) of K7 at M on `device`'s card; raises where the
-    card refuses (builds and loads the library)."""
+def rows_per_cluster(G: int, clusters: int, r_max: int = R_MAX) -> int:
+    """K7's rows a cluster for a launch of G rows on a card that holds
+    `clusters` clusters at once: the fewest that fit all G rows in one wave,
+    ceil(G / clusters), at most r_max (beyond r_max * clusters rows the
+    ceil(G / r_max) clusters run in waves).  The launch is ceil(G / R)
+    clusters, the last one holding the rest."""
+    if G < 1 or clusters < 1 or r_max < 1:
+        raise ValueError(f"rows_per_cluster({G}, {clusters}, {r_max})")
+    return min(r_max, -(-G // clusters))
+
+
+def cluster_plan(p: Params, M: int, device=None, rows: int = 0) -> tuple:
+    """(dynamic shared memory bytes a CTA, clusters the card holds at once,
+    rows a cluster, the library's R_MAX) of K7 at M and `rows` rows a
+    cluster (0: R_MAX) on `device`'s card; raises where the card refuses
+    (builds and loads the library)."""
     lib = _lib()
-    out = (ctypes.c_longlong * 2)()
-    return br.check_plan(lib.br2_ntt_plan(p.N2, p.l2, M,
-                                          br.device_index(device), out),
-                         out, lib.br2_error_string)
+    out = (ctypes.c_longlong * 4)()
+    smem, clusters = br.check_plan(
+        lib.br2_ntt_plan(p.N2, p.l2, M, rows, br.device_index(device), out),
+        out, lib.br2_error_string)
+    return smem, clusters, int(out[2]), int(out[3])
 
 
 def last_launch() -> tuple:
-    """(CTAs, cluster size, threads a CTA) of the last K7 launch, as the C
-    launcher made it."""
-    out = (ctypes.c_int * 3)()
+    """(CTAs, cluster size, threads a CTA, rows a cluster) of the last K7
+    launch, as the C launcher made it."""
+    out = (ctypes.c_int * 4)()
     _lib().br2_ntt_last_launch(out)
     return tuple(int(v) for v in out)
 
 
 def _launch(steps, acc, bk2, M: int, p: Params) -> torch.Tensor:
     """K7 over every step of bk2's kernel form, on a copy of acc (updated
-    in place)."""
+    in place), at rows_per_cluster rows a cluster."""
     global LAUNCHES
     lib = _lib()
     kk = kernel_key2_of(bk2)
+    G = acc.shape[0]
+    dev = br.device_index(acc.device)
+    _, clusters, _, r_max = cluster_plan(p, M, acc.device)
+    rows = rows_per_cluster(G, clusters, r_max)
     out = acc.clone(memory_format=torch.contiguous_format)
     steps = steps.contiguous()
     tabs = ntt.kernel_tables(p.N2, acc.device)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     rc = lib.br2_ntt(out.data_ptr(), steps.data_ptr(), kk.data_ptr(),
-                     tabs.tw.data_ptr(), acc.shape[0], bk2.shape[0], M,
-                     p.N2, p.l2, p.Bgbit2, cops.decompose2_offset(p),
-                     br.device_index(acc.device), stream)
+                     tabs.tw.data_ptr(), G, bk2.shape[0], M, p.N2, p.l2,
+                     p.Bgbit2, cops.decompose2_offset(p), rows, dev, stream)
     if rc != 0:
         raise RuntimeError(f"K7 ({SOURCE}) launch failed: "
                            f"{lib.br2_error_string(rc).decode()}")
@@ -245,9 +263,9 @@ def br2(steps: torch.Tensor, acc: torch.Tensor, bk2: torch.Tensor,
         p: Params) -> torch.Tensor:
     """K7: every step of a lvl2 blind rotation, steps int32 [S, M, G]
     (rotation_steps) against bk2 int64 [S, M*2l2, 2, 4, N2] (with its
-    kernel form), from acc i64 [G, 2, N2], in one launch of G clusters;
-    returns the new acc.  A CUDA input runs the kernel, a CPU input the
-    twin."""
+    kernel form), from acc i64 [G, 2, N2], in one launch of ceil(G / R)
+    clusters of R = rows_per_cluster rows; returns the new acc.  A CUDA
+    input runs the kernel, a CPU input the twin."""
     M = _check(steps, acc, bk2, p)
     if acc.shape[0] == 0:
         return acc.clone()

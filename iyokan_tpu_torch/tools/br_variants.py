@@ -45,11 +45,17 @@ barrier, at exit, and without the attribute):
     python3 -m iyokan_tpu_torch.tools.br_variants \\
         iyokan_tpu_torch/tools/k5_pdl.json 1,8,64,256,2048 br_ntt_step
 
-tools/k7_threads.json builds K7 at 512 threads a CTA beside its 1024
-(chip_smoke.py's K7 phase runs it at G = 3, 24, 69):
+tools/k7_threads.json builds K7 at 512 threads a CTA beside its 1024,
+tools/k7_rows.json at R_MAX = 1 (one row a cluster, on the same source),
+and tools/k7_ablation.json is K7's removal sequence (cluster barriers,
+the forward transforms after the digit stages, the inverse, the key
+reads, Garner's CRT); chip_smoke.py's K7 phase runs all three (run_specs:
+one parallel build) at G = 3, 24, 69.  tools/k7_forms.json holds K7's
+two form choices against the source: the rotations as a loop, then one
+digit region (and barrier 3) at every R:
 
     python3 -m iyokan_tpu_torch.tools.br_variants \\
-        iyokan_tpu_torch/tools/k7_threads.json 3,24,69 \\
+        iyokan_tpu_torch/tools/k7_forms.json 3,31,69 \\
         "br2_ntt M=3,br2_ntt M=1"
 """
 
@@ -126,12 +132,23 @@ def prepare(variants: dict, root: str = OUT,
 
 def run(variants: dict, sizes, kernels=KERNELS, p=params.CGGI128,
         dev="cuda") -> list:
-    """The timing records {variant, kernel, G, ms} of every variant, kernel
-    and batch; the repo's own libraries are loaded again at the end."""
-    dirs = prepare(variants)
+    """The timing records {spec, variant, kernel, G, ms} of every variant,
+    kernel and batch; the repo's own libraries are loaded again at the
+    end."""
+    return run_specs({"": variants}, sizes, kernels, p, dev)
+
+
+def run_specs(specs: dict, sizes, kernels=KERNELS, p=params.CGGI128,
+              dev="cuda") -> list:
+    """`run` for several specs {label: variants} at once: every variant of
+    every spec built in one parallel round (spec `label`'s under
+    OUT/label/), then each spec's variants timed in turn; the repo's
+    sources ("base") are held against the twins once."""
+    dirs = [(label, name, d) for label, variants in specs.items()
+            for name, d in prepare(variants, os.path.join(OUT, label))]
     saved = nvcc.CSRC, nvcc.BUILD_DIR
     lib_dir = {d: saved[1] if d == saved[0] else os.path.join(d, "build")
-               for _, d in dirs}
+               for _, _, d in dirs}
     srcs = sorted({SOURCE_OF[k] for k in kernels})
     with concurrent.futures.ThreadPoolExecutor(len(lib_dir)) as ex:
         list(ex.map(lambda d: nvcc.build(*srcs, csrc=d,
@@ -141,13 +158,15 @@ def run(variants: dict, sizes, kernels=KERNELS, p=params.CGGI128,
     unrolled = br_profile.random_key(p, (p.n + 1) // 2, 6 * p.l, rng, dev)
     keys2 = {int(k[-1]): random_key2(p, int(k[-1]), rng, dev)
              for k in kernels if k.startswith("br2_ntt")}
-    out = []
+    out, checked = [], False
     try:
-        for name, d in dirs:
+        for label, name, d in dirs:
             nvcc.CSRC, nvcc.BUILD_DIR = d, lib_dir[d]
             nvcc._libs.clear()
-            if name == "base":
+            check = name == "base" and not checked
+            if check:
                 br_profile.check(p, rng, dev)
+                checked = True
             for G in sizes:
                 acc = br_profile.random_acc(p, G, rng, dev)
                 a = br_profile.amounts(p, (p.n, G), rng, dev)
@@ -163,7 +182,7 @@ def run(variants: dict, sizes, kernels=KERNELS, p=params.CGGI128,
                        "br3_ntt M=3": lambda: br3.br3(st, acc, unrolled, p),
                        **{f"br2_ntt M={M}": (lambda M=M: br2.br2(
                            st2[M], acc2, keys2[M], p)) for M in keys2}}
-                if name == "base" and G == sizes[0]:
+                if check and G == sizes[0]:
                     for M, k in keys2.items():
                         br_profile.same(
                             fns[f"br2_ntt M={M}"](),
@@ -172,7 +191,8 @@ def run(variants: dict, sizes, kernels=KERNELS, p=params.CGGI128,
                 for kernel in kernels:
                     fn = fns[kernel]
                     fn()
-                    rec = {"variant": name, "kernel": kernel, "G": G,
+                    rec = {"spec": label, "variant": name, "kernel": kernel,
+                           "G": G,
                            "ms": timing.timed_ms(fn, 2 if G >= 1024 else 3,
                                                  dev)}
                     out.append(rec)

@@ -7,18 +7,26 @@ crypto/ops.blind_rotate2 must equal iyokan_tpu.crypto.ops.blind_rotate2
 (the CRT64 backend, jitted) on the same seeded numpy inputs, on the plain
 and the 2-bit-unrolled key, at G = 1, 3, 8.  K7's cluster form
 (csrc/br2_ntt.cu) is modelled in torch: the kernel form of the key reads
-back to prep2's, and a model of the step loop (per-(prime, part) sums from
-the kernel-form key with the kernel's Montgomery arithmetic -- four
-products, a conditional subtract, the fifth -- the exchange, the unscaled
-inverse, Garner per part and half) equals the twin on both key forms.  The
+back to prep2's; the rows plan (ops/br2.rows_per_cluster) gives one wave
+wherever R_MAX rows a cluster allow it; and a model of the step loop,
+grouped into clusters of R rows by the plan (each CTA's shared memory one
+flat region: the digit rows [l2][R][N], then the sums [v][h][R][N] over
+them; each key word read once a cluster-step for its R rows; the short
+last cluster repeating row G - 1 and never written back; the kernel's
+Montgomery arithmetic -- four products, a conditional subtract, the
+fifth -- with its bounds asserted, the exchange, the unscaled inverse,
+Garner per part and half) equals the twin on both key forms.  The
 dispatch is held on both sides: a CPU tensor runs the twin and loads no
 library; a tensor on the card reaches K7's C entry (a recording stand-in
-for the ctypes library) with the launch's arguments and never the twin,
-and a failed build or launch raises, naming K7.  The kernel itself is held
+for the ctypes library) with the launch's arguments, the plan's rows a
+cluster among them, and never the twin, and a failed build or launch
+raises, naming K7.  The variant specs (tools/k7_*.json) each edit their
+source line exactly once.  The kernel itself is held
 against the twin on the card (cuda-marked tests here, and chip_smoke.py's
 K7 phase at cggi128).
 """
 
+import re
 import types
 
 import jax
@@ -205,57 +213,139 @@ def _mont_sum5(d, k, P):
     return torch.where(r >= P, r - P, r)
 
 
-def _k7_model(steps, acc, bk2, p):
-    """A torch model of K7's step loop: CTA (prime pi, part u) transforms
-    part u's l2 digit rows of each rotated difference in turn and adds
-    their products with the kernel-form key into the sums of outputs v x
-    halves h (_mont_sum5, added mod p over m); output u takes the other
-    part's sums, runs the unscaled inverse of each half, and Garner with
-    the other prime's CTA gives lo and hi as centred integers: acc[u] +=
-    lo + (hi << 32) mod 2^64."""
+def _k7_model(steps, acc, bk2, p, clusters):
+    """A torch model of K7's step loop at R = rows_per_cluster(G, clusters)
+    rows a cluster.  Per cluster and step, CTA (prime pi, part u) holds
+    one flat region of l2 R N words: it transforms part u's l2 digit rows
+    of each rotated difference of its R rows in turn into [l2][R][N] and
+    adds their products with the kernel-form key (each key word read once
+    for the R rows, counted) into four sums a row (_mont_sum5, added mod p
+    over m); the sums go over the digit rows as [v][h][R][N]; output u
+    ([h][R][N] at u 2RN) takes the other part's sums of output u, runs the
+    unscaled inverse of each half, and Garner with the other prime's CTA
+    gives lo (at idx) and hi (idx + RN) as centred integers: acc[r][u] +=
+    lo + (hi << 32) mod 2^64.  Returns (acc, key reads per word)."""
     kk = br2.kernel_key2(bk2, p).to(torch.int64)
     N, L, M = p.N2, p.l2, kk.shape[3]
-    acc = acc.clone()
-    for i in range(kk.shape[0]):
-        digits = [tops.decompose2(tops.rot_poly(acc, steps[i, m][:, None],
-                                                N) - acc, p).to(torch.int64)
-                  for m in range(M)]                       # [G, 2l2, N]
-        res = {}
-        for pi, P in enumerate(tntt.PRIMES):
-            part = {}
-            for u in range(2):
-                s = {}
-                for m in range(M):
-                    dig = tntt.ntt_fwd(digits[m][:, u * L: (u + 1) * L] % P,
-                                       N, pi).transpose(1, 2)  # [G, N, L]
-                    for v in range(2):
-                        for h in range(2):
+    G, S = acc.shape[0], kk.shape[0]
+    R = br2.rows_per_cluster(G, clusters)
+    RN = R * N
+    assert 4 * RN <= L * RN                     # the sums fit the region
+    reads = torch.zeros(kk.shape[:7], dtype=torch.int64)
+    out = acc.clone()
+    for g0 in range(0, G, R):
+        rows = [min(g0 + r, G - 1) for r in range(R)]   # short: repeat G-1
+        a = {(pi, u): acc[rows, u].clone() for pi in range(2)
+             for u in range(2)}                         # [R, N] per CTA
+        for i in range(S):
+            region = {}
+            for pi, P in enumerate(tntt.PRIMES):
+                for u in range(2):
+                    x = a[pi, u]
+                    sums = {}
+                    for m in range(M):
+                        diff = tops.rot_poly(x, steps[i, m, rows],
+                                             N) - x     # [R, N], part u
+                        d = tops.decompose2(torch.stack([diff, diff], 1),
+                                            p)[:, :L].to(
+                                                torch.int64) % P  # [R, L, N]
+                        reg = torch.zeros(L * RN, dtype=torch.int64)
+                        reg.view(L, R, N).copy_(
+                            tntt.ntt_fwd(d, N, pi).transpose(0, 1))
+                        dig = reg.view(L, R, N).permute(1, 2, 0)  # [R,N,L]
+                        for vh in range(4):
+                            v, h = divmod(vh, 2)
+                            reads[i, pi, u, m, :, v, h] += 1
                             t = _mont_sum5(dig, kk[i, pi, u, m, :, v, h].T[
-                                None], P)
-                            s[v, h] = t if m == 0 else (s[v, h] + t) % P
-                part[u] = s
-            res[pi] = {(u, h): tntt.ntt_inv(
-                (part[u][u, h] + part[1 - u][u, h]) % P, N, pi) * N % P
-                for u in range(2) for h in range(2)}
+                                None], P)                # [R, N]
+                            assert int(t.max()) < P
+                            sums[vh] = t if m == 0 else (sums[vh] + t) % P
+                    reg[:4 * RN].view(4, R, N).copy_(torch.stack(
+                        [sums[vh] for vh in range(4)]))
+                    region[pi, u] = reg
+            for pi, P in enumerate(tntt.PRIMES):        # after barrier 1
+                for u in range(2):
+                    own = region[pi, u][u * 2 * RN: (u + 1) * 2 * RN]
+                    add = region[pi, 1 - u][u * 2 * RN: (u + 1) * 2 * RN]
+                    own.copy_(tntt.ntt_inv(((own + add) % P).view(
+                        2 * R, N), N, pi).reshape(-1) * N % P)
+            for pi in range(2):                         # after barrier 2
+                for u in range(2):
+                    r1 = region[0, u][u * 2 * RN: (u + 1) * 2 * RN]
+                    r2 = region[1, u][u * 2 * RN: (u + 1) * 2 * RN]
+                    lo = tntt.crt_center(r1[:RN], r2[:RN])
+                    hi = tntt.crt_center(r1[RN:], r2[RN:])
+                    a[pi, u] = a[pi, u] + (lo + (hi << 32)).view(R, N)
         for u in range(2):
-            lo = tntt.crt_center(res[0][u, 0], res[1][u, 0])
-            hi = tntt.crt_center(res[0][u, 1], res[1][u, 1])
-            acc[:, u] = acc[:, u] + lo + (hi << 32)
-    return acc
+            assert torch.equal(a[0, u], a[1, u])        # both primes agree
+            for r in range(R):
+                if g0 + r < G:
+                    out[g0 + r, u] = a[0, u][r]
+    return out, reads
+
+
+def _model_case(keys, which, G, clusters):
+    """The model against the twin over 3 steps at G rows on a card of
+    `clusters` clusters; returns R."""
+    rng = np.random.default_rng(7 + which + 10 * (G - 3))
+    S, M = 3, 1 + 2 * which
+    acc = _t64(rng.integers(0, 1 << 64, (G, 2, TP.N2), dtype=np.uint64))
+    st = torch.from_numpy(rng.integers(0, 2 * TP.N2, (S, M, G),
+                                       dtype=np.int32))
+    key = keys[which][:S]
+    got, reads = _k7_model(st, acc, key, TP, clusters)
+    R = br2.rows_per_cluster(G, clusters)
+    assert torch.equal(reads, torch.full_like(reads, -(-G // R)))
+    assert torch.equal(got, br2.blind_rotate2_ref(st, acc, key, TP))
+    return R
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["bk2", "bk2u"])
 def test_k7_model_equals_twin(keys, which):
     """The cluster-form model equals blind_rotate2_ref over 3 steps of the
-    plain and the unrolled key, on random u64 accumulators and amounts."""
-    rng = np.random.default_rng(7 + which)
-    G, S, M = 3, 3, 1 + 2 * which
-    acc = _t64(rng.integers(0, 1 << 64, (G, 2, TP.N2), dtype=np.uint64))
-    st = torch.from_numpy(rng.integers(0, 2 * TP.N2, (S, M, G),
-                                       dtype=np.int32))
-    key = keys[which][:S]
-    assert torch.equal(_k7_model(st, acc, key, TP),
-                       br2.blind_rotate2_ref(st, acc, key, TP))
+    plain and the unrolled key, on random u64 accumulators and amounts, at
+    G = 3 on a card of 30 clusters: one row a cluster."""
+    assert _model_case(keys, which, 3, 30) == 1
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["bk2", "bk2u"])
+@pytest.mark.parametrize("G,clusters", [(5, 2), (7, 3), (4, 2)],
+                         ids=["3+2", "3+3+1", "2+2"])
+def test_k7_model_rows_a_cluster_equal_twin(keys, which, G, clusters):
+    """The model at several rows a cluster equals the twin on both keys:
+    R = 3 with a short last cluster (G = 5 on 2 clusters: 3 + 2; G = 7 on
+    3: 3 + 3 + 1, two repeated rows) and R = 2 (G = 4 on 2); each key word
+    is read once a cluster-step, not once a row."""
+    R = _model_case(keys, which, G, clusters)
+    assert R == -(-G // clusters)
+
+
+@pytest.mark.parametrize("clusters", [30, 17])
+@pytest.mark.parametrize("G", [1, 30, 31, 60, 61, 69, 90, 91, 200])
+def test_rows_per_cluster(G, clusters):
+    """R = min(R_MAX, ceil(G / C)): one row a cluster up to C rows, two up
+    to 2C, three up to 3C, all in one wave; beyond 3C, R_MAX rows a
+    cluster in ceil(ceil(G / 3) / C) waves.  At C = 30 memmac's 69 rows
+    take 23 clusters of 3."""
+    R = br2.rows_per_cluster(G, clusters)
+    n = -(-G // R)                                  # clusters launched
+    assert br2.R_MAX == 3 and 1 <= R <= br2.R_MAX and R <= G
+    assert (n - 1) * R < G <= n * R                 # the last one short
+    if G <= br2.R_MAX * clusters:                   # one wave, fewest rows
+        assert n <= clusters and (R == 1 or -(-G // (R - 1)) > clusters)
+    else:
+        assert R == br2.R_MAX and n > clusters
+    want = {1: 1, 30: 1, 31: 2, 60: 2, 61: 3, 69: 3, 90: 3, 91: 3, 200: 3}
+    if clusters == 30:
+        assert R == want[G]
+        assert G != 69 or n == 23
+    assert br2.rows_per_cluster(G, clusters, 1) == 1
+
+
+def test_rows_per_cluster_refuses_nonsense():
+    for args in ((0, 30), (5, 0), (5, 30, 0)):
+        with pytest.raises(ValueError):
+            br2.rows_per_cluster(*args)
 
 
 # --------------------------------------------------------------------------- #
@@ -285,18 +375,29 @@ class _OnCard(torch.Tensor):
 
 
 class _Lib:
-    """A recording stand-in for the ctypes library of csrc/br2_ntt.cu."""
+    """A recording stand-in for the ctypes library of csrc/br2_ntt.cu: a
+    card that holds `clusters` clusters at once, a library built for
+    `r_max` rows a cluster.  Like the C launcher it refuses an R out of
+    [1, min(G, r_max)], and records each call's grid (clusters)."""
 
-    def __init__(self, rc=0):
-        self.rc, self.calls = rc, []
+    def __init__(self, rc=0, clusters=30, r_max=3):
+        self.rc, self.calls, self.grids = rc, [], []
+        self.clusters, self.r_max = clusters, r_max
 
     def br2_ntt(self, *args):
+        G, R = args[4], args[11]
+        if not 1 <= R <= min(G, self.r_max):
+            return 1                                 # invalid value
         self.calls.append(args)
+        self.grids.append(-(-G // R))
         return self.rc
 
-    def br2_ntt_plan(self, N, l, M, device, out):
-        out[0], out[1] = 155648, 30
-        return 0
+    def br2_ntt_plan(self, N, l, M, R, device, out):
+        R = R or self.r_max
+        regions = 2 if R <= 2 else 1            # csrc: br2_regions
+        out[0], out[1] = (16 + 8 * R + 20 * R * regions) * N, self.clusters
+        out[2], out[3] = R, self.r_max
+        return 0 if R <= self.r_max else 1
 
     def br2_error_string(self, rc):
         return b"unspecified launch failure"
@@ -333,14 +434,34 @@ def test_card_tensor_reaches_k7(keys, monkeypatch, which):
     key = keys[which]
     out = tops.blind_rotate2(tl, key, _t64(testv), TP)
     assert br2.LAUNCHES == before + 1 and len(lib.calls) == 1
-    (acc_p, st_p, kk_p, tw_p, g, s, m, n2, l2, bg, off, dev,
+    (acc_p, st_p, kk_p, tw_p, g, s, m, n2, l2, bg, off, rows, dev,
      stream) = lib.calls[0]
     assert acc_p == out.data_ptr() and kk_p == key.kernel_key.data_ptr()
     assert (g, s, m, n2, l2, bg) == (G, key.shape[0], 1 + 2 * which, TP.N2,
                                      TP.l2, TP.Bgbit2)
+    assert rows == 1 and lib.grids == [G]           # G <= 30 clusters
     # decompose2's centring (Bg2/2 a level) and rounding bit, as a u64
     assert off == tops.decompose2_offset(TP) == sum(
         128 << (64 - 8 * (j + 1)) for j in range(5)) + (1 << (63 - 40))
+
+
+@pytest.mark.parametrize("r_max", [3, 1])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7])
+def test_card_launch_passes_the_plans_rows(keys, monkeypatch, G, r_max):
+    """On a card that holds 2 clusters at once, the launch passes C the
+    plan's rows a cluster, min(r_max, ceil(G / 2)) from the library's own
+    R_MAX (3, or 1 in the tools/k7_rows.json variant), and C launches
+    ceil(G / R) clusters: one wave up to 2 r_max rows."""
+    lib = _Lib(clusters=2, r_max=r_max)
+    _on_card(monkeypatch, lib)
+    acc = torch.Tensor._make_subclass(_OnCard, torch.zeros(
+        (G, 2, TP.N2), dtype=torch.int64))
+    st = torch.zeros((keys[1].shape[0], 3, G), dtype=torch.int32)
+    br2.br2(st, acc, keys[1], TP)
+    R = br2.rows_per_cluster(G, 2, r_max)
+    assert [c[11] for c in lib.calls] == [R] == [min(r_max, -(-G // 2))]
+    assert lib.grids == [-(-G // R)]
+    assert (lib.grids[0] <= 2) == (G <= 2 * r_max)
 
 
 def test_card_failures_raise_naming_k7(keys, monkeypatch):
@@ -377,7 +498,9 @@ def test_device_keys_carry_the_kernel_form(toy_ek):
 @pytest.mark.cuda
 @pytest.mark.parametrize("params,G,steps,M", [
     ("toy", 1, 3, 1), ("toy", 8, 3, 3), ("cggi128", 1, 2, 3),
-    ("cggi128", 3, 3, 1), ("cggi128", 69, 2, 3)])
+    ("cggi128", 3, 3, 1), ("cggi128", 69, 2, 3), ("toy", 61, 2, 3),
+    ("cggi128", 31, 2, 3), ("cggi128", 61, 2, 1), ("cggi128", 90, 2, 3),
+    ("cggi128", 91, 2, 1)])
 def test_k7_equals_twin_on_card(params, G, steps, M):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
@@ -395,7 +518,9 @@ def test_k7_equals_twin_on_card(params, G, steps, M):
     got = br2.br2(st, acc, key, p)
     torch.cuda.synchronize()
     assert br2.LAUNCHES == before + 1
-    assert br2.last_launch()[:2] == (4 * G, 4)
+    _, clusters, _, r_max = br2.cluster_plan(p, M)
+    R = br2.rows_per_cluster(G, clusters, r_max)
+    assert br2.last_launch() == (4 * -(-G // R), 4, br2.THREADS, R)
     assert torch.equal(got, want)
 
 
@@ -416,3 +541,67 @@ def test_k7_threads_spec_edits_the_thread_count(tmp_path):
     assert text == re.sub("constexpr int BR2_THREADS = 1024;",
                           "constexpr int BR2_THREADS = 512;", base)
     assert f"int BR2_THREADS = {br2.THREADS};" in base
+
+
+def _spec_edits(name):
+    """The (file text before, pattern, replacement, variant) of every edit
+    of tools/<name>, each on the sources of the variant before it (as
+    tools/br_variants.py applies a cumulative spec)."""
+    import os
+
+    from iyokan_tpu_torch.tools import br_variants
+    spec = br_variants.load_spec(os.path.join(
+        os.path.dirname(nvcc.CSRC), "tools", name))
+    texts = {}
+    out = []
+    for variant, edits in spec.items():
+        for fn, pat, rep in edits:
+            if fn not in texts:
+                texts[fn] = open(os.path.join(nvcc.CSRC, fn)).read()
+            out.append((texts[fn], pat, rep, variant))
+            texts[fn] = re.sub(pat, rep, texts[fn])
+    return spec, out
+
+
+@pytest.mark.parametrize("name", ["k7_threads.json", "k7_rows.json",
+                                  "k7_ablation.json", "k7_forms.json"])
+def test_k7_specs_match_their_source_once(name, tmp_path):
+    """Every edit of the K7 variant specs matches its source exactly once
+    (on the sources of the variant before it), and tools/br_variants.py
+    prepares each variant as a copy of csrc/ with those edits."""
+    from iyokan_tpu_torch.tools import br_variants
+    spec, edits = _spec_edits(name)
+    assert list(spec)[0] == "base" and not spec["base"] and edits
+    for text, pat, _, variant in edits:
+        assert len(re.findall(pat, text)) == 1, (variant, pat)
+    dirs = dict(br_variants.prepare(spec, str(tmp_path)))
+    assert dirs["base"] == nvcc.CSRC and len(dirs) == len(spec)
+
+
+def test_k7_rows_spec_builds_one_row_a_cluster():
+    """tools/k7_rows.json is the R_MAX = 1 variant: today's one row a
+    cluster on the same source; the source's R_MAX is ops/br2.R_MAX."""
+    _, edits = _spec_edits("k7_rows.json")
+    (text, pat, rep, _), = edits
+    assert f"constexpr int BR2_R_MAX = {br2.R_MAX};" in text
+    assert re.sub(pat, rep, text) == text.replace(
+        f"constexpr int BR2_R_MAX = {br2.R_MAX};",
+        "constexpr int BR2_R_MAX = 1;")
+
+
+def test_k7_ablation_removes_each_phase():
+    """tools/k7_ablation.json takes away, one after another, the cluster
+    barriers (1 and 2 as block barriers, 3 as nothing), the forward
+    transforms after the digit stages, the inverse, the key reads and
+    Garner's CRT (K4's tools/br_ablation.json, for K7)."""
+    spec, edits = _spec_edits("k7_ablation.json")
+    assert list(spec) == ["base", "no-cluster-barriers",
+                          "no-forward-after-digits", "no-inverse",
+                          "no-key-reads", "no-garner"]
+    after = edits[-1][0]
+    for _, pat, rep, _ in edits[-1:]:
+        after = re.sub(pat, rep, after)
+    for gone in ("cluster.sync();  // 1", "cluster.sync();  // 2",
+                 "barrier.cluster.arrive;", "barrier.cluster.wait;",
+                 "ntt_fwd<", "ntt_inv<", "__ldg(", "crt_pair(own"):
+        assert gone not in after, gone
