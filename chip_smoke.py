@@ -15,17 +15,31 @@ Phases, one line each or more:
                    cluster up to R_MAX (4 CTAs a cluster: prime x part)
                    with each one's
                    shared memory a CTA and the clusters the card holds at
-                   once (cudaOccupancyMaxActiveClusters); then the SASS
+                   once (cudaOccupancyMaxActiveClusters); K1's persistent
+                   form's plan as the launcher reports it (column tile,
+                   clusters, CTAs a cluster, threads and shared memory a
+                   CTA, slab ring slots, clusters the card holds at once)
+                   at L = 3, lb = 2 and L = 4, lb = 3; then the SASS
                    opcode mix (cuobjdump -sass) of every int8 product
-                   kernel: conv_wgmma_kernel, conv_kernel and mm_step_kernel,
-                   raising where a wgmma form has no warpgroup MMA (GMMA)
-                   instruction (a build that lost sm_90a);
+                   kernel: tkey_loop_kernel, conv_wgmma_kernel, conv_kernel
+                   and mm_step_kernel, raising where a wgmma form has no
+                   warpgroup MMA (GMMA) instruction (a build that lost
+                   sm_90a);
   3. kernel     -- blind_rotate_tkey against its plain torch twin on the card
                    at cggi128 with the real [635, 5120, 768] slab, stored
-                   K-contiguous, G = 1, 5, 64 (the mma.sync form) and 2048
-                   (the wgmma form): bit-identical, kernel ms vs twin ms;
-                   then both forms at G = 64, 128, 144, 192, 256 (the route
-                   threshold ops/tkey.py WGMMA_MIN_G), each == the twin;
+                   K-contiguous, G = 1, 5, 16, 32 (the persistent form), 64
+                   (mma.sync) and 2048 (wgmma), each in the form the route
+                   gives it: bit-identical, kernel ms vs twin ms;
+                   then the three forms (persistent, wgmma, mma.sync) at
+                   G = 1, 5, 16, 32, 64, 128, 144, 192, 256 and 512 (around
+                   the route threshold ops/tkey.py LOOP_MAX_G), each == the
+                   twin, and the persistent form's step ablation
+                   (tools/br_variants.py on tools/k1_loop_ablation.json:
+                   the grid barrier, the digits, the A gather, the cluster
+                   barriers, the product, the reduction and the slab reads
+                   removed one after another) and its clock profile
+                   (tools/k1_loop_profile.json: each phase's cycles a
+                   step) at G = 16 and 32 on a random fat slab;
   4. gates      -- 2048 NAND gate bootstraps (linear combination, bootstrap,
                    key switch), 0 wrong after decryption, gate bootstraps/s,
                    one wgmma-form launch; K1's ms at G=2048 and the rate
@@ -39,8 +53,10 @@ Phases, one line each or more:
                    (=fat2), the 2-bit-unrolled main slab (IYOKAN_TK_UNROLL=1)
                    and the fat slab at L=4, lb=3 (IYOKAN_TKEY_LIMBS=4
                    IYOKAN_TK_LB=3): the kernel == its twin (max |diff| 0) at
-                   G = 1, 5, 64 (mma.sync form), 2048 (wgmma; and 256
-                   unrolled), kernel ms vs twin ms;
+                   G = 1, 5 (the persistent form; fat2 and unrolled:
+                   mma.sync), 64
+                   (mma.sync), 2048 (wgmma; and 256 unrolled), kernel ms
+                   vs twin ms, one launch of the route's form each;
                    then 2048 NANDs through bk_for on that slab (one launch
                    under its layout), 0 wrong, max phase error, gate
                    bootstraps/s beside phase 4's;
@@ -130,7 +146,7 @@ Phases, one line each or more:
                    (IYOKAN_SLAB_CACHE; the in-process cache cleared before
                    each): build + write, then read, the read slab == the
                    built one, both times; then MAC-16 x 3 cycles on the
-                   tkey route (K1's mma.sync form) and on v3 (K3) under
+                   tkey route (K1's persistent form) and on v3 (K3) under
                    IYOKAN_FUSE_LEVELS=1, 8 and all (IYOKAN_SCAN_CHUNK=2),
                    on pallas (K5, IYOKAN_UNROLL_MAX=0) under 1 and all, and
                    memmac x 3 cycles under 1 and all at
@@ -183,8 +199,9 @@ Phases, one line each or more:
                    it takes the shape.
 The line before the last is the kernels' JSON record (each kernel's launches
 on its path, max |diff| against its twin, ms, twin ms, the bound of the
-same work on the card and what sets it; K1's wgmma form, its mma.sync
-form (small batches) and one record per K2 layout; K3 at the batch its
+same work on the card and what sets it; K1's wgmma form, its persistent
+and mma.sync forms (small batches, launched by the memory run) and one
+record per K2 layout; K3 at the batch its
 MAC-16 path runs, G = 64, and at G = 256; K6 at 2l rows (memmac's path)
 and at 3*2l rows (the ntt-unrolled route's, G = 64); K7 on the unrolled
 key at memmac's 69 rows, launched by the memory phase's run, with its rows
@@ -350,6 +367,15 @@ def phase_build(p):
             f"M={m} R={r}: {v[0]} B a CTA, {v[1]} clusters at once"
             for m in (1, 3) for r in range(1, k7[m][3] + 1)
             for v in [br2.cluster_plan(p, m, rows=r)]))
+    for L, lb in ((3, 2), (4, 3)):
+        pl = tkey.card_loop_plan(p, L, lb)
+        say("build", f"K1's persistent form (tkey_loop_kernel) at L={L} "
+            f"lb={lb}: {pl['clusters']} clusters of {pl['cluster_ctas']} "
+            f"CTAs ({pl['clusters'] * pl['cluster_ctas']} CTAs, one an SM), "
+            f"column tiles of {pl['cw']} coefficients x {L} limbs, "
+            f"{pl['threads']} threads and {pl['smem_bytes']} B of shared "
+            f"memory a CTA, {pl['slab_slots']} slab ring slots; the card "
+            f"holds {pl['clusters_held']} such clusters at once")
     for k in caps[br.NARROW_THREADS]:
         cap = caps[br.NARROW_THREADS][k][1]
         say("build", f"{k} plan (one cluster a row, ops/br.py:threads_for): "
@@ -396,7 +422,7 @@ def phase_kernel(p, sk, dk, rng):
     """Kernel vs twin, bit for bit, at the real slab."""
     testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
     rows, worst = [], 0
-    for G in (1, 5, 64, 2048):
+    for G in (1, 5, 16, 32, 64, 2048):
         bits = rng.integers(0, 2, G, dtype=np.uint8)
         ct = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
         got = tkey.blind_rotate_tkey(ct, dk.bk_tk, testv, p)
@@ -418,18 +444,24 @@ def phase_kernel(p, sk, dk, rng):
     return rows, worst
 
 
-def form_of(G):
-    """The form of the step product the route threshold gives G gates."""
-    Gp = -(-G // tkey.BLOCK_G) * tkey.BLOCK_G
-    return "wgmma" if Gp >= tkey.WGMMA_MIN_G else "mma"
+def form_of(G, layout="fat"):
+    """The form the route gives G gates on a slab of `layout`."""
+    return tkey.route_form(layout, -(-G // tkey.BLOCK_G) * tkey.BLOCK_G)
 
 
-FORM_SIZES = (64, 128, 144, 192, 256)
+FORM_SIZES = (1, 5, 16, 32, 64, 128, 144, 192, 256, 512)
+K1_ABLATION = os.path.join(ROOT, "iyokan_tpu_torch", "tools",
+                           "k1_loop_ablation.json")
+K1_PROFILE = os.path.join(ROOT, "iyokan_tpu_torch", "tools",
+                          "k1_loop_profile.json")
+K1_ABLATION_SIZES = (16, 32)
 
 
 def phase_forms(p, sk, dk, rng, smi):
-    """Both forms of the step product on the fat slab at the batches around
-    the route threshold: each == the twin, bit for bit, and timed."""
+    """The three forms of K1 on the fat slab at the batches around the
+    route threshold: each == the twin, bit for bit, and timed; then the
+    persistent form's step ablation (one parallel build of its variants)
+    on a random fat slab."""
     testv = torch.full((p.N,), p.mu, dtype=torch.int32, device="cuda")
     rows, worst = [], 0
     for G in FORM_SIZES:
@@ -438,21 +470,37 @@ def phase_forms(p, sk, dk, rng, smi):
         want, t_ms = timed(
             lambda: tkey.blind_rotate_tkey_ref(ct, dk.bk_tk, testv, p))
         rec = {"G": G, "picked": form_of(G), "twin_ms": t_ms}
-        for form in ("mma", "wgmma"):
+        for form in tkey.FORM_LAUNCHES:
             err = max_diff(tkey.blind_rotate_tkey(ct, dk.bk_tk, testv, p,
                                                   form=form), want)
             worst = max(worst, err)
             if err:
                 raise AssertionError(f"{form} form != twin at G={G}: max "
                                      f"|diff| {err}")
+            if form == "loop":
+                rec["plan"] = dict(tkey.LAST_LOOP)
             rec[f"{form}_ms"] = cuda_ms(lambda: tkey.blind_rotate_tkey(
                 ct, dk.bk_tk, testv, p, form=form), 3)
         rows.append(rec)
-        say("forms", f"G={G}: both forms == twin; mma.sync "
-            f"{rec['mma_ms']:.3f} ms, wgmma {rec['wgmma_ms']:.3f} ms per "
-            f"blind rotation (threshold {tkey.WGMMA_MIN_G} picks "
-            f"{rec['picked']}) on {smi}")
-    return rows, worst
+        say("forms", f"G={G}: the three forms == twin; persistent "
+            f"{rec['loop_ms']:.3f} ms, wgmma {rec['wgmma_ms']:.3f} ms, "
+            f"mma.sync {rec['mma_ms']:.3f} ms per blind rotation "
+            f"(LOOP_MAX_G {tkey.LOOP_MAX_G} picks {rec['picked']}; "
+            f"persistent plan {rec['plan']}) on {smi}")
+    t0 = time.time()
+    # the ablation and the clock profile (its variant prints the cycles a
+    # step of each phase, CTAs 0 and 13, at the end of each launch)
+    ablation = br_variants.run_specs(
+        {"k1": br_variants.load_spec(K1_ABLATION),
+         "k1prof": br_variants.load_spec(K1_PROFILE)}, K1_ABLATION_SIZES,
+        ["tkey_loop fat"])
+    for r in ablation:
+        say("forms", f"K1 persistent form {r['spec']} "
+            f"({os.path.relpath(K1_ABLATION, ROOT)}, "
+            f"{os.path.relpath(K1_PROFILE, ROOT)}): {r['variant']} "
+            f"{r['kernel']} G={r['G']}: {r['ms']:.3f} ms")
+    say("forms", f"ablation (build + run) {time.time() - t0:.1f} s; {smi}")
+    return rows, worst, ablation
 
 
 def phase_gates(p, sk, dk, rng, smi):
@@ -809,7 +857,10 @@ def phase_tk_layouts(p, sk, ek, rng, smi, tkey_rate):
         for G in sizes:
             bits = rng.integers(0, 2, G, dtype=np.uint8)
             ct = ops.u32_tensor(host.encrypt_bits(sk, bits, rng), "cuda")
+            form = form_of(G, cfg[0])
+            before = tkey.FORM_LAUNCHES[form]
             got = tkey.blind_rotate_tkey(ct, key, testv, p)
+            launched = tkey.FORM_LAUNCHES[form] - before
             want, t_ms = timed(
                 lambda: tkey.blind_rotate_tkey_ref(ct, key, testv, p))
             err = max_diff(got, want)
@@ -819,10 +870,13 @@ def phase_tk_layouts(p, sk, ek, rng, smi, tkey_rate):
             del got, want
             k_ms = cuda_ms(lambda: tkey.blind_rotate_tkey(ct, key, testv, p),
                            3)
-            rows.append({"G": G, "form": form_of(G), "kernel_ms": k_ms,
+            if launched != 1:
+                raise AssertionError(f"{name} G={G}: {launched} launches "
+                                     f"of the {form} form")
+            rows.append({"G": G, "form": form, "kernel_ms": k_ms,
                          "twin_ms": t_ms, "max_abs_diff": err})
             say("tk-layouts", f"{name} G={G}: bit-identical to twin; "
-                f"{form_of(G)} form {k_ms:.3f} ms, twin {t_ms:.3f} ms per "
+                f"{form} form {k_ms:.3f} ms, twin {t_ms:.3f} ms per "
                 f"blind rotation on {smi}")
 
         G = 2048
@@ -1272,10 +1326,12 @@ def phase_memory(files, data, smi):
     launches = {"tkey_blind_rotate": tkey.LAUNCHES,
                 "extprod1_ntt": extprod.LAUNCHES,
                 "br2_ntt": br2.LAUNCHES,
-                "tkey mma form": tkey.FORM_LAUNCHES["mma"],
-                "tkey wgmma form": tkey.FORM_LAUNCHES["wgmma"]}
+                "tkey loop form": tkey.FORM_LAUNCHES["loop"],
+                "tkey wgmma form": tkey.FORM_LAUNCHES["wgmma"],
+                "tkey mma form": tkey.FORM_LAUNCHES["mma"]}
     if not (launches["tkey_blind_rotate"] and launches["extprod1_ntt"]
-            and launches["br2_ntt"] and launches["tkey mma form"]):
+            and launches["br2_ntt"] and launches["tkey loop form"]
+            and launches["tkey mma form"]):
         raise AssertionError(f"the encrypted memory run launched {launches}")
 
     packet_cli.main(["dec", "--key", f["sk"], "--in", f["res.enc"],
@@ -1324,14 +1380,14 @@ def phase_memory(files, data, smi):
 SCAN2 = {"IYOKAN_FUSE_LEVELS": "all", "IYOKAN_SCAN_CHUNK": "2"}
 FUSION_RUNS = (
     ("tkey", "mac16.toml", False, {}, [{"IYOKAN_FUSE_LEVELS": "8"}, SCAN2],
-     ("tkey.FORM_LAUNCHES.mma",)),
+     ("tkey.FORM_LAUNCHES.loop", "tkey.FORM_LAUNCHES.mma")),
     ("v3", "mac16.toml", False, {"IYOKAN_BR_IMPL": "v3"},
      [{"IYOKAN_FUSE_LEVELS": "8"}, SCAN2], ("br3.LAUNCHES",)),
     ("pallas", "mac16.toml", False,
      {"IYOKAN_BR_IMPL": "pallas", "IYOKAN_UNROLL_MAX": "0"}, [SCAN2],
      ("br.STEP_LAUNCHES",)),
     ("memmac", "memmac.toml", True, {"IYOKAN_RAM_REFRESH_PERIOD": "2"},
-     [SCAN2], ("tkey.FORM_LAUNCHES.mma", "tkey.FORM_LAUNCHES.wgmma",
+     [SCAN2], ("tkey.FORM_LAUNCHES.loop", "tkey.FORM_LAUNCHES.wgmma",
                "extprod.LAUNCHES", "br2.LAUNCHES")),
 )
 
@@ -1603,10 +1659,14 @@ MESH_NAND_SHARDS = 4     # 2048 NANDs: 4 shards of 512 rows, K1's wgmma form
 MESH_FUSED_SHARDS = 2    # MAC-16 and memmac under whole-cycle fusion
 # the no-mesh cycle graphs' nodes as first measured with the graphs
 # (phase 14, before any mesh existed; memmac's again once circuit
-# bootstrapping became one K7 launch, 116,387 nodes fewer in each):
-# a mesh that is not set must add no node
-NO_MESH_CYCLE_NODES = {"tkey": [92455], "v3": [11383], "pallas": [51639],
-                       "memmac": [28055, 29445]}
+# bootstrapping became one K7 launch, 116,387 nodes fewer in each; tkey's
+# and memmac's again once K1's 16-gate batches became one launch a
+# rotation, 2n - 1 = 1269 nodes fewer for each such rotation, and again
+# once that launch's grid barrier word was zeroed by a memset captured
+# beside it, one node more for each): a mesh that is not set must add no
+# node
+NO_MESH_CYCLE_NODES = {"tkey": [67095], "v3": [11383], "pallas": [51639],
+                       "memmac": [6499, 9157]}
 
 
 def k1_bound(p, G):
@@ -1646,16 +1706,20 @@ def phase_mesh(smi, mem_files, fusion):
     from iyokan_tpu_torch.parallel import mesh as mesh_mod
     from iyokan_tpu_torch.tools import measure_error_rate
 
+    # a mismatch is reported now and fails the run at its end (main), so
+    # one run still measures every phase
+    node_errors = []
     for row in fusion:
         want = NO_MESH_CYCLE_NODES.get(row["route"])
         if want is None or row["mode"] != SCAN2:
             continue
         got = sorted(n for n in row["nodes"] if n > 3)
         if got != want:
-            raise AssertionError(f"mesh: phase 14's {row['route']} cycle "
-                                 f"graphs hold {got} nodes, recorded {want}")
-    say("mesh", f"no mesh set: phase 14's cycle graphs keep their nodes "
-        f"{NO_MESH_CYCLE_NODES}")
+            node_errors.append(f"mesh: phase 14's {row['route']} cycle "
+                               f"graphs hold {got} nodes, recorded {want}")
+    say("mesh", f"no mesh set: phase 14's cycle graphs hold their recorded "
+        f"nodes {NO_MESH_CYCLE_NODES}: "
+        f"{'; '.join(node_errors) if node_errors else 'yes'}")
 
     p = params.CGGI128
     f = {k: os.path.join(WORK, k) for k in ("sk", "ek", "req.enc")}
@@ -1683,7 +1747,8 @@ def phase_mesh(smi, mem_files, fusion):
         ms_mesh = cuda_ms(nand, 3)
     finally:
         mesh_mod.set_mesh(None)
-    if counts != (n, {"wgmma": n, "mma": 0}, n) or rows != [G // n] * n:
+    if counts != (n, {"loop": 0, "wgmma": n, "mma": 0}, n) or \
+            rows != [G // n] * n:
         raise AssertionError(f"mesh: 2048 NANDs on {n} shards launched "
                              f"{counts} (K1, by form, all) on rows {rows}")
     if not torch.equal(sharded, whole):
@@ -1783,7 +1848,7 @@ def phase_mesh(smi, mem_files, fusion):
         f"margin {rec['margin_sigmas']:.2f} sigma; "
         f"{(rec['gates'] + rec['cascade_gates']) / rec['gate_s']:.1f} "
         f"gates/s; {json.dumps(rec)}")
-    return out, k1
+    return out, k1, node_errors
 
 
 # Phase 16: the microbenchmark tools (T1-T3) at their own full shapes
@@ -1905,7 +1970,8 @@ def sass_text(path):
 
 # the int8 product kernels: mangled-name piece -> form; the wgmma forms
 # must hold warpgroup MMA instructions
-PRODUCT_KERNELS = {"conv_wgmma_kernel": "wgmma", "mm_step_kernel": "wgmma",
+PRODUCT_KERNELS = {"tkey_loop_kernel": "wgmma",
+                   "conv_wgmma_kernel": "wgmma", "mm_step_kernel": "wgmma",
                    "conv_kernel": "mma.sync"}
 
 
@@ -1921,7 +1987,7 @@ def sass_products(path):
                      if re.search(rf"\d{k}I", name)), None)
         if kind is None:
             continue
-        args = ",".join(re.findall(r"Li(\d+)E", name.split(kind, 1)[1])[:2])
+        args = ",".join(re.findall(r"Li(\d+)E", name.split(kind, 1)[1])[:3])
         ops_ = {}
         for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                              r"([A-Z][A-Z0-9_]*)[^;]*;", fn):
@@ -2203,22 +2269,29 @@ def kernel_records(p, times, worst, gate_launches, launches, ep_rows,
                    tk_small_launches, unrolled, k7_rows, k7_worst):
     """The kernels' JSON records: launches on each kernel's path (the
     2048-NAND run for tkey_blind_rotate's wgmma form, the memmac run for
-    its mma.sync form and extprod1_ntt at 2l rows, the ntt-unrolled route
-    at G = 64 for extprod1_ntt at 3*2l rows, the br-gates runs
-    for K5 and K4, the br-slice run for K3, the tk-layouts NAND runs for
-    K2's thin, fat2 and L=4 slabs, the tk-slice run for its unrolled slab),
-    max |diff| against the twin over every compared shape, ms and twin ms
-    at one shape of that path (G = 2048; K3 at M = 3 and G = 64, the batch
-    its MAC-16 path runs, and a second K3 record at G = 256, MAC-16's
-    widest level; K7 on the unrolled key at memmac's 69 lvl2 rows, the
-    batch of its run), and the bound of that shape's work."""
+    its persistent and mma.sync forms and extprod1_ntt at 2l rows, the
+    ntt-unrolled route at G = 64 for extprod1_ntt at 3*2l rows, the
+    br-gates runs for K5 and K4, the br-slice run for K3, the tk-layouts
+    NAND runs for K2's thin, fat2 and L=4 slabs, the tk-slice run for its
+    unrolled slab), max |diff| against the twin over every compared shape,
+    ms and twin ms at one shape of that path (G = 2048; K1's small-batch
+    forms at the largest batch of phase 3 each takes; K3 at M = 3 and G =
+    64, the batch its MAC-16 path runs, and a second K3 record at G = 256,
+    MAC-16's widest level; K7 on the unrolled key at memmac's 69 lvl2
+    rows, the batch of its run), and the bound of that shape's work."""
     i32 = 4
     G = 2048
     recs = [("tkey_blind_rotate", "tkey_blind_rotate.cu",
              "iyokan_tpu/ops/pallas_tk.py:219", gate_launches,
              worst, next(r for r in times if r["G"] == G), k1_bound(p, G))]
-    # the small-batch form, at the largest batch of phase 3 below the
+    # the persistent form, at the largest batch of phase 3 below the
     # threshold
+    row = max((r for r in times if r["form"] == "loop"), key=lambda r: r["G"])
+    recs.append(("tkey_blind_rotate tkey_loop_kernel (persistent form)",
+                 "tkey_loop.cuh", "iyokan_tpu/ops/pallas_tk.py:219",
+                 launches["tkey loop form"], worst, row,
+                 k1_bound(p, row["G"])))
+    # the mma.sync form, at the largest batch of phase 3 it takes
     row = max((r for r in times if r["form"] == "mma"), key=lambda r: r["G"])
     recs.append(("tkey_blind_rotate conv_kernel (mma.sync form)",
                  "tkey_blind_rotate.cu", "iyokan_tpu/ops/pallas_tk.py:219",
@@ -2311,7 +2384,7 @@ def main() -> int:
     say("kernel", f"slab {tuple(dk.bk_tk.shape)} int8 built + moved in "
         f"{time.time() - t0:.1f} s")
     times, worst = phase_kernel(p, sk, dk, rng)
-    form_rows, form_worst = phase_forms(p, sk, dk, rng, smi)
+    form_rows, form_worst, k1_ablation = phase_forms(p, sk, dk, rng, smi)
     worst = max(worst, form_worst)
     rate, _, gate_launches = phase_gates(p, sk, dk, rng, smi)
     k1 = next(r for r in times if r["G"] == 2048)
@@ -2349,8 +2422,10 @@ def main() -> int:
     k5_split = phase_k5_split(smi)
     k3_launches, v3_s_cycle = phase_slice(smi, "br-slice")
     fusion = phase_fusion(smi, files, data)
-    mesh, mesh_k1 = phase_mesh(smi, files, fusion)
+    mesh, mesh_k1, node_errors = phase_mesh(smi, files, fusion)
     micro_recs = phase_micro(smi)
+    if node_errors:
+        raise AssertionError("; ".join(node_errors))
 
     say("summary", json.dumps({
         "card": smi, "blind_rotate_ms": times,
@@ -2363,7 +2438,8 @@ def main() -> int:
         "ntt_unrolled_route": unrolled, "br_gates": br_gates,
         "mac16_v3_s_per_cycle": v3_s_cycle, "tk_layouts": tk_layouts,
         "mac16_tk_small_s_per_cycle": tk_s_cycle,
-        "tkey_forms": form_rows, "wgmma_min_g": tkey.WGMMA_MIN_G,
+        "tkey_forms": form_rows, "loop_max_g": tkey.LOOP_MAX_G,
+        "wgmma_min_g": tkey.WGMMA_MIN_G, "k1_loop_ablation": k1_ablation,
         "fusion": fusion, "mesh": mesh}))
     say("summary", f"chip_smoke.py took {time.time() - t_start:.1f} s in "
         "all")

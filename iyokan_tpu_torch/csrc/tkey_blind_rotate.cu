@@ -40,13 +40,21 @@
 // 635*8*5120*768 = 2.0e10 int8 MACs (fat, L=3, lb=2; 1.5x that at half the
 // steps unrolled), and every step streams a 3.9 MB slab (5120 x 768 int8;
 // 11.8 MB unrolled) that all gates of the batch share.  At large batches
-// the products bound it; at small batches the slab stream and the 2n
-// launches do.  The slab lies on the card contraction-contiguous
-// (ops/tkey.py:k_contiguous: physical [n, C, RT], fat2 [n, C, 2RT], thin
-// [n, C, RR, N]), because both tensor-core forms below take B K-major.
-// The conv step has two forms, chosen by the caller (ops/tkey.py,
-// WGMMA_MIN_G):
-//   conv_wgmma_kernel (batches of at least WGMMA_MIN_G padded gates): a
+// the products bound it; at small batches the slab stream does (and the
+// per-step forms' 2n launches, which the persistent form removes).  The
+// slab lies on the card contraction-contiguous (ops/tkey.py:k_contiguous:
+// physical [n, C, RT], fat2 [n, C, 2RT], thin [n, C, RR, N]), because
+// every tensor-core form below takes B K-major.
+// A rotation runs in one of three forms, chosen by the caller (ops/tkey.py
+// route_form; `form` there forces one):
+//   the persistent form (tkey_loop.cuh, tkey_loop_rotate below; it serves
+//     fat and thin, and the route gives it padded batches below
+//     LOOP_MAX_G there): all n_steps steps in one cooperative launch of
+//     clusters of NB CTAs, digits, product (wgmma), reduction and a grid
+//     barrier a step; see that file.
+//   Per-step forms, two launches a step (digits_kernel, then the product;
+//   2n launches a rotation), from tkey_blind_rotate below:
+//   conv_wgmma_kernel (batches of at least WGMMA_MIN_G): a
 //     step is one GEMM over rows (output block K, gate).  A CTA owns 128
 //     gates of one block K x one part u x 64 coefficients of all L limbs
 //     (N = L*64: the L limbs of a coefficient land in one thread's
@@ -58,15 +66,14 @@
 //     accumulator before and after them (-(-P + W) = P - W, exact mod
 //     2^32); fat2 switches B to the first copy instead.  Each output
 //     belongs to one CTA: a plain += into acc.
-//   conv_kernel (small batches): mma.sync m16n8k32 s8 -> s32; a tile is 16
-//     gates x all 8 output blocks (one warp each) x (L x 32) slab columns,
-//     so each slab tile brought into shared memory serves every output
-//     block; a 4-deep cp.async ring of 64-row k-tiles; the K-contiguous
-//     slab goes straight into the B fragments' layout; the contraction is
-//     split across tiles (exact uint32 atomics: addition mod 2^32 is
-//     associative) so the grid still covers the SMs.
-// A persistent step loop or CUDA graphs over the 2n launches are later
-// work.
+//   conv_kernel (the other batches below WGMMA_MIN_G): mma.sync
+//     m16n8k32 s8 -> s32; a tile is 16 gates x all 8 output blocks (one
+//     warp each) x (L x 32) slab columns, so each slab tile brought into
+//     shared memory serves every output block; a 4-deep cp.async ring of
+//     64-row k-tiles; the K-contiguous slab goes straight into the B
+//     fragments' layout; the contraction is split across tiles (exact
+//     uint32 atomics: addition mod 2^32 is associative) so the grid still
+//     covers the SMs.
 //
 // Built by iyokan_tpu_torch/ops/tkey.py through ops/nvcc.py (nvcc for
 // sm_90a, plain C interface below, called through ctypes).
@@ -74,6 +81,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tkey_loop.cuh"
 #include "wgmma_s8.cuh"
 
 namespace {
@@ -520,6 +528,61 @@ extern "C" int tkey_blind_rotate(const void* rows, void* acc, const void* bk,
       static_cast<const int8_t*>(bk), static_cast<int8_t*>(ext), Gp, n_steps,
       N, l, lb, Bgbit, M, split, form == 1, off_a, off_b,
       reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The persistent form's plan on `device` at N, l, lb, L: out[0..7] = CW
+// (coefficients a column tile), clusters, CTAs a cluster (NB), threads a
+// CTA, dynamic shared memory a CTA, slab ring slots, clusters of it the
+// card holds at once, GT (gates a tile).  0 or a CUDA error.
+extern "C" int tkey_loop_plan(int device, int N, int l, int lb, int L,
+                              int* out) {
+  if (N < 128 || N > 128 * MAXNB || (N & (N - 1)) || (L != 3 && L != 4) ||
+      lb < 1 || lb > l)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return L == 3 ? tkloop::query<3>(device, N >> 7, l + lb, out)
+                : tkloop::query<4>(device, N >> 7, l + lb, out);
+}
+
+// All n_steps CMUX steps of a blind rotation in one launch (the persistent
+// form, tkey_loop.cuh), on `stream`; arguments as tkey_blind_rotate's, plus
+//   scratch uint32 [Gp, 2, N]  the accumulator's other buffer
+//   stage   int8, stage_size bytes: the exchange of the digit rows and the
+//           partials, then the grid barrier's word (tkey_loop.cuh:
+//           stage_bytes)
+// and layout FAT or THIN at M = 1; FAT2 and the unrolled slab (M = 3) are
+// refused (cudaErrorNotSupported).  acc ends with the final state.
+// used[0..7]: the plan launched (tkey_loop_plan's out).  Returns 0 or the
+// first CUDA error; a card that cannot hold the grid at once refuses
+// (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int tkey_loop_rotate(const void* rows, void* acc, void* scratch,
+                                void* stage, size_t stage_size,
+                                const void* bk, int Gp, int n_steps, int N,
+                                int l, int lb, int Bgbit, int L, int M,
+                                int layout, uint32_t off_a, uint32_t off_b,
+                                int device, void* stream, int* used) {
+  if (Gp <= 0 || Gp % GB || n_steps <= 0 || N < 128 ||
+      N > 128 * MAXNB || (N & (N - 1)) || (L != 3 && L != 4) ||
+      (M != 1 && M != 3) || lb < 1 || lb > l || layout < FAT ||
+      layout > FAT2 || (M == 3 && layout != FAT))
+    return (int)cudaErrorInvalidValue;
+  if (layout == FAT2 || M != 1) return (int)cudaErrorNotSupported;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int32_t* r = static_cast<const int32_t*>(rows);
+  uint32_t* a = static_cast<uint32_t*>(acc);
+  uint32_t* sc = static_cast<uint32_t*>(scratch);
+  uint8_t* sg = static_cast<uint8_t*>(stage);
+  const int8_t* b = static_cast<const int8_t*>(bk);
+  const bool thin = layout == THIN;
+  return L == 3 ? tkloop::run<3>(r, a, sc, sg, stage_size, b, Gp, n_steps, N,
+                                 l, lb, Bgbit, thin, off_a, off_b, device, st,
+                                 used)
+                : tkloop::run<4>(r, a, sc, sg, stage_size, b, Gp, n_steps, N,
+                                 l, lb, Bgbit, thin, off_a, off_b, device, st,
+                                 used);
 }
 
 extern "C" const char* tkey_error_string(int e) {

@@ -45,11 +45,23 @@ converts a slab per call (2.5 GB at cggi128).  The twin takes either.
 (csrc/tkey_blind_rotate.cu) for a CUDA tensor and the plain torch twin
 (`blind_rotate_tkey_ref`, each layout's own form above) for a CPU tensor;
 nothing else selects between them, and a slab it cannot place raises.  On
-the card, batches of at least WGMMA_MIN_G padded gates take the wgmma form
-of the step product (conv_wgmma_kernel), smaller ones the mma.sync form
-(conv_kernel, split contraction).  LAUNCHES counts kernel launches (one
-per blind rotation run on the card), LAYOUT_LAUNCHES the same per layout,
-FORM_LAUNCHES per form of the step product.
+the card a rotation takes one of three forms (`form`, else `route_form`):
+
+  loop   the persistent form (csrc/tkey_loop.cuh): all steps in one
+         cooperative launch of clusters of NB CTAs (`loop_plan`); it
+         serves fat and thin (LOOP_ROUTED), and the route gives it their
+         padded batches below LOOP_MAX_G;
+  mma    the per-step mma.sync form (conv_kernel, split contraction;
+         digits_kernel: two launches a step), the other batches below
+         WGMMA_MIN_G: fat's and thin's from 32 gates, where the H100 runs
+         it faster than the persistent form (PERF.md section 5), and those
+         of fat2 and the unrolled slab, which the persistent form does not
+         serve;
+  wgmma  the per-step wgmma form (conv_wgmma_kernel, digits_kernel),
+         batches of at least WGMMA_MIN_G.
+
+LAUNCHES counts blind rotations run on the card, LAYOUT_LAUNCHES the same
+per layout, FORM_LAUNCHES per form.
 """
 
 from __future__ import annotations
@@ -65,14 +77,18 @@ from . import nvcc
 
 LAUNCHES = 0          # blind rotations launched on the card
 LAYOUT_LAUNCHES = {"fat": 0, "thin": 0, "fat2": 0, "unrolled": 0}
-FORM_LAUNCHES = {"wgmma": 0, "mma": 0}
+FORM_LAUNCHES = {"loop": 0, "wgmma": 0, "mma": 0}
 BLOCK_G = 16          # gate tile of the kernel; batches are padded to it
-# The route threshold: padded batches of at least this many gates take the
-# wgmma form (128-gate M tiles), smaller ones the mma.sync form.  Set from
-# H100 calls at G = 64, 128, 144, 192 and 256 (PERF.md section 5): the two
-# forms tie at 128; the wgmma form wins from 144 on, flat up to 256, while
-# the mma.sync form grows with the batch.
+# The route's thresholds, from the H100's forms table (PERF.md section 5):
+# padded batches below LOOP_MAX_G gates take the persistent form on the
+# layouts of LOOP_ROUTED; the others below WGMMA_MIN_G the mma.sync form;
+# from WGMMA_MIN_G on the wgmma form (the two per-step forms tie at 128).
+LOOP_MAX_G = 32
 WGMMA_MIN_G = 144
+LOOP_ROUTED = ("fat", "thin")   # the layouts the persistent form serves
+LOOP_CW = 32          # its column tile: coefficients (of all L limbs)
+LOOP_GT = 16          # its gate tile
+LAST_LOOP = None      # the persistent form's last launch (tkey_loop_plan)
 WGMMA_BK = 128        # the wgmma form's k-tile: contraction rows
 SOURCE = "tkey_blind_rotate.cu"
 # the kernel's layout argument (the unrolled slab is fat at M = 3)
@@ -292,6 +308,12 @@ def _bind(lib):
     lib.tkey_blind_rotate.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
         ctypes.c_uint32, ctypes.c_uint32, ci, vp]
+    lib.tkey_loop_rotate.restype = ci
+    lib.tkey_loop_rotate.argtypes = [
+        vp, vp, vp, vp, ctypes.c_size_t, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+        ci, ctypes.c_uint32, ctypes.c_uint32, ci, vp, ctypes.POINTER(ci)]
+    lib.tkey_loop_plan.restype = ci
+    lib.tkey_loop_plan.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
     lib.tkey_error_string.restype = ctypes.c_char_p
     lib.tkey_error_string.argtypes = [ci]
 
@@ -342,20 +364,108 @@ def k_tile_order(K: int, layout: str, RT: int, N: int, RR: int,
     return out
 
 
+def route_form(layout: str, Gp: int) -> str:
+    """The form the route gives a padded batch of Gp gates on a slab of
+    `layout`: the persistent form below LOOP_MAX_G on LOOP_ROUTED's
+    layouts, the mma.sync form below WGMMA_MIN_G, else the wgmma form."""
+    if layout in LOOP_ROUTED and Gp < LOOP_MAX_G:
+        return "loop"
+    return "wgmma" if Gp >= WGMMA_MIN_G else "mma"
+
+
+def loop_plan(p: Params, cfg, Gp: int) -> dict:
+    """The persistent form's plan (csrc/tkey_loop.cuh) for a padded batch
+    of Gp gates on a slab of config cfg (slab_config), with column tiles of
+    LOOP_CW coefficients and gate tiles of LOOP_GT gates:
+
+      clusters  [(u, ct)]: part u, coefficients [ct*cw, ct*cw + cw) of
+                every 128-block, all L limbs: one cluster a column tile;
+      columns   {(u, ct): the slab columns (u*L + li)*128 + ct*cw + c,
+                ordered (li, c)};
+      chunks    [b]: CTA rank b's k-tiles of a step, each the slab
+                contraction coordinate of its first row (128 rows each):
+                b*bstride + kt*rstride, kt < ktc = l + lb;
+      sources   [b][K] = (j, sign): output block K takes from CTA b's
+                contraction block the digits of coefficient block j =
+                (b + K + 1) mod NB, with sign -1 where b + K + 1 >= NB
+                (the rows wrap);
+      A rows    (j, gate) for j < NB, gate < gt: the same in every CTA;
+                CTA b computes j = b into an exchange buffer, from which
+                every CTA of the cluster loads all NB;
+      reduces   [b] = K: the output block CTA b sums over its cluster;
+      gate_tiles [(first gate, end)]: a step's tiles, one after another.
+
+    Raises ValueError for a layout it does not serve (fat2, unrolled) or a
+    bad Gp."""
+    layout, L, lb, M = cfg
+    if layout not in LOOP_ROUTED:
+        raise ValueError(f"the persistent form does not serve {layout}")
+    if Gp <= 0 or Gp % BLOCK_G:
+        raise ValueError(f"Gp={Gp}: need a positive multiple of {BLOCK_G}")
+    cw, gt = LOOP_CW, LOOP_GT
+    NB, ktc = p.N // 128, p.l + lb
+    bstride, rstride = (128, p.N) if layout == "thin" else (ktc * 128, 128)
+    clusters = [(u, ct) for u in range(2) for ct in range(128 // cw)]
+    return {
+        "NB": NB, "ktc": ktc, "cw": cw, "gt": gt, "L": L,
+        "gate_tiles": [(g, g + gt) for g in range(0, Gp, gt)],
+        "clusters": clusters,
+        "columns": {(u, ct): [(u * L + li) * 128 + ct * cw + c
+                              for li in range(L) for c in range(cw)]
+                    for u, ct in clusters},
+        "chunks": [[b * bstride + kt * rstride for kt in range(ktc)]
+                   for b in range(NB)],
+        "sources": [[((b + K + 1) % NB, -1 if b + K + 1 >= NB else 1)
+                     for K in range(NB)] for b in range(NB)],
+        "reduces": list(range(NB)),
+    }
+
+
+def card_loop_plan(p: Params, L: int, lb: int, device=None) -> dict:
+    """The persistent form's launch plan on the card (tkey_loop_plan): cw,
+    clusters, CTAs a cluster, threads a CTA, shared memory a CTA, slab
+    ring slots, the clusters the card holds at once and gt."""
+    lib = nvcc.load(SOURCE, _bind)
+    dev = torch.cuda.current_device() if device is None else device
+    out = (ctypes.c_int * 8)()
+    rc = lib.tkey_loop_plan(dev, p.N, p.l, lb, L, out)
+    if rc != 0:
+        raise RuntimeError(f"tkey persistent form: no plan: "
+                           f"{lib.tkey_error_string(rc)}")
+    return _plan_dict(out)
+
+
+def loop_stage_bytes(p: Params, lb: int) -> int:
+    """Bytes of the persistent form's exchange buffer (tkey_loop.cuh:
+    stage_bytes): the digit rows of two parities and the partials of every
+    cluster, then 128 bytes for the grid barrier's word."""
+    NB, ktc = p.N // 128, p.l + lb
+    return (2 * 128 // LOOP_CW * NB * LOOP_GT
+            * (2 * ktc * 128 + NB * LOOP_CW * 4) + 128)
+
+
+def _plan_dict(out) -> dict:
+    return dict(zip(("cw", "clusters", "cluster_ctas", "threads",
+                     "smem_bytes", "slab_slots", "clusters_held", "gt"),
+                    list(out)))
+
+
 def _steps_kernel(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
                   p: Params, cfg, form=None) -> torch.Tensor:
     """All CMUX steps on the card; returns the new accumulator.  form:
-    "wgmma" or "mma", or None for the route threshold WGMMA_MIN_G."""
-    global LAUNCHES
+    "loop", "wgmma" or "mma", or None for the route's (route_form)."""
+    global LAUNCHES, LAST_LOOP
     check_k_contiguous(bk_tk)
     layout, L, lb, M = cfg
     G = acc.shape[0]
     pad = (-G) % BLOCK_G
     Gp = G + pad
     if form is None:
-        form = "wgmma" if Gp >= WGMMA_MIN_G else "mma"
+        form = route_form(layout, Gp)
     if form not in FORM_LAUNCHES:
         raise ValueError(f"form {form!r}: need one of {list(FORM_LAUNCHES)}")
+    if form == "loop" and layout not in LOOP_ROUTED:
+        raise ValueError(f"the persistent form does not serve {layout}")
     lib = nvcc.load(SOURCE, _bind)
     if pad:
         acc = torch.cat([acc, acc.new_zeros((pad, 2, p.N))])
@@ -363,19 +473,32 @@ def _steps_kernel(rows: torch.Tensor, acc: torch.Tensor, bk_tk: torch.Tensor,
     acc = acc.contiguous()
     rows = rows.contiguous()
     RT = M * (p.l + lb) * p.N
-    ext = torch.empty((Gp, RT), dtype=torch.int8, device=acc.device)
     dev = acc.device.index if acc.device.index is not None else \
         torch.cuda.current_device()
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    wg = form == "wgmma"
-    rc = lib.tkey_blind_rotate(
-        rows.data_ptr(), acc.data_ptr(), bk_tk.data_ptr(), ext.data_ptr(),
-        Gp, bk_tk.shape[0], p.N, p.l, lb, p.Bgbit, L, M, _LAYOUT_ARG[layout],
-        1 if wg else _split_k(Gp, RT // 64), int(wg),
-        _round_off(p, p.l), _round_off(p, lb), dev, stream)
+    if form == "loop":
+        scratch = torch.empty_like(acc)
+        stage = torch.empty(loop_stage_bytes(p, lb), dtype=torch.int8,
+                            device=acc.device)
+        used = (ctypes.c_int * 8)()
+        rc = lib.tkey_loop_rotate(
+            rows.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
+            stage.data_ptr(), stage.numel(), bk_tk.data_ptr(), Gp,
+            bk_tk.shape[0], p.N, p.l, lb, p.Bgbit, L, M, _LAYOUT_ARG[layout],
+            _round_off(p, p.l), _round_off(p, lb), dev, stream, used)
+        if rc == 0:
+            LAST_LOOP = _plan_dict(used)
+    else:
+        ext = torch.empty((Gp, RT), dtype=torch.int8, device=acc.device)
+        wg = form == "wgmma"
+        rc = lib.tkey_blind_rotate(
+            rows.data_ptr(), acc.data_ptr(), bk_tk.data_ptr(),
+            ext.data_ptr(), Gp, bk_tk.shape[0], p.N, p.l, lb, p.Bgbit, L, M,
+            _LAYOUT_ARG[layout], 1 if wg else _split_k(Gp, RT // 64),
+            int(wg), _round_off(p, p.l), _round_off(p, lb), dev, stream)
     if rc != 0:
-        raise RuntimeError(
-            f"tkey kernel launch failed: {lib.tkey_error_string(rc)}")
+        raise RuntimeError(f"tkey kernel launch failed ({form} form): "
+                           f"{lib.tkey_error_string(rc)}")
     LAUNCHES += 1
     LAYOUT_LAUNCHES[layout] += 1
     FORM_LAUNCHES[form] += 1
@@ -391,8 +514,8 @@ def blind_rotate_tkey(tlwe0: torch.Tensor, bk_tk: torch.Tensor,
 
     tlwe0: i32 [G, n+1]; bk_tk: int8 slab; testv: i32 [N].  Returns i32
     [G, 2, N].  A CUDA input runs the Hopper kernel, in the form the route
-    threshold picks unless `form` ("wgmma" or "mma") names one; a CPU input
-    the plain twin; there is no fallback between them."""
+    picks (route_form) unless `form` ("loop", "wgmma" or "mma") names one;
+    a CPU input the plain twin; there is no fallback between them."""
     cfg, rows, acc = _prepare(tlwe0, bk_tk, testv, p)
     if acc.is_cuda:
         return _steps_kernel(rows, acc, bk_tk, p, cfg, form)

@@ -20,7 +20,10 @@ events; a variant named "base" is held against the twins first.  KERNELS
 launch a rotation), br3_ntt M=3 (K3 on the unrolled key), br_ntt_step
 (K5, n launches a rotation), br2_ntt M=3 and br2_ntt M=1 (K7, circuit
 bootstrapping's lvl2 rotation on random unrolled and plain prep2 keys;
-"base" holds each against its twin at the first batch).  For
+"base" holds each against its twin at the first batch), tkey_F S (K1 in
+form F = loop, wgmma or mma on a random fat or unrolled slab S, e.g.
+"tkey_loop fat"; the persistent form does not serve the unrolled slab;
+"base" holds each against its twin).  For
 measurement experiments only: the port
 never runs an edited kernel, and `run` gives the repo's libraries back
 when it ends.  Needs a card.
@@ -44,6 +47,16 @@ barrier, at exit, and without the attribute):
         br_ntt_step,br_ntt_loop
     python3 -m iyokan_tpu_torch.tools.br_variants \\
         iyokan_tpu_torch/tools/k5_pdl.json 1,8,64,256,2048 br_ntt_step
+
+tools/k1_loop_ablation.json is K1's persistent form's removal sequence
+(the grid barrier, the digits, the A gather, the cluster barriers, the
+product, the reduction, the slab reads and their wait), and
+tools/k1_loop_profile.json builds it with its clock profile on (each
+launch prints each phase's cycles a step); chip_smoke.py's forms phase
+runs both at G = 16 and 32:
+
+    python3 -m iyokan_tpu_torch.tools.br_variants \\
+        iyokan_tpu_torch/tools/k1_loop_ablation.json 16,32 "tkey_loop fat"
 
 tools/k7_threads.json builds K7 at 512 threads a CTA beside its 1024,
 tools/k7_rows.json at R_MAX = 1 (one row a cluster, on the same source),
@@ -74,14 +87,29 @@ import torch
 
 from .. import params
 from ..crypto import polymul
-from ..ops import br, br2, br3, nvcc
+from ..crypto import ops as tops
+from ..ops import br, br2, br3, nvcc, tkey
 from . import br_profile, timing
 
 OUT = os.path.join(os.path.dirname(nvcc.BUILD_DIR), "br_variants")
 KERNELS = ("br_ntt_loop", "br3_ntt M=3")
 SOURCE_OF = {"br_ntt_loop": br.SOURCE, "br_ntt_step": br.SOURCE,
              "br3_ntt M=3": br3.SOURCE, "br2_ntt M=3": br2.SOURCE,
-             "br2_ntt M=1": br2.SOURCE}
+             "br2_ntt M=1": br2.SOURCE,
+             **{f"tkey_{f} {s}": tkey.SOURCE for f in tkey.FORM_LAUNCHES
+                for s in ("fat", "unrolled")
+                if (f, s) != ("loop", "unrolled")}}
+
+
+def random_slab(p, unrolled, device):
+    """A random K-contiguous tkey slab at the route's default limbs and
+    lb: fat [n, RT, C], or the 2-bit-unrolled [ceil(n/2), 3RT, C]."""
+    L, _, lb = tops.tkey_default_config(p)
+    M = 3 if unrolled else 1
+    steps = (p.n + 1) // 2 if unrolled else p.n
+    return torch.randint(-128, 128, (steps, 2 * L * 128, M * (p.l + lb)
+                                     * p.N), dtype=torch.int8,
+                         device=device).movedim(1, -1)
 
 
 def random_key2(p, M, rng, device):
@@ -158,6 +186,10 @@ def run_specs(specs: dict, sizes, kernels=KERNELS, p=params.CGGI128,
     unrolled = br_profile.random_key(p, (p.n + 1) // 2, 6 * p.l, rng, dev)
     keys2 = {int(k[-1]): random_key2(p, int(k[-1]), rng, dev)
              for k in kernels if k.startswith("br2_ntt")}
+    slabs = {s: random_slab(p, s == "unrolled", dev)
+             for s in {k.split()[1] for k in kernels if k.startswith("tkey")}}
+    testv = torch.from_numpy(rng.integers(0, 1 << 32, p.N, dtype=np.uint32)
+                             .view(np.int32)).to(dev)
     out, checked = [], False
     try:
         for label, name, d in dirs:
@@ -165,7 +197,8 @@ def run_specs(specs: dict, sizes, kernels=KERNELS, p=params.CGGI128,
             nvcc._libs.clear()
             check = name == "base" and not checked
             if check:
-                br_profile.check(p, rng, dev)
+                if {SOURCE_OF[k] for k in kernels} & {br.SOURCE, br3.SOURCE}:
+                    br_profile.check(p, rng, dev)
                 checked = True
             for G in sizes:
                 acc = br_profile.random_acc(p, G, rng, dev)
@@ -177,17 +210,30 @@ def run_specs(specs: dict, sizes, kernels=KERNELS, p=params.CGGI128,
                 st2 = {M: br2.rotation_steps(torch.from_numpy(
                     rng.integers(0, 2 * p.N2, (p.n, G), dtype=np.int32)).to(
                         dev), k, p) for M, k in keys2.items()}
+                tl = torch.from_numpy(rng.integers(
+                    0, 1 << 32, (G, p.n + 1), dtype=np.uint32).view(
+                        np.int32)).to(dev)
                 fns = {"br_ntt_loop": lambda: br.br_loop(a, acc, plain, p),
                        "br_ntt_step": lambda: br.br_steps(a, acc, plain, p),
                        "br3_ntt M=3": lambda: br3.br3(st, acc, unrolled, p),
                        **{f"br2_ntt M={M}": (lambda M=M: br2.br2(
-                           st2[M], acc2, keys2[M], p)) for M in keys2}}
+                           st2[M], acc2, keys2[M], p)) for M in keys2},
+                       **{f"tkey_{f} {s}": (
+                           lambda f=f, s=s: tkey.blind_rotate_tkey(
+                               tl, slabs[s], testv, p, form=f))
+                          for f in tkey.FORM_LAUNCHES for s in slabs}}
                 if check and G == sizes[0]:
                     for M, k in keys2.items():
                         br_profile.same(
                             fns[f"br2_ntt M={M}"](),
                             br2.blind_rotate2_ref(st2[M], acc2, k, p),
                             f"K7 M={M} G={G}")
+                    for k in kernels:
+                        if k.startswith("tkey"):
+                            br_profile.same(fns[k](),
+                                            tkey.blind_rotate_tkey_ref(
+                                                tl, slabs[k.split()[1]],
+                                                testv, p), f"K1 {k} G={G}")
                 for kernel in kernels:
                     fn = fns[kernel]
                     fn()

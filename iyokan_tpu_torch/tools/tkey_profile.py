@@ -3,13 +3,14 @@
     python3 -m iyokan_tpu_torch.tools.tkey_profile [--G 1,64,2048] [--steps 635]
 
 For each gate batch G: the CUDA kernel's time per blind rotation (CUDA
-events, after a warm-up) in the form the route threshold picks
-(ops/tkey.py WGMMA_MIN_G) and in the other form of the step product, and
-one torch.profiler trace of a blind rotation split by kernel
-(digits_kernel / conv_kernel or conv_wgmma_kernel) with the device's idle
-share over the traced window and the product's time per step.  Beside it,
-as a yardstick of the product alone (not a blind rotation, and never
-called by the port): torch._int_mm of one step's K-major product
+events, after a warm-up) in the form the route picks (ops/tkey.py
+route_form: the persistent form below LOOP_MAX_G) and in the other two
+forms, and one torch.profiler trace of a blind rotation split by kernel
+(tkey_loop_kernel, or digits_kernel and conv_kernel or conv_wgmma_kernel)
+with the device's idle share over the traced window and the product's
+time per step (for the persistent form: its one launch over the steps).
+Beside it, as a yardstick of the product alone (not a blind rotation, and
+never called by the port): torch._int_mm of one step's K-major product
 [NB*Gp, RT] x [RT, 2L*128] on random int8 operands made beforehand, B
 column-major (the slab's K-contiguous storage).  Uses a random int8 slab of
 the cggi128 shape [steps, 5120, 768], stored K-contiguous by
@@ -71,13 +72,17 @@ def main(argv=None) -> int:
         rotate()
         torch.cuda.synchronize()
         ms = timed_ms(rotate, 3, "cuda")
-        form = "wgmma" if -(-G // 16) * 16 >= tkey.WGMMA_MIN_G else "mma"
-        other = "mma" if form == "wgmma" else "wgmma"
+        form = tkey.route_form("fat", -(-G // 16) * 16)
+        others = {}
+        for other in tkey.FORM_LAUNCHES:
+            if other == form:
+                continue
 
-        def rotate_other():
-            tkey.blind_rotate_tkey(tl, bk, testv, p, form=other)
-        rotate_other()
-        other_ms = timed_ms(rotate_other, 3, "cuda")
+            def rotate_other(other=other):
+                tkey.blind_rotate_tkey(tl, bk, testv, p, form=other)
+            rotate_other()
+            others[f"{other}_ms_per_blind_rotation"] = timed_ms(
+                rotate_other, 3, "cuda")
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -91,12 +96,13 @@ def main(argv=None) -> int:
                              getattr(ev, "cuda_time_total", 0))
             kern[ev.key[:80]] = {"device_us": dev_us, "calls": ev.count}
         busy = sum(v["device_us"] for v in kern.values())
-        conv = [v for k, v in kern.items() if "conv_" in k]
-        row = {"G": G, "form": form, "ms_per_blind_rotation": ms,
-               f"{other}_ms_per_blind_rotation": other_ms,
+        conv = [v for k, v in kern.items()
+                if "conv_" in k or "tkey_loop" in k]
+        row = {"G": G, "form": form, "ms_per_blind_rotation": ms, **others,
                "us_per_step": ms * 1e3 / p.n,
                "conv_us_per_step": (sum(v["device_us"] for v in conv)
-                                    / max(1, sum(v["calls"] for v in conv))),
+                                    / max(1, sum(v["calls"] for v in conv))
+                                    / (p.n if form == "loop" else 1)),
                "int_mm_product_only_us": mm_ms * 1e3,
                "traced_window_us": window_us, "kernels": kern,
                "device_idle_share": (1 - busy / window_us

@@ -507,8 +507,8 @@ def test_wgmma_schedule_model_equals_twin(form, G):
 @pytest.mark.parametrize("form", KC_FORMS)
 def test_both_forms_equal_twin_on_card(toy_sk, slabs, form, G):
     """Each layout's kernel == its twin at Gp = 16, 112, 128, 144, 2048,
-    in the form the route threshold picks and in the other one, one
-    launch counted under each form."""
+    in the form the route picks and in the per-step forms, one launch
+    counted under each form."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
     rng = np.random.default_rng(G)
@@ -518,8 +518,8 @@ def test_both_forms_equal_twin_on_card(toy_sk, slabs, form, G):
     args = (tops.u32_tensor(ct, "cuda"), slab,
             tops.u32_tensor(np.full(P.N, P.mu, np.uint32), "cuda"), P)
     want = tkey.blind_rotate_tkey_ref(*args)
-    picked = "wgmma" if G >= tkey.WGMMA_MIN_G else "mma"
-    for f in (None, "mma" if picked == "wgmma" else "wgmma"):
+    picked = tkey.route_form(tkey.slab_config(slab, P)[0], G)
+    for f in (None, *(f for f in ("wgmma", "mma") if f != picked)):
         before = dict(tkey.FORM_LAUNCHES)
         got = tkey.blind_rotate_tkey(*args, form=f)
         torch.cuda.synchronize()
