@@ -108,7 +108,7 @@ Phases, one line each or more:
                    equal the plain-mode run and the Python-integer model
                    (tests/data/gen_mac.py); both kernels' launch counts grew
                    during the encrypted run (tkey, extprod1_ntt and K7);
-                   s/cycle and one synced cycle's seconds per stage;
+                   s/cycle;
  11. br-kernels -- the NTT blind-rotation kernels against their plain twins
                    at cggi128 on the CRT64 keys of phase 3's eval key (the
                    time to build their K3/K4 kernel form, ops/br.py:
@@ -1295,7 +1295,7 @@ def phase_memory(files, data, smi):
     rom, rams, streams = data
     f, cycles = files, MEM_CYCLES
     bp_path = os.path.join(ROOT, "tests", "data", "memmac.toml")
-    cycle_us, stage_lines = [], []
+    cycle_us = []
 
     class CycleLog(logging.Handler):
         def emit(self, record):
@@ -1303,11 +1303,9 @@ def phase_memory(files, data, smi):
             m = re.match(r"\s*done\. \((\d+) us\)", msg)
             if m:
                 cycle_us.append(int(m.group(1)))
-            elif msg.strip().startswith("stages:"):
-                stage_lines.append(msg.strip())
 
     lg = logging.getLogger("iyokan")
-    lg.setLevel(logging.DEBUG)          # the driver logs per-stage seconds
+    lg.setLevel(logging.INFO)           # the driver's per-cycle lines
     lg.propagate = False
     handler = CycleLog()
     lg.addHandler(handler)
@@ -1355,20 +1353,17 @@ def phase_memory(files, data, smi):
                 and np.array_equal(got.ram[name], bits)):
             raise AssertionError(f"memmac RAM {name}: encrypted image != "
                                  "plain / integers")
-    if len(cycle_us) != cycles or len(stage_lines) != cycles:
-        raise AssertionError(f"expected {cycles} cycle times and stage "
-                             f"lines, got {cycle_us}, {stage_lines}")
+    if len(cycle_us) != cycles:
+        raise AssertionError(f"expected {cycles} cycle times, got "
+                             f"{cycle_us}")
     comp = compile_mod.compile_design(build_design(Blueprint(bp_path)))
     s_cycle = sum(cycle_us) / len(cycle_us) / 1e6
-    stages = dict(kv.split("=") for kv in stage_lines[-1].split()[1:])
-    stages = {k: float(v) for k, v in stages.items()}
     say("memory", f"memmac x {cycles} cycles at cggi128: decrypted {want} "
         f"== plain == integers, RAM images equal; {len(comp.levels)} "
         f"levels, census {comp.gate_census()}; {s_cycle:.3f} s/cycle "
-        f"(cycles {cycle_us} us, every stage synced), tfhe CLI {t_run:.1f} "
+        f"(cycles {cycle_us} us), tfhe CLI {t_run:.1f} "
         f"s incl. key load + reset settle; launches {launches}; {smi}")
-    say("memory", "last cycle, seconds per stage: " + json.dumps(stages))
-    return launches, s_cycle, stages
+    return launches, s_cycle
 
 
 # Phase 14: the execution modes (engine/tfhe.py) as CUDA graphs.  Each
@@ -2407,7 +2402,7 @@ def main() -> int:
     ep_rows, ep_worst, t_cb = phase_extprod(
         p, files, smi, {k: v for k, v in caps.items() if k.startswith("K6")})
     k7_rows, k7_worst, k7_variants = phase_br2(p, files, smi, caps)
-    launches, mem_s_cycle, stages = phase_memory(files, data, smi)
+    launches, mem_s_cycle = phase_memory(files, data, smi)
 
     bdk, t_key = br_keys(ek, p)
     # BR_SIZES and each cluster kernel's thread-plan switch (ops/br.py:
@@ -2433,7 +2428,7 @@ def main() -> int:
         "mac16_s_per_cycle": s_cycle, "extprod_ms": ep_rows,
         "cb_8bits_s": t_cb, "k7": k7_rows, "k7_variants": k7_variants,
         "memmac_s_per_cycle": mem_s_cycle,
-        "memmac_stage_s": stages, "br_kernels": br_rows,
+        "br_kernels": br_rows,
         "br_kernel_key_s": t_key, "k5_launch_split_ms": k5_split,
         "ntt_unrolled_route": unrolled, "br_gates": br_gates,
         "mac16_v3_s_per_cycle": v3_s_cycle, "tk_layouts": tk_layouts,

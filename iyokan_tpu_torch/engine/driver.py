@@ -18,10 +18,9 @@ TLWE ciphertexts).  Counterpart of iyokan_tpu/engine/driver.py: engine state
 device, converted to numpy at the packet and snapshot boundaries, so
 --snapshot/--resume and --dump-prefix carry the RAM stores too.  tfhe mode
 runs the JAX package's periodic CMUX-RAM refresh schedule
-(IYOKAN_RAM_REFRESH_PERIOD, default 16); with DEBUG logging (--verbose) it
-also logs each cycle's seconds per stage (gates / simple / cb / rom_read /
-ram_read / ram_write), syncing the device at each stage, which forces the
-engine's level-by-level path for that cycle.  The execution mode is the JAX
+(IYOKAN_RAM_REFRESH_PERIOD, default 16).  Under a torch.profiler the build,
+the reset settle, each cycle and its inputs, and the result packet are
+spans (engine/spans.py).  The execution mode is the JAX
 package's (IYOKAN_FUSE_LEVELS, default 8; engine/tfhe.py), logged in the
 same words at go() start; under IYOKAN_FUSE_LEVELS=all with no per-cycle
 observation, every cycle past the first runs in spans of IYOKAN_SCAN_CHUNK
@@ -44,6 +43,7 @@ from ..circuit import compile as compile_mod
 from ..circuit import iyokanl1, romram, yosys
 from ..circuit.netlist import Design
 from ..crypto import host, ops
+from .spans import span
 
 log = logging.getLogger("iyokan")
 
@@ -112,37 +112,38 @@ class Frontend:
     def __init__(self, mode: str, bp: bp_mod.Blueprint, req_packet,
                  eval_key: Optional[host.EvalKey] = None,
                  snapshot_state: Optional[dict] = None, device=None):
-        self.mode = mode
-        self.device = ops.check_device(
-            ops.default_device() if device is None else device)
-        self.bp = bp
-        self.req = req_packet
-        self.design = build_design(bp)
-        self.compiled = compile_mod.compile_design(self.design)
-        self.current_cycle = 0
-        self._reset_negated = False
+        with span("frontend.build"):
+            self.mode = mode
+            self.device = ops.check_device(
+                ops.default_device() if device is None else device)
+            self.bp = bp
+            self.req = req_packet
+            self.design = build_design(bp)
+            self.compiled = compile_mod.compile_design(self.design)
+            self.current_cycle = 0
+            self._reset_negated = False
 
-        census = self.compiled.gate_census()
-        log.debug("gate census: %s", census)
-        nboots = sum(p.n_bootstraps for p in self.compiled.levels)
-        log.info(
-            "design: %d nodes, %d levels, %d bootstraps/cycle",
-            self.compiled.num_nodes, len(self.compiled.levels), nboots,
-        )
+            census = self.compiled.gate_census()
+            log.debug("gate census: %s", census)
+            nboots = sum(p.n_bootstraps for p in self.compiled.levels)
+            log.info(
+                "design: %d nodes, %d levels, %d bootstraps/cycle",
+                self.compiled.num_nodes, len(self.compiled.levels), nboots,
+            )
 
-        if mode == "plain":
-            from .plain import PlainEngine
+            if mode == "plain":
+                from .plain import PlainEngine
 
-            self.engine = PlainEngine(self.compiled, self.device)
-            self.params = None
-        else:
-            from .tfhe import TFHEEngine
+                self.engine = PlainEngine(self.compiled, self.device)
+                self.params = None
+            else:
+                from .tfhe import TFHEEngine
 
-            assert eval_key is not None, "tfhe mode requires an eval key"
-            self.params = eval_key.params
-            self.engine = TFHEEngine(self.compiled, eval_key, self.device)
+                assert eval_key is not None, "tfhe mode requires an eval key"
+                self.params = eval_key.params
+                self.engine = TFHEEngine(self.compiled, eval_key, self.device)
 
-        self._init_state(snapshot_state)
+            self._init_state(snapshot_state)
 
     # ------------------------------------------------------------------ #
     def _init_state(self, snapshot_state):
@@ -314,8 +315,10 @@ class Frontend:
         reset = self._reset_node()
         should_negate = False
         if self.current_cycle == 0 and not skip_reset and reset is not None:
-            self.vals = eng.set_const_bits(self.vals, [reset], [1])
-            self.vals, self.rams = eng.settle(self.vals, self.rams, self.roms)
+            with span("reset"):
+                self.vals = eng.set_const_bits(self.vals, [reset], [1])
+                self.vals, self.rams = eng.settle(self.vals, self.rams,
+                                                  self.roms)
             should_negate = True
 
         # Periodic RAM refresh (tfhe CMUX RAM only): the full-store refresh
@@ -371,28 +374,30 @@ class Frontend:
             remaining = num_cycles - i
             if can_scan:
                 chunk = remaining if chunk_env == "max" else int(chunk_env)
-                span = min(chunk, remaining)
+                n_span = min(chunk, remaining)
             else:
-                chunk = span = 0
-            if can_scan and span > 1 and remaining >= chunk \
+                chunk = n_span = 0
+            if can_scan and n_span > 1 and remaining >= chunk \
                     and self.current_cycle != 0:
                 log.info("#%d..#%d (scanned)", self.current_cycle + 1,
-                         self.current_cycle + span)
+                         self.current_cycle + n_span)
                 t0 = time.time()
-                nodes, rows = self._circular_input_rows(
-                    self.current_cycle, span)
-                flags = [refresh_at(self.current_cycle + j)
-                         for j in range(span)]
-                self.vals, self.rams = eng.run_cycles(
-                    self.vals, self.rams, self.roms, nodes, rows,
-                    refresh_flags=flags)
-                eng.block_until_ready(self.vals)
+                with span("scan"):
+                    nodes, rows = self._circular_input_rows(
+                        self.current_cycle, n_span)
+                    flags = [refresh_at(self.current_cycle + j)
+                             for j in range(n_span)]
+                    self.vals, self.rams = eng.run_cycles(
+                        self.vals, self.rams, self.roms, nodes, rows,
+                        refresh_flags=flags)
+                    eng.block_until_ready(self.vals)
                 log.info("\tdone. (%d us)", int((time.time() - t0) * 1e6))
-                for c in range(self.current_cycle, self.current_cycle + span):
+                for c in range(self.current_cycle,
+                               self.current_cycle + n_span):
                     self._dump_graph_files(dump_graph_json_prefix,
                                            dump_graph_dot_prefix, c)
-                i += span
-                self.current_cycle += span
+                i += n_span
+                self.current_cycle += n_span
                 continue
             log.info("#%d", self.current_cycle + 1)
             if stdout_csv:
@@ -402,17 +407,6 @@ class Frontend:
                 self._dump(dump_prefix, dump_sk)
             t0 = time.time()
 
-            self.vals = eng.tick(self.vals)
-            if i == 0 and should_negate:
-                self.vals = eng.set_const_bits(self.vals, [reset], [0])
-            if self.current_cycle == 0:
-                self._set_initial_ram()
-                if len(self.compiled.sdff_nodes):
-                    self.vals = eng.set_const_bits(
-                        self.vals, self.compiled.sdff_nodes,
-                        self.compiled.sdff_vals,
-                    )
-            self._set_circular_inputs(self.current_cycle)
             level_times = [] if dump_time_csv_prefix else None
             progress_cb = None
             if show_combinational_progress:
@@ -432,19 +426,27 @@ class Frontend:
             settle_kw = {}
             if self.mode == "tfhe":
                 settle_kw["ram_refresh"] = refresh_at(self.current_cycle)
-                if log.isEnabledFor(logging.DEBUG):
-                    settle_kw["stages"] = {}
-            self.vals, self.rams = eng.settle(
-                self.vals, self.rams, self.roms,
-                timer=level_times, progress=progress_cb, **settle_kw,
-            )
-            eng.block_until_ready(self.vals)
+            with span("cycle"):
+                with span("inputs"):
+                    self.vals = eng.tick(self.vals)
+                    if i == 0 and should_negate:
+                        self.vals = eng.set_const_bits(self.vals, [reset], [0])
+                    if self.current_cycle == 0:
+                        self._set_initial_ram()
+                        if len(self.compiled.sdff_nodes):
+                            self.vals = eng.set_const_bits(
+                                self.vals, self.compiled.sdff_nodes,
+                                self.compiled.sdff_vals,
+                            )
+                    self._set_circular_inputs(self.current_cycle)
+                self.vals, self.rams = eng.settle(
+                    self.vals, self.rams, self.roms,
+                    timer=level_times, progress=progress_cb, **settle_kw,
+                )
+                eng.block_until_ready(self.vals)
 
             dt = time.time() - t0
             log.info("\tdone. (%d us)", int(dt * 1e6))
-            if "stages" in settle_kw:
-                log.debug("\tstages: %s", " ".join(
-                    f"{k}={v:.6f}" for k, v in settle_kw["stages"].items()))
             if dump_time_csv_prefix:
                 from . import progress
 
@@ -489,41 +491,43 @@ class Frontend:
     def make_result_packet(self):
         """@output port values + RAM contents
         (reference makeResPacket, src/iyokan_plain.cpp:174-224)."""
-        eng = self.engine
-        if self.mode == "plain":
-            res = packet_mod.PlainPacket(num_cycles=self.current_cycle)
-        else:
-            res = packet_mod.TFHEPacket(
-                params=self.params.name, num_cycles=self.current_cycle
-            )
-
-        widths: Dict[str, int] = {}
-        nodes_by_port: Dict[str, dict] = {}
-        for (name, bit), port in self.bp.at_ports.items():
-            if port.kind != "output":
-                continue
-            widths[name] = max(widths.get(name, 0), bit + 1)
-            nodes_by_port.setdefault(name, {})[bit] = _resolve(
-                self.design, port
-            )
-        for name, w in widths.items():
-            nodes = [nodes_by_port[name].get(b) for b in range(w)]
-            res.bits[name] = eng.read_nodes(self.vals, nodes)
-
-        for ram in self.bp.builtin_rams:
-            if ram.type == "cmux":
-                res.ram[ram.name] = eng.read_ram_store(self.rams[ram.name])
+        with span("result_packet"):
+            eng = self.engine
+            if self.mode == "plain":
+                res = packet_mod.PlainPacket(num_cycles=self.current_cycle)
             else:
-                size = (1 << ram.in_addr_width) * ram.out_rdata_width
-                nodes = [
-                    self.design.get(ram.name, "ram", "ramdata", i)
-                    for i in range(size)
-                ]
-                if self.mode == "plain":
-                    res.ram[ram.name] = eng.read_nodes(self.vals, nodes)
+                res = packet_mod.TFHEPacket(
+                    params=self.params.name, num_cycles=self.current_cycle
+                )
+
+            widths: Dict[str, int] = {}
+            nodes_by_port: Dict[str, dict] = {}
+            for (name, bit), port in self.bp.at_ports.items():
+                if port.kind != "output":
+                    continue
+                widths[name] = max(widths.get(name, 0), bit + 1)
+                nodes_by_port.setdefault(name, {})[bit] = _resolve(
+                    self.design, port
+                )
+            for name, w in widths.items():
+                nodes = [nodes_by_port[name].get(b) for b in range(w)]
+                res.bits[name] = eng.read_nodes(self.vals, nodes)
+
+            for ram in self.bp.builtin_rams:
+                if ram.type == "cmux":
+                    res.ram[ram.name] = eng.read_ram_store(self.rams[ram.name])
                 else:
-                    res.ram_tlwe[ram.name] = eng.read_nodes(self.vals, nodes)
-        return res
+                    size = (1 << ram.in_addr_width) * ram.out_rdata_width
+                    nodes = [
+                        self.design.get(ram.name, "ram", "ramdata", i)
+                        for i in range(size)
+                    ]
+                    if self.mode == "plain":
+                        res.ram[ram.name] = eng.read_nodes(self.vals, nodes)
+                    else:
+                        res.ram_tlwe[ram.name] = eng.read_nodes(self.vals,
+                                                                nodes)
+            return res
 
     def _dump(self, prefix: str, dump_sk):
         """--dump-prefix: per-cycle result packet (decrypted when a secret

@@ -43,7 +43,10 @@ gives the same ciphertexts bit for bit):
                           Frontend's multi-cycle scan (run_cycles): one graph
                           of tick + input scatter, then the cycle's graph,
                           per cycle.
-timer, stages, progress or IYOKAN_PROFILE force the first in every mode.
+timer, progress or IYOKAN_PROFILE force the first in every mode.  Under a
+torch.profiler the gate groups or levels, the memory levels' stages, the
+RAM write and each graph capture are spans (spans.py); they neither sync
+nor change the mode.
 A graph is captured at its first use after one eager warm-up on a side
 stream (the kernels' first-use set-up: nvcc loads, shared-memory
 attributes, occupancy queries, cached tables; the counterpart of JAX's
@@ -78,6 +81,7 @@ from .. import gates as G
 from ..circuit.compile import Compiled
 from ..crypto import host, ops
 from ..parallel.mesh import replicated, shard_batch
+from .spans import span
 
 # Level batches bootstrap in chunks of at most this many rows: bounds the
 # kernel's digit scratch (rows x RT int8, RT up to 3*(l+lb)*N) and the
@@ -491,17 +495,20 @@ class TFHEEngine:
         latency-bound at these widths), then the per-instance trees.
         Returns (vals, seconds marked)."""
         addr, spans = self._mems[lv]
-        gn_all = self._cb_pairs(keys, vals, addr)
-        t = mark("cb")
+        with span("mem.cb"):
+            gn_all = self._cb_pairs(keys, vals, addr)
+            t = mark()
         for kind, nm, lo, hi in spans:
             gn = gn_all[lo:hi]
             if kind == "rom":
-                vals = self._rom_read(keys, vals, roms[nm], gn, nm)
-                t += mark("rom_read")
+                with span("mem.rom_read"):
+                    vals = self._rom_read(keys, vals, roms[nm], gn, nm)
+                    t += mark()
             else:
-                vals = self._ram_read(keys, vals, rams[nm], gn, nm)
+                with span("mem.ram_read"):
+                    vals = self._ram_read(keys, vals, rams[nm], gn, nm)
+                    t += mark()
                 ram_sel[nm] = gn
-                t += mark("ram_read")
         return vals, t
 
     def _rom_read(self, keys, vals, rom_store, gn, name):
@@ -670,12 +677,13 @@ class TFHEEngine:
             self._gate_levels((lv,))
             if self._mems[lv] is not None:
                 self._mem_level(keys, vals, self._ram_bufs, self._rom_bufs,
-                                lv, ram_sel, lambda cat: 0.0)
+                                lv, ram_sel, lambda: 0.0)
         if self._ram_bufs:
             names = tuple(sorted(self._ram_bufs))
-            outs = self._ram_write_all(
-                names, keys, vals, [self._ram_bufs[n] for n in names],
-                [ram_sel[n] for n in names], refresh=refresh)
+            with span("ram_write"):
+                outs = self._ram_write_all(
+                    names, keys, vals, [self._ram_bufs[n] for n in names],
+                    [ram_sel[n] for n in names], refresh=refresh)
             for n, out in zip(names, outs):
                 self._ram_bufs[n].copy_(out)
 
@@ -716,7 +724,8 @@ class TFHEEngine:
             return
         rec = self._graphs.get(key)
         if rec is None:
-            rec = self._graphs[key] = self._capture(key, fn)
+            with span("graph.capture"):
+                rec = self._graphs[key] = self._capture(key, fn)
         try:
             rec["graph"].replay()
         except Exception as e:
@@ -731,7 +740,8 @@ class TFHEEngine:
         kernel launches it holds (the wrappers' counts during the capture,
         which are taken back: a capture launches nothing), the warm-up,
         capture and instantiation seconds, the pool bytes it added and
-        its nodes.  Raises, naming the graph, where anything fails."""
+        its nodes (the three times split its graph.capture span).  Raises,
+        naming the graph, where anything fails."""
         dev = self.device
         before = None
         try:
@@ -841,22 +851,20 @@ class TFHEEngine:
         return self._vals, dict(self._ram_bufs)
 
     def settle(self, vals, rams, roms, timer=None, progress=None,
-               stages=None, ram_refresh=True):
+               ram_refresh=True):
         """The per-cycle combinational sweep and RAM write, in the mode
         IYOKAN_FUSE_LEVELS names (module docstring; as the JAX engine's
         settle dispatches).
 
         timer: optional list collecting per-level wall-clock seconds.
-        progress: optional callable(n_gates_done).  stages: optional dict
-        accumulating wall-clock seconds per stage category (gates / simple
-        / cb / rom_read / ram_read / ram_write).  timer and stages force a
-        device sync per stage; they, progress and IYOKAN_PROFILE force the
-        level-by-level path.  ram_refresh=False keeps the CMUX-tree output
-        as the RAM stores (periodic refresh, see driver.py).
+        progress: optional callable(n_gates_done).  timer and
+        IYOKAN_PROFILE force a device sync per stage; they and progress
+        force the level-by-level path.  ram_refresh=False keeps the
+        CMUX-tree output as the RAM stores (periodic refresh, see
+        driver.py).
         """
         keys = self.keys
-        sync = (bool(os.environ.get("IYOKAN_PROFILE")) or timer is not None
-                or stages is not None)
+        sync = bool(os.environ.get("IYOKAN_PROFILE")) or timer is not None
         fuse_env = os.environ.get("IYOKAN_FUSE_LEVELS", "8")
         if fuse_env == "all" and not sync and progress is None:
             self._adopt(vals, rams, roms)
@@ -865,14 +873,12 @@ class TFHEEngine:
         fuse = 8 if fuse_env == "all" else int(fuse_env)
         last = [time.time()]
 
-        def mark(cat):
+        def mark():
             if not sync:
                 return 0.0
             self.block_until_ready(vals)
             now = time.time()
             dt, last[0] = now - last[0], now
-            if stages is not None:
-                stages[cat] = stages.get(cat, 0.0) + dt
             return dt
 
         ram_sel = {}
@@ -882,8 +888,9 @@ class TFHEEngine:
             vals = self._vals
             for i, entry in enumerate(self._group_plans(fuse)):
                 if entry[0] == "group":
-                    self._run(("group", fuse, i, entry[1]),
-                              lambda lvs=entry[1]: self._gate_levels(lvs))
+                    with span("gates"):
+                        self._run(("group", fuse, i, entry[1]),
+                                  lambda lvs=entry[1]: self._gate_levels(lvs))
                 else:
                     vals, _ = self._mem_level(keys, vals, rams, roms,
                                               entry[1], ram_sel, mark)
@@ -891,12 +898,13 @@ class TFHEEngine:
             for lv, (plan, pp) in enumerate(zip(self.c.levels,
                                                 self._plans)):
                 lv_t = 0.0
-                if pp["nb"] or pp["nm"]:
-                    vals = self._level_body(keys, vals, pp)
-                    lv_t += mark("gates")
-                if len(pp["not_out"]) or len(pp["copy_out"]):
-                    vals = self._simple(vals, pp)
-                    lv_t += mark("simple")
+                if (pp["nb"] or pp["nm"] or len(pp["not_out"])
+                        or len(pp["copy_out"])):
+                    with span("gates"):
+                        if pp["nb"] or pp["nm"]:
+                            vals = self._level_body(keys, vals, pp)
+                        vals = self._simple(vals, pp)
+                        lv_t += mark()
                 if self._mems[lv] is not None:
                     vals, t = self._mem_level(keys, vals, rams, roms, lv,
                                               ram_sel, mark)
@@ -909,9 +917,10 @@ class TFHEEngine:
         new_rams = {}
         if rams:
             names = tuple(sorted(rams))
-            outs = self._ram_write_all(
-                names, keys, vals, [rams[n] for n in names],
-                [ram_sel[n] for n in names], refresh=bool(ram_refresh))
+            with span("ram_write"):
+                outs = self._ram_write_all(
+                    names, keys, vals, [rams[n] for n in names],
+                    [ram_sel[n] for n in names], refresh=bool(ram_refresh))
+                mark()
             new_rams = dict(zip(names, outs))
-            mark("ram_write")
         return vals, new_rams

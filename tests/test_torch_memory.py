@@ -260,21 +260,6 @@ def test_ram_snapshot_resume_cli(toy_sk, toy_ek, tmp_path, monkeypatch):
     np.testing.assert_array_equal(dec.ram["ramA"][12:16], [0, 1, 1, 1])
 
 
-def test_settle_stage_breakdown(toy_sk, toy_ek):
-    """settle(stages=...) accumulates seconds per stage category without
-    changing results."""
-    req = _ram_request([0, 1], [0], [0, 0, 0, 0]).encrypt(toy_sk, seed=7)
-    fe = TFrontend("tfhe", TBlueprint(os.path.join(DATA, "tiny-ram.toml")),
-                   req, eval_key=toy_ek, device="cpu")
-    stages = {}
-    v1, r1 = fe.engine.settle(fe.vals.clone(), dict(fe.rams), fe.roms,
-                              stages=stages)
-    assert {"cb", "ram_read", "ram_write"} <= set(stages)
-    assert all(v >= 0 for v in stages.values())
-    v2, r2 = fe.engine.settle(fe.vals.clone(), dict(fe.rams), fe.roms)
-    assert torch.equal(v1, v2) and torch.equal(r1["ramA"], r2["ramA"])
-
-
 # --------------------------------------------------------------------------- #
 # the memmac circuit
 # --------------------------------------------------------------------------- #
