@@ -2,6 +2,10 @@
 
     python3 chip_smoke.py
 
+Every phase but 14b runs the route it names, and the JAX package's default
+(IYOKAN_BR_IMPL=tkey, set at the start unless given) where it names none;
+phase 14b runs the port's own defaults.
+
 Phases, one line each or more:
   1. device     -- nvidia-smi name + power limit, torch.cuda device name;
   2. build      -- the six kernel sources, csrc/tkey_blind_rotate.cu,
@@ -168,6 +172,18 @@ Phases, one line each or more:
                    7, 8, 10 and 13 pin IYOKAN_FUSE_LEVELS=1 (level by
                    level), so their numbers stay comparable with earlier
                    runs;
+ 14b. default   -- MAC-16 x 3 cycles and memmac x 16 cycles through the
+                   Frontend at the port's own defaults: none of PREP_KNOBS
+                   set (crypto/ops.py: K3 at M = 3 on the unrolled key for
+                   every gate rotation, no slab), IYOKAN_FUSE_LEVELS,
+                   IYOKAN_SCAN_CHUNK and IYOKAN_RAM_REFRESH_PERIOD unset
+                   (groups of 8 levels as graphs; memmac's cycle 15
+                   refreshes all 4096 RAM bits in 2048-row rotations);
+                   decrypted == plain == integers, RAM images included;
+                   K3's launches (eager and by the graphs' replays) counted
+                   from 0 over each run, no K1, K4 or K5 launch; the
+                   engine's route_counts (rows and rotations a cycle by
+                   stage and route) printed, every one v3-unrolled;
  15. mesh       -- the gate-batch mesh (iyokan_tpu_torch/parallel) on the one
                    card: phase 14's no-mesh cycle graphs hold their
                    recorded nodes (NO_MESH_CYCLE_NODES: an unset mesh adds
@@ -934,7 +950,8 @@ def mac_operands(W, cycles):
 
 def phase_slice(smi, phase="slice"):
     """MAC-16 through the CLIs at cggi128: encrypted == plain == integers.
-    "slice" runs the default (tkey) route on fresh keys and request; the
+    "slice" runs the JAX package's default (tkey) route on fresh keys and
+    request; the
     others (SLICE_ROUTES) reuse its files.  Returns (launches of the
     route's kernel, s/cycle)."""
     env, route_launches = SLICE_ROUTES[phase]
@@ -1571,6 +1588,111 @@ def phase_fusion(smi, mem_files, mem_data):
     return out
 
 
+# Phase 14b: the port's defaults; memmac runs to its first full refresh at
+# the default period of 16 (cycle 15)
+DEFAULT_MEM_CYCLES = 16
+K1_K4_K5 = ("tkey.LAUNCHES", "br.STEP_LAUNCHES", "br.LOOP_LAUNCHES")
+
+
+def phase_default(smi, mem_files):
+    """MAC-16 and memmac through the Frontend at the port's defaults (the
+    phase list, 14b): decrypted == plain == integers, K3 launched and no
+    K1, K4 or K5, route_counts all v3-unrolled.  Returns a row a run."""
+    from iyokan_tpu_torch.engine import tfhe
+    from iyokan_tpu_torch.engine.driver import Frontend
+
+    unset = {k: None for k in (*ops.PREP_KNOBS, "IYOKAN_FUSE_LEVELS",
+                               "IYOKAN_SCAN_CHUNK",
+                               "IYOKAN_RAM_REFRESH_PERIOD")}
+    mac = {k: os.path.join(WORK, k) for k in ("sk", "ek", "req.plain",
+                                              "req.enc")}
+    _, _, want_acc = mac_operands(16, SLICE_CYCLES)
+    mem_sk = host.SecretKey.load(mem_files["sk"])
+    rom, rams, streams = gen_mac.memmac_request(DEFAULT_MEM_CYCLES, SEED)
+    mem_plain = packet_mod.PlainPacket(rom={"rom": rom}, ram=rams,
+                                       bits=streams)
+    want_mem, want_ram = gen_mac.memmac_expected(rom, rams, streams,
+                                                 DEFAULT_MEM_CYCLES)
+    runs = (("mac16.toml", host.SecretKey.load(mac["sk"]), mac["ek"],
+             packet_mod.PlainPacket.load(mac["req.plain"]),
+             packet_mod.TFHEPacket.load(mac["req.enc"]), SLICE_CYCLES),
+            ("memmac.toml", mem_sk, mem_files["ek"], mem_plain,
+             mem_plain.encrypt(mem_sk, seed=SEED + 6), DEFAULT_MEM_CYCLES))
+    out = []
+    for bp_name, sk, ek_path, plain_req, req, cycles in runs:
+        bp_path = os.path.join(ROOT, "tests", "data", bp_name)
+        plain_fe = Frontend("plain", Blueprint(bp_path), plain_req,
+                            device="cuda")
+        plain_fe.go(cycles)
+        plain = plain_fe.make_result_packet()
+        ops.clear_device_key_cache()
+        with knobs(**unset):
+            ek = host.EvalKey.load(ek_path)
+            reset_launches()
+            with timing.cycle_log() as lines:
+                fe = Frontend("tfhe", Blueprint(bp_path), req, eval_key=ek,
+                              device="cuda")
+                fe.go(cycles)
+                res = fe.make_result_packet()
+            eng = fe.engine
+            eager, replayed = tfhe.launch_counts(), eng.graph_launches()
+            counts = {flag: tfhe.route_counts(eng, refresh=flag)
+                      for flag in ((False, True) if eng.d.ram_insts
+                                   else (True,))}
+        keys = eng.keys
+        if not keys.port_routing or keys.bk_tk is not None:
+            raise AssertionError(f"default {bp_name}: keys not on the port's "
+                                 "rule, or a slab built")
+        dec = res.decrypt(sk)
+
+        def word(bits):
+            return sum(int(b) << k for k, b in enumerate(bits))
+
+        want = {"acc": want_acc} if bp_name == "mac16.toml" else want_mem
+        for name, v in want.items():
+            if not word(dec.bits[name]) == word(plain.bits[name]) == v:
+                raise AssertionError(
+                    f"default {bp_name} @{name}: encrypted "
+                    f"{word(dec.bits[name])} / plain "
+                    f"{word(plain.bits[name])} / integers {v}")
+        if bp_name == "memmac.toml":
+            for name, bits in want_ram.items():
+                if not (np.array_equal(dec.ram[name], plain.ram[name])
+                        and np.array_equal(dec.ram[name], bits)):
+                    raise AssertionError(f"default memmac RAM {name}: "
+                                         "encrypted image != plain / "
+                                         "integers")
+        k3 = eager.get("br3.LAUNCHES", 0) + replayed.get("br3.LAUNCHES", 0)
+        others = {k: eager.get(k, 0) + replayed.get(k, 0) for k in K1_K4_K5}
+        routes = {r for c in counts.values() for st in c.values() for r in st}
+        level_rot = sum(c["rotations"] for c in counts[True].get(
+            "levels", {}).values())
+        if routes != {"v3-unrolled"} or any(others.values()) or \
+                k3 < cycles * level_rot:
+            raise AssertionError(
+                f"default {bp_name}: routes {routes}, K3 launches {k3} "
+                f"(levels alone {level_rot} a cycle x {cycles}), others "
+                f"{others}")
+        n_last, us_last = lines[-1]
+        row = {"blueprint": bp_name, "cycles": cycles, "cycles_us": lines,
+               "s_per_cycle_last": us_last / n_last / 1e6,
+               "k3_launches": {"eager": eager.get("br3.LAUNCHES", 0),
+                               "replays": replayed.get("br3.LAUNCHES", 0)},
+               "route_counts": {("refresh" if f else "no_refresh"): c
+                                for f, c in counts.items()},
+               "graphs": len(eng.graph_stats())}
+        out.append(row)
+        say("default", f"{bp_name} x {cycles} cycles at the port's defaults "
+            f"(no PREP_KNOBS, FUSE and refresh period unset): decrypted == "
+            f"plain == integers; K3 launches {row['k3_launches']}, K1/K4/K5 "
+            f"{others}; route_counts a cycle {row['route_counts']}; "
+            f"{row['graphs']} graphs; cycles (n, us) {lines}; {smi}")
+        del fe, eng, keys
+        ops.clear_device_key_cache()
+        torch.cuda.empty_cache()
+    return out
+
+
 def cb_graph_times(files, G, reps=3):
     """Circuit bootstrapping of G encrypted bits (memmac's address bits a
     cycle) on the card, run eagerly and as the replay of one CUDA graph
@@ -1831,7 +1953,7 @@ def phase_mesh(smi, mem_files, fusion):
         torch.cuda.empty_cache()
 
     with knobs(ER_G=None, ER_BATCHES=None, ER_CASCADE=None, ER_PARAMS=None,
-               IYOKAN_BR_IMPL=None,
+               IYOKAN_BR_IMPL="tkey",
                ER_OUT=os.path.join(WORK, "error_rate.tkey.json")):
         rec = measure_error_rate.main()
     ops.clear_device_key_cache()
@@ -2365,6 +2487,9 @@ def main() -> int:
     # no slab files outside phase 14's own measurement (the other
     # phases time every slab build)
     os.environ.setdefault("IYOKAN_SLAB_CACHE", "0")
+    # the phases name their routes; unnamed, the JAX package's tkey route
+    # (the port's own default is K3 on every gate rotation: br-slice, v3)
+    os.environ.setdefault("IYOKAN_BR_IMPL", "tkey")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi, name = phase_device()
@@ -2417,6 +2542,7 @@ def main() -> int:
     k5_split = phase_k5_split(smi)
     k3_launches, v3_s_cycle = phase_slice(smi, "br-slice")
     fusion = phase_fusion(smi, files, data)
+    default = phase_default(smi, files)
     mesh, mesh_k1, node_errors = phase_mesh(smi, files, fusion)
     micro_recs = phase_micro(smi)
     if node_errors:
@@ -2435,7 +2561,7 @@ def main() -> int:
         "mac16_tk_small_s_per_cycle": tk_s_cycle,
         "tkey_forms": form_rows, "loop_max_g": tkey.LOOP_MAX_G,
         "wgmma_min_g": tkey.WGMMA_MIN_G, "k1_loop_ablation": k1_ablation,
-        "fusion": fusion, "mesh": mesh}))
+        "fusion": fusion, "default": default, "mesh": mesh}))
     say("summary", f"chip_smoke.py took {time.time() - t_start:.1f} s in "
         "all")
     print(smi)

@@ -280,15 +280,18 @@ def _modswitch(x: torch.Tensor, log2n: int) -> torch.Tensor:
 
 
 def gate_route(bk_prep: torch.Tensor, p: Params) -> str:
-    """The route a gate blind rotation takes on this key, as iyokan_tpu's
-    blind_rotate dispatches on its key's layout and IYOKAN_BR_IMPL (see
-    DeviceKeys for the table):
+    """The route a gate blind rotation takes on this key (see DeviceKeys
+    for the table).  With none of PREP_KNOBS set (the port's rule) an
+    unrolled key runs K3 at M = 3; with any of them set, the route is the
+    one iyokan_tpu's blind_rotate takes on its key's layout and
+    IYOKAN_BR_IMPL:
 
     "tkey"         int8 slab, any layout: ops/tkey.py (K1, K2);
     "pallas"       plain key, IYOKAN_BR_IMPL=pallas: ops/br.py, K5 per step;
     "pallas2"      plain key, IYOKAN_BR_IMPL=pallas2: ops/br.py, K4;
     "v3"           plain key, IYOKAN_BR_IMPL=v3: ops/br3.py, K3 at M = 1;
-    "v3-unrolled"  unrolled key, IYOKAN_BR_IMPL=v3: K3 at M = 3;
+    "v3-unrolled"  unrolled key, IYOKAN_BR_IMPL=v3 or no knob set: K3 at
+                   M = 3;
     "ntt-step"     plain key otherwise (and always under IYOKAN_EP=pallas,
                    where the JAX package holds a K6 kernel-layout key):
                    rotate -> decompose1 -> extprod1 per step;
@@ -301,7 +304,8 @@ def gate_route(bk_prep: torch.Tensor, p: Params) -> str:
     impl = os.environ.get("IYOKAN_BR_IMPL")
     lead = tuple(bk_prep.shape[:2]) if bk_prep.dim() == 5 else ()
     if lead == ((p.n + 1) // 2, 6 * p.l):
-        return "v3-unrolled" if impl == "v3" else "ntt-unrolled"
+        return ("v3-unrolled" if impl == "v3" or not jax_routing()
+                else "ntt-unrolled")
     if lead != (p.n, 2 * p.l):
         raise ValueError(
             f"blind-rotation key {tuple(bk_prep.shape)} {bk_prep.dtype} is "
@@ -323,24 +327,22 @@ def blind_rotate(tlwe0: torch.Tensor, bk_prep: torch.Tensor,
     unrolling X^(a1 s1 + a2 s2) = 1 + s1(1-s2)(X^a1 - 1) + s2(1-s1)(X^a2 - 1)
     + s1 s2 (X^(a1+a2) - 1) halves the sequential depth)."""
     route = gate_route(bk_prep, p)
-    if route == "tkey":
-        from ..ops.tkey import blind_rotate_tkey
+    if route == "tkey" or route.startswith("v3"):
+        from ..ops import br3, tkey
 
+        fn = (tkey.blind_rotate_tkey if route == "tkey"
+              else br3.blind_rotate_pallas3)
         # under a mesh each shard runs the kernel on its own rows against
-        # the one slab (iyokan_tpu's shard_map of the tkey kernel, on the
-        # same G % n and G // n rule)
-        return mesh_mod.shard_batch(
-            tlwe0, lambda t: blind_rotate_tkey(t, bk_prep, testv, p))
+        # the one key (iyokan_tpu's shard_map of the tkey kernel, on the
+        # same G % n and G // n rule; K3, which takes K1's place under the
+        # port's rule, likewise)
+        return mesh_mod.shard_batch(tlwe0, lambda t: fn(t, bk_prep, testv, p))
     if route in ("pallas", "pallas2"):
         from ..ops import br
 
         fn = br.blind_rotate_pallas if route == "pallas" else \
             br.blind_rotate_pallas2
         return fn(tlwe0, bk_prep, testv, p)
-    if route.startswith("v3"):
-        from ..ops.br3 import blind_rotate_pallas3
-
-        return blind_rotate_pallas3(tlwe0, bk_prep, testv, p)
     from ..ops.extprod import extprod1
     from ..ops.tkey import _setup
 
@@ -578,6 +580,13 @@ PREP_KNOBS = ("IYOKAN_BR_IMPL", "IYOKAN_TK_LAYOUT", "IYOKAN_TKEY_LIMBS",
               "IYOKAN_TK_LB", "IYOKAN_TK_SMALL", "IYOKAN_UNROLL_MAX",
               "IYOKAN_KS_I8")
 
+
+def jax_routing() -> bool:
+    """True where any of PREP_KNOBS is set: keys and routes then follow the
+    JAX package's table row for row (DeviceKeys); else the port's rule."""
+    return any(k in os.environ for k in PREP_KNOBS)
+
+
 # The in-process LRU of prepared keys (iyokan_tpu/crypto/ops.py's
 # _DEVICE_KEY_CACHE): one key set holds GBs on the card at cggi128 (the
 # slab alone 2.5 GB), so only the IYOKAN_KEY_CACHE_SLOTS (default 2) most
@@ -668,7 +677,8 @@ def _slab(src: np.ndarray, p: Params, L: int, layout: str, lb: int,
 class DeviceKeys:
     """Evaluation key prepared for the runtime ops on one device.
 
-    bk_tk     int8 Toeplitz slab (tkey route; None on the others), in the
+    bk_tk     int8 Toeplitz slab (tkey route; None on the others, and
+              under the port's rule), in the
               layout tkey_default_config names (ops/tkey.py reads it from
               the shape), stored K-contiguous (ops/tkey.py:k_contiguous)
               as a view of the logical shape: fat [n, (l+lb)*N, 2*L*128], thin
@@ -695,18 +705,28 @@ class DeviceKeys:
                                            its K7 kernel form (ops/br2.py:
                                            attach_kernel_key2), built here
     pksk_f64  2 x f64 [N2*t, 2N]           private key-switch keys, centred
-    The last two are None without circuit-bootstrapping material.
+    port_routing  True where the port's rule chose the keys (below)
+    bk2 and pksk_f64 are None without circuit-bootstrapping material.
 
-    Gate keys and routes follow iyokan_tpu's from_evalkey, bk_for and
-    blind_rotate on the TPU (MXU backend) row for row; the port's plain
-    key is always the CRT64 prep1 key.  bk_for(batch) gives the unrolled
-    NTT key to batches of at most thr = unroll_max() rows when it exists,
-    then bk_tk_small to batches of at most IYOKAN_TK_SMALL_MAX rows when it
-    exists, else the plain key, and blind_rotate routes on the key
-    (gate_route):
+    With none of PREP_KNOBS set and a key with bku, the port's rule: the
+    unrolled NTT key bk_ntt_u, which gate_route sends to K3 at M = 3, for
+    every batch, and no slab (tools/route_sweep.py timed both routes in
+    CUDA graph replays at cggi128 on one H100: K3 1.9-2.8 ms against K1's
+    7.0-9.5 at 1-48 rows, 10.2 against 20.2 at 256, 71.8 against 91.8 at
+    2048, the most one rotation of the engine takes).  With any of
+    PREP_KNOBS set (IYOKAN_BR_IMPL=tkey gives the JAX package's default),
+    or a key without bku, gate keys and routes follow iyokan_tpu's
+    from_evalkey, bk_for and blind_rotate on the TPU (MXU backend) row for
+    row; the port's plain key is always the CRT64 prep1 key.  bk_for(batch)
+    gives the unrolled NTT key to batches of at most thr = unroll_max()
+    rows when it exists, then bk_tk_small to batches of at most
+    IYOKAN_TK_SMALL_MAX rows when it exists, else the plain key, and
+    blind_rotate routes on the key (gate_route):
 
     IYOKAN_BR_IMPL  IYOKAN_EP=pallas  plain key (batch > thr)  unrolled key
-    unset / tkey    any               tkey slab bk_tk, thr = 0 (thr > 0:
+    no PREP_KNOBS   unset             (none: no slab)          K3, M = 3
+                                                               (every batch)
+    tkey, or unset  any               tkey slab bk_tk, thr = 0 (thr > 0:
                                       (ops/tkey.py, every      ntt-unrolled)
                                       layout)
     pallas          no                K5                       ntt-unrolled
@@ -740,13 +760,17 @@ class DeviceKeys:
     bk_tk_small: torch.Tensor = None
     bk2: torch.Tensor = None
     pksk_f64: tuple = None
+    port_routing: bool = False
 
     def bk_for(self, batch: int) -> torch.Tensor:
         """The gate blind-rotation key for a batch of `batch` rows (the
-        size of the JAX call this one mirrors, not the rows it runs), in
-        JAX's order: the unrolled NTT key up to unroll_max() rows, then
+        size of the JAX call this one mirrors, not the rows it runs).  Under
+        the port's rule: the unrolled NTT key at every size.  Else in JAX's
+        order: the unrolled NTT key up to unroll_max() rows, then
         bk_tk_small up to IYOKAN_TK_SMALL_MAX rows, each when it exists,
         else the route's plain key (blind_rotate routes on its layout)."""
+        if self.port_routing:
+            return self.bk_ntt_u
         tkey = self.bk_tk is not None
         if self.bk_ntt_u is not None and batch <= unroll_max(tkey):
             return self.bk_ntt_u
@@ -788,8 +812,10 @@ class DeviceKeys:
     def _prepare(ek: EvalKey, device, with_cb: bool, fp: tuple
                  ) -> "DeviceKeys":
         p = ek.params
-        # the tkey slab unless IYOKAN_BR_IMPL names another route (the
-        # port's default, as the JAX package's on the TPU)
+        # the port's rule where no PREP_KNOBS is set and the key has bku;
+        # else the tkey slab unless IYOKAN_BR_IMPL names another route (the
+        # JAX package's default on the TPU)
+        port_routing = ek.bku is not None and not jax_routing()
         tkey = os.environ.get("IYOKAN_BR_IMPL", "tkey") == "tkey"
         no_unroll = bool(os.environ.get("IYOKAN_NO_UNROLL"))
         bku = (None if ek.bku is None else
@@ -797,7 +823,7 @@ class DeviceKeys:
         bk_tk = bk_tk_small = bk_ntt = bk_ntt_u = None
         if not tkey:
             bk_ntt = polymul.prep1(u32_tensor(ek.bk, device), p)
-        else:
+        elif not port_routing:
             L, lay, lb = tkey_default_config(p)
             # the main slab from bku under IYOKAN_TK_UNROLL (fat layout
             # only), and the small-batch unrolled slab under
@@ -813,7 +839,7 @@ class DeviceKeys:
                 bk_tk_small = _slab(bku, p, L, "fat", lb, device,
                                     slab_cache_path(fp, "small"))
         if (bku is not None and not no_unroll
-                and (not tkey or unroll_max(True) > 0)):
+                and (not tkey or port_routing or unroll_max(True) > 0)):
             bk_ntt_u = polymul.prep1(u32_tensor(bku, device), p)
         # K3/K4 read the NTT keys in their kernel form, built once here
         from ..ops.br import attach_kernel_key
@@ -823,7 +849,8 @@ class DeviceKeys:
                 attach_kernel_key(key, p)
         ksk_mat = u32_tensor(ek.ksk.reshape(p.N * p.ks_t, p.n + 1), device)
         dk = DeviceKeys(p, device, bk_tk, ksk_mat, ksk_mat.to(torch.float64),
-                        bk_ntt, bk_ntt_u, bk_tk_small)
+                        bk_ntt, bk_ntt_u, bk_tk_small,
+                        port_routing=port_routing)
         if with_cb:
             # the depth-halved unrolled key whenever present, as the JAX
             # package's bk2_for (CB batches are small: l rows per address

@@ -61,7 +61,7 @@ and span functions run eagerly.
 Under a mesh (parallel/mesh.py: set_mesh) the level batches' rotations and
 the RAM write's refresh rows are sharded where the JAX engine shards them
 (shard_batch: each shard's rows run one after another, the results come
-back whole), and the tkey route shards any rotation (crypto/ops.py:
+back whole), and the tkey and K3 routes shard any rotation (crypto/ops.py:
 blind_rotate); keys and rows' routes are chosen from the whole batch.  A
 mesh of shards on one card is captured like any other launch sequence;
 across processes the all-gathers are NCCL collectives inside the capture
@@ -159,6 +159,37 @@ def _set_launch_counts(counts: dict) -> None:
             setattr(mods[parts[0]], parts[1], n)
         else:
             getattr(mods[parts[0]], parts[1])[parts[2]] = n
+
+
+def route_counts(engine: "TFHEEngine", refresh: bool = True) -> dict:
+    """The gate blind rotations of one cycle of `engine`, read from its
+    plans (graph replays bypass Python, so nothing is counted as they run):
+    {stage: {route: {"rows": r, "rotations": k}}}, stage "levels" (every
+    gate level's batch, each row on the key of its _boot_plan),
+    "ram_write" (the 2W MUXwoSE rows) or "refresh" (every RAM bit on a
+    refresh cycle, else the W written rows); route as ops.gate_route names
+    it; a rotation is one ops.blind_rotate call of at most BOOT_CHUNK rows,
+    as on one device with no mesh (a mesh splits them further)."""
+    out = {}
+
+    def add(stage, bk, rows):
+        c = out.setdefault(stage, {}).setdefault(
+            ops.gate_route(bk, engine.p), {"rows": 0, "rotations": 0})
+        c["rows"] += rows
+        c["rotations"] += -(-rows // BOOT_CHUNK)
+
+    for pp in engine._plans:
+        for bk, rows in pp["boot"] or ():
+            add("levels", bk, pp["nb"] + 2 * pp["nm"] if rows is None
+                else len(rows))
+    insts = engine.d.ram_insts.values()
+    if insts:
+        W = sum(inst.data_width for inst in insts)
+        n = (sum((1 << inst.addr_width) * inst.data_width for inst in insts)
+             if refresh else W)
+        add("ram_write", engine.keys.bk_for(2 * W), 2 * W)
+        add("refresh", engine.keys.bk_for(n), n)
+    return out
 
 
 def graph_nodes(graph):

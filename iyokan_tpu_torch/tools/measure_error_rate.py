@@ -10,8 +10,9 @@ decryption errors and the phase noise of the outputs; then ER_CASCADE (8)
 rounds in which each round's outputs are the next round's inputs.  Keys
 from seeds 0 (secret) and 1 (evaluation, no circuit-bootstrapping keys),
 inputs from numpy's default_rng(99), parameters ER_PARAMS (cggi128).  The
-route is the one DeviceKeys.bk_for gives under the usual knobs
-(IYOKAN_BR_IMPL unset: the tkey slab; v3, pallas, pallas2 ...).
+route is the one DeviceKeys.bk_for gives under the usual knobs (none set:
+the port's rule, K3 at M = 3 on the unrolled key; IYOKAN_BR_IMPL=tkey: the
+tkey slab; v3, pallas, pallas2 ...).
 
 The record goes to ER_OUT (default ERROR_RATE_H100.json at the repo root;
 ERROR_RATE.json there is the JAX package's record from a TPU): gates,

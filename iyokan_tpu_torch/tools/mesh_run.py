@@ -11,7 +11,8 @@ Every worker, from the same seeds (keys 0 / 1 at P, default cggi128):
 
   1. G NANDs (default 2048): the batch whole on its own device with no mesh
      set, then under the mesh (its G/N rows, then the all-gather): the
-     two outputs byte for byte, 0 wrong, the tkey kernel launched once on
+     two outputs byte for byte, 0 wrong, the route's kernel (K3 under the
+     port's default rule, K1 under IYOKAN_BR_IMPL=tkey) launched once on
      G/N rows; ms a batch both ways (CUDA events after a barrier, 3 reps);
   2. tests/data/<circuit>.toml (default mac16) for C cycles (default 3) on
      random inputs: with no mesh at IYOKAN_FUSE_LEVELS=1 (the reference),
@@ -52,7 +53,7 @@ def _nands(args, p, sk, dk, mesh, device, rec):
 
     from .. import gates
     from ..crypto import host, ops
-    from ..ops import tkey
+    from ..ops import br3, tkey
     from ..parallel import mesh as mesh_mod
     from . import timing
 
@@ -80,22 +81,25 @@ def _nands(args, p, sk, dk, mesh, device, rec):
     whole = nand()
     ms_whole = ms(nand)
     rows = []
-    real = tkey.blind_rotate_tkey
+    # the route's kernel wrapper: K1's (tkey) or K3's (the port's rule)
+    mod, name = ((tkey, "blind_rotate_tkey") if dk.bk_for(G).dtype ==
+                 torch.int8 else (br3, "blind_rotate_pallas3"))
+    real = getattr(mod, name)
 
     def counted(t, *rest, **kw):
         rows.append(t.shape[0])
         return real(t, *rest, **kw)
 
     mesh_mod.set_mesh(mesh)
-    tkey.blind_rotate_tkey = counted
+    setattr(mod, name, counted)
     try:
-        launches = tkey.LAUNCHES
+        launches = mod.LAUNCHES
         sharded = nand()
-        launches = tkey.LAUNCHES - launches
+        launches = mod.LAUNCHES - launches
         shard_rows = list(rows)
         ms_mesh = ms(nand)
     finally:
-        tkey.blind_rotate_tkey = real
+        setattr(mod, name, real)
         mesh_mod.set_mesh(None)
     wrong = int((host.decrypt_bits(sk, ops.u32_numpy(sharded))
                  != 1 - (a & b)).sum())

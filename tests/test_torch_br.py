@@ -229,10 +229,12 @@ def test_v3_twin_equals_jax_kernel(toy_sk, mxu_keys, port_keys, monkeypatch,
     np.testing.assert_array_equal(_u32(got), want)
 
 
-def test_unrolled_routes_odd_n(mxu_keys):
+def test_unrolled_routes_odd_n(mxu_keys, monkeypatch):
     """An odd n (9 key bits: 5 pair steps, the last with a2 = 0) on random
     unrolled keys: K3 at M = 3 equals the JAX kernel, and the port's exact
-    unrolled route equals JAX's CRT64 XLA unrolled route."""
+    unrolled route (IYOKAN_BR_IMPL=ntt: with no knob set an unrolled key
+    runs K3) equals JAX's CRT64 XLA unrolled route."""
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "ntt")
     jp = dataclasses.replace(JP, n=9)
     tp = dataclasses.replace(TP, n=9)
     rng = np.random.default_rng(9)

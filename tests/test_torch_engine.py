@@ -250,11 +250,12 @@ def test_cpu_variable_runs_the_cli(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_port_tfhe_on_card_equals_cpu(toy_sk, toy_ek):
-    """The port's Frontend on the card (CUDA kernel) gives the same result
-    ciphertexts as on the CPU (plain twin), bit for bit."""
+    """The port's Frontend on the card (CUDA kernel: K3, the default route
+    of every gate rotation) gives the same result ciphertexts as on the CPU
+    (plain twin), bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA kernel, no CPU mode)")
-    from iyokan_tpu_torch.ops import tkey
+    from iyokan_tpu_torch.ops import br3
 
     W, cycles = 4, 2
     av, bv, streams = _mac_request(W, cycles, 23)
@@ -262,12 +263,12 @@ def test_port_tfhe_on_card_equals_cpu(toy_sk, toy_ek):
     bp = os.path.join(DATA, f"mac{W}.toml")
     res = {}
     for dev in ("cpu", "cuda"):
-        before = tkey.LAUNCHES
+        before = br3.LAUNCHES
         fe = TFrontend("tfhe", TBlueprint(bp), req, eval_key=toy_ek,
                        device=dev)
         fe.go(cycles)
         res[dev] = fe.make_result_packet()
-        assert (tkey.LAUNCHES > before) == (dev == "cuda")
+        assert (br3.LAUNCHES > before) == (dev == "cuda")
     np.testing.assert_array_equal(res["cuda"].bits["acc"],
                                   res["cpu"].bits["acc"])
     assert _acc(res["cuda"].decrypt(toy_sk).bits["acc"]) == \

@@ -95,8 +95,13 @@ def test_device_keys_match_jax(toy, toy_ek, monkeypatch):
     assert tdk.device == torch.device("cpu")
 
 
-def test_unquantized_bk_masks_warn(toy_ek):
+def test_unquantized_bk_masks_warn(toy_ek, monkeypatch):
+    """On the tkey slab's route (IYOKAN_BR_IMPL=tkey); the port's default
+    builds no slab, and its K3 route is exact on any mask."""
     import dataclasses
+
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "tkey")
+    monkeypatch.setenv("IYOKAN_SLAB_CACHE", "0")
 
     bk = toy_ek.bk.copy()
     bk[:, :, 0, :] |= np.uint32(1)

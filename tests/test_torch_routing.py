@@ -1,12 +1,15 @@
 """Gate-key routing of the torch port against the JAX package.
 
 * For every row of the table in iyokan_tpu_torch.crypto.ops.DeviceKeys
-  (IYOKAN_BR_IMPL x IYOKAN_EP, with IYOKAN_UNROLL_MAX and IYOKAN_NO_UNROLL):
-  the key kind (plain or 2-bit unrolled) each batch size gets from bk_for,
-  and the route blind_rotate takes on it, equal the JAX package's on the
-  TPU.  The JAX DeviceKeys are built with the MXU backend, as on the TPU;
-  the route JAX takes is read by stopping it at the first kernel or
-  product it calls.
+  that follows the JAX package (IYOKAN_BR_IMPL x IYOKAN_EP, with
+  IYOKAN_UNROLL_MAX and IYOKAN_NO_UNROLL): the key kind (plain or 2-bit
+  unrolled) each batch size gets from bk_for, and the route blind_rotate
+  takes on it, equal the JAX package's on the TPU.  The JAX DeviceKeys are
+  built with the MXU backend, as on the TPU; the route JAX takes is read by
+  stopping it at the first kernel or product it calls.  Each of PREP_KNOBS
+  set alone restores that table.
+* The port's rule (no PREP_KNOBS set): the unrolled key and K3 at M = 3
+  at every batch size, and no slab.
 * The tkey slab's knobs (IYOKAN_TKEY_LIMBS, IYOKAN_TK_LB, IYOKAN_TK_LAYOUT,
   IYOKAN_TK_UNROLL, IYOKAN_TK_SMALL, IYOKAN_TK_SMALL_MAX, with
   IYOKAN_UNROLL_MAX): the key bk_for gives each batch size is the JAX
@@ -22,7 +25,9 @@
   IYOKAN_BR_IMPL=v3, the JAX side on the MXU backend with its Pallas kernel
   in interpret mode; (c) IYOKAN_TK_SMALL=1 with IYOKAN_TK_SMALL_MAX=16, so
   that a level's 16-row chunks take the unrolled slab and its 32-row chunk
-  the main one, the JAX kernels in interpret mode.
+  the main one, the JAX kernels in interpret mode; (d) the port at its
+  defaults (the port's rule: K3 at M = 3 on every level) against JAX under
+  IYOKAN_BR_IMPL=v3.
 """
 
 import os
@@ -103,7 +108,7 @@ def _jax_route(monkeypatch, bk, p):
 # (IYOKAN_BR_IMPL, IYOKAN_EP, IYOKAN_UNROLL_MAX, IYOKAN_NO_UNROLL) ->
 # the port's routes for (plain key, unrolled key): the DeviceKeys table
 ROWS = [
-    ((None, None, None, None), ("tkey", None)),
+    (("tkey", None, None, None), ("tkey", None)),
     (("tkey", "pallas", "16", None), ("tkey", "ntt-unrolled")),
     (("pallas", None, None, None), ("pallas", "ntt-unrolled")),
     (("pallas2", None, None, None), ("pallas2", "ntt-unrolled")),
@@ -116,25 +121,41 @@ ROWS = [
 ]
 
 
-@pytest.mark.parametrize("knobs,routes", ROWS,
-                         ids=["-".join(str(v) for v in k) for k, _ in ROWS])
-def test_routing_table_matches_jax(toy_ek, monkeypatch, knobs, routes):
-    for k, v in zip(KNOBS, knobs):
-        if v is None:
-            monkeypatch.delenv(k, raising=False)
-        else:
+def _set_knobs(monkeypatch, env):
+    """env set (a value None: unset), every other one of PREP_KNOBS unset."""
+    for k in tops.PREP_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        if v is not None:
             monkeypatch.setenv(k, v)
     monkeypatch.setenv("IYOKAN_MM_DTYPE", "int8")
     monkeypatch.setenv("IYOKAN_SLAB_CACHE", "0")
+
+
+def _jax_keys(toy_ek):
+    """The JAX DeviceKeys on the MXU backend, as on the TPU."""
     jpm._mm_dtypes.cache_clear()
     jpm._use_full_fwd.cache_clear()
     try:
-        jdk = jops.DeviceKeys.from_evalkey(toy_ek, with_cb=False,
-                                           backend=jpm.MXUBackend())
+        return jops.DeviceKeys.from_evalkey(toy_ek, with_cb=False,
+                                            backend=jpm.MXUBackend())
     finally:
         jpm._mm_dtypes.cache_clear()
         jpm._use_full_fwd.cache_clear()
-    tdk = tops.DeviceKeys.from_evalkey(toy_ek, "cpu", with_cb=False)
+
+
+def _both_keys(toy_ek, monkeypatch, env):
+    """The JAX DeviceKeys and the port's under env (_set_knobs)."""
+    _set_knobs(monkeypatch, env)
+    return (_jax_keys(toy_ek),
+            tops.DeviceKeys.from_evalkey(toy_ek, "cpu", with_cb=False))
+
+
+@pytest.mark.parametrize("knobs,routes", ROWS,
+                         ids=["-".join(str(v) for v in k) for k, _ in ROWS])
+def test_routing_table_matches_jax(toy_ek, monkeypatch, knobs, routes):
+    jdk, tdk = _both_keys(toy_ek, monkeypatch, dict(zip(KNOBS, knobs)))
+    assert not tdk.port_routing
     assert (tdk.bk_ntt_u is None) == (jdk.bkuntt is None) == (
         routes[1] is None)
     thr = int(knobs[2] or ("0" if routes[0] == "tkey" else "256"))
@@ -145,6 +166,68 @@ def test_routing_table_matches_jax(toy_ek, monkeypatch, knobs, routes):
         route = tops.gate_route(tbk, TP)
         assert route == routes[unrolled], batch
         assert _jax_route(monkeypatch, jbk, jdk.params) == route, batch
+
+
+# each of PREP_KNOBS set alone, to a value the JAX package reads
+ALONE = {"IYOKAN_BR_IMPL": "tkey", "IYOKAN_TK_LAYOUT": "fat",
+         "IYOKAN_TKEY_LIMBS": "3", "IYOKAN_NO_UNROLL": "1",
+         "IYOKAN_TK_UNROLL": "0", "IYOKAN_EP": "pallas", "IYOKAN_TK_LB": "2",
+         "IYOKAN_TK_SMALL": "0", "IYOKAN_UNROLL_MAX": "16",
+         "IYOKAN_KS_I8": "1"}
+
+
+def test_alone_covers_prep_knobs():
+    assert set(ALONE) == set(tops.PREP_KNOBS)
+
+
+@pytest.mark.parametrize("knob", sorted(ALONE))
+def test_any_prep_knob_restores_jax_table(toy_ek, monkeypatch, knob):
+    """Any of PREP_KNOBS set, even to its JAX default, gives JAX's keys and
+    routes at every batch size: the tkey slab, and the unrolled key (on
+    ntt-unrolled) only under a positive IYOKAN_UNROLL_MAX."""
+    jdk, tdk = _both_keys(toy_ek, monkeypatch, {knob: ALONE[knob]})
+    assert not tdk.port_routing and tdk.bk_tk is not None
+    assert (tdk.bk_ntt_u is None) == (jdk.bkuntt is None)
+    for batch in SIZES + (48,):
+        jbk, tbk = jdk.bk_for(batch), tdk.bk_for(batch)
+        assert (jbk is jdk.bkuntt) == (tbk is tdk.bk_ntt_u), batch
+        route = tops.gate_route(tbk, TP)
+        assert route == ("ntt-unrolled" if tbk is tdk.bk_ntt_u else "tkey")
+        assert _jax_route(monkeypatch, jbk, jdk.params) == route, batch
+
+
+def test_port_rule(toy_ek, monkeypatch):
+    """No PREP_KNOBS set: the unrolled key, routed to K3 at M = 3 (JAX's
+    v3-unrolled route), at every batch size, and no slab."""
+    _set_knobs(monkeypatch, {})
+    tops.clear_device_key_cache()
+    try:
+        tdk = tops.DeviceKeys.from_evalkey(toy_ek, "cpu", with_cb=False)
+    finally:
+        tops.clear_device_key_cache()
+    assert tdk.port_routing and tdk.bk_ntt_u is not None
+    assert tdk.bk_ntt is None and tdk.bk_tk is None
+    routes = {b: tops.gate_route(tdk.bk_for(b), TP)
+              for b in SIZES + (48, 2048)}
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "v3")      # JAX's K3 route
+    jdk = _jax_keys(toy_ek)
+    for batch, route in routes.items():
+        assert tdk.bk_for(batch) is tdk.bk_ntt_u, batch
+        assert route == "v3-unrolled", batch
+    assert _jax_route(monkeypatch, jdk.bkuntt, jdk.params) == "v3-unrolled"
+
+
+def test_port_rule_needs_bku(toy_ek, monkeypatch):
+    """A key without bku keeps JAX's default routing: the slab everywhere."""
+    import dataclasses
+
+    for k in tops.PREP_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("IYOKAN_SLAB_CACHE", "0")
+    tdk = tops.DeviceKeys.from_evalkey(dataclasses.replace(toy_ek, bku=None),
+                                       "cpu", with_cb=False)
+    assert not tdk.port_routing and tdk.bk_ntt_u is None
+    assert {tops.gate_route(tdk.bk_for(b), TP) for b in SIZES} == {"tkey"}
 
 
 TK_KNOBS = ("IYOKAN_TKEY_LIMBS", "IYOKAN_TK_LB", "IYOKAN_TK_LAYOUT",
@@ -258,10 +341,20 @@ def test_jax_chunk_sizes_straddle():
 # --------------------------------------------------------------------------- #
 
 
-def _mac2_cycles(toy_sk, toy_ek, cycles):
+def _mac2_cycles(toy_sk, toy_ek, cycles, monkeypatch=None, jax_env=()):
     """MAC-2 on the port's and the JAX Frontend, one cycle at a time: the
     result ciphertexts are identical after each cycle and decrypt to the
-    integers.  Returns the port's Frontend."""
+    integers.  jax_env: (knob, value) pairs set through monkeypatch for the
+    JAX Frontend's calls alone, unset for the port's.  Returns the port's
+    Frontend."""
+
+    def jax_side(on):
+        for k, v in jax_env:
+            if on:
+                monkeypatch.setenv(k, v)
+            else:
+                monkeypatch.delenv(k, raising=False)
+
     W = 2
     av, bv = [3, 2][:cycles], [1, 3][:cycles]
     bits = {n: np.array([(v >> k) & 1 for v in vals for k in range(W)],
@@ -270,16 +363,20 @@ def _mac2_cycles(toy_sk, toy_ek, cycles):
     bp = os.path.join(DATA, f"mac{W}.toml")
     tfe = TFrontend("tfhe", TBlueprint(bp), req, eval_key=toy_ek,
                     device="cpu")
+    jax_side(True)
     jfe = JFrontend("tfhe", JBlueprint(bp), req, eval_key=toy_ek)
     for c in range(cycles):
+        jax_side(False)
         tfe.go(1)
-        jfe.go(1)
         got = tfe.make_result_packet()
-        np.testing.assert_array_equal(got.bits["acc"],
-                                      jfe.make_result_packet().bits["acc"])
+        jax_side(True)
+        jfe.go(1)
+        want = jfe.make_result_packet()
+        np.testing.assert_array_equal(got.bits["acc"], want.bits["acc"])
         acc = got.decrypt(toy_sk).bits["acc"]
         assert sum(int(x) << k for k, x in enumerate(acc)) == \
             gen_mac.expected(W, av[: c + 1], bv[: c + 1], c + 1)
+    jax_side(False)
     return tfe
 
 
@@ -359,3 +456,28 @@ def test_mac2_tk_small_matches_jax(toy_sk, toy_ek, monkeypatch):
              for s in ttfhe.jax_chunk_sizes(len(pl_.bin_out),
                                             len(pl_.mux_out), 2048)}
     assert taken == {id(keys.bk_tk), id(keys.bk_tk_small)}
+
+
+def test_mac2_default_matches_jax_v3(toy_sk, toy_ek, monkeypatch):
+    """(d) the port at its defaults (no PREP_KNOBS set: the port's rule)
+    against the JAX Frontend under IYOKAN_BR_IMPL=v3 (MXU keys, its K3 in
+    interpret mode): every MAC-2 level is at most 48 rows, so both run K3
+    at M = 3 on the unrolled key, ciphertext for ciphertext."""
+    for k in tops.PREP_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in (("IYOKAN_POLY_BACKEND", "mxu"), ("IYOKAN_MM_DTYPE", "int8"),
+                 ("IYOKAN_PALLAS_INTERPRET", "1"),
+                 ("IYOKAN_FUSE_LEVELS", "1")):
+        monkeypatch.setenv(k, v)
+    jpm._mm_dtypes.cache_clear()
+    jpm._use_full_fwd.cache_clear()
+    try:
+        tfe = _mac2_cycles(toy_sk, toy_ek, 2, monkeypatch,
+                           jax_env=(("IYOKAN_BR_IMPL", "v3"),))
+    finally:
+        jpm._mm_dtypes.cache_clear()
+        jpm._use_full_fwd.cache_clear()
+    keys = tfe.engine.keys
+    assert keys.port_routing and keys.bk_tk is None
+    assert ttfhe.route_counts(tfe.engine).keys() == {"levels"}
+    assert set(ttfhe.route_counts(tfe.engine)["levels"]) == {"v3-unrolled"}

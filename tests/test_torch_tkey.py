@@ -114,9 +114,11 @@ def test_twin_equals_pallas_default(toy, toy_sk, slab_default, G,
 
 
 @pytest.mark.parametrize("kind", [gates.NAND, gates.AND, gates.XOR])
-def test_gate_truth_tables(toy_sk, toy_ek, kind):
+def test_gate_truth_tables(toy_sk, toy_ek, kind, monkeypatch):
     """linear combination -> bootstrap -> key switch decrypts to the gate's
-    truth table on every input pair."""
+    truth table on every input pair, on the tkey slab (IYOKAN_BR_IMPL=tkey:
+    the port's default builds no slab)."""
+    monkeypatch.setenv("IYOKAN_BR_IMPL", "tkey")
     dk = tops.DeviceKeys.from_evalkey(toy_ek, "cpu")
     a = np.array([0, 0, 1, 1] * 3, np.uint8)
     b = np.array([0, 1, 0, 1] * 3, np.uint8)
