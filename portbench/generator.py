@@ -30,7 +30,8 @@ import numpy as np
 def _values(kind: str, width: int, entries: int, rng) -> np.ndarray:
     """One stream's entries under a pattern:
 
-    uniform          independent words of `width` bits
+    uniform          independent words of `width` bits (bits of the
+                     word drawn one by one above 62 bits: make_request)
     distinct_revisit fresh distinct words on odd entries, entry 0's word on
                      even ones (so a write on an odd cycle is read back
                      later; memmac's RAM addresses)
@@ -70,6 +71,11 @@ def make_request(circ, config: dict, traffic: dict, seed: int, index: int):
         if name == "reset":
             continue
         kind = patterns.get(name, "uniform")
+        if kind == "uniform" and width > 62:
+            # wider than a numpy integer: the word's bits drawn one by one
+            streams[name] = rng.integers(0, 2, width * entries,
+                                         dtype=np.uint8)
+            continue
         streams[name] = _bits(_values(kind, width, entries, rng), width)
     return rom, ram, streams
 

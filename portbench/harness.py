@@ -17,6 +17,18 @@ trace_cycles cycles (whole refresh periods where there is RAM, starting
 at a period's first cycle) or trace_requests requests.  Every answer of
 the run, warm-up and traced span included, is judged once the window has
 closed and the program's state is freed.
+
+A cell of N > 1 chips runs as N processes, one a card (crew.py; run.py
+starts them), each with the same keys, request, Frontend and cycles, on
+the program's gate-batch mesh (Program.join_mesh).  Rank 0 decides when
+the warm-up ends and the window closes and sends each decision to the
+others (crew.Steer); every rank profiles the same traced span; every rank
+sends rank 0 its peak memory, its trace's busy and span seconds, its
+steps' stamps and a digest of its result packet.  Rank 0 alone reads
+each cycle's outputs, times, reads the per-layer metrics (card 0's trace)
+and judges; a rank whose result packet differs from rank 0's makes the
+run not correct (ranks_differing, limit 0).  A cell of one chip starts no
+process and sets no mesh.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ import types
 
 import numpy as np
 
-from portbench import cells, generator, judge
+from portbench import cells, crew, generator, judge
 from portbench.devtrace import SPAN_PREFIX, WINDOW, Trace
 from portbench.reference import tfhe as ref_tfhe
 from portbench.reference.circuit import Circuit
@@ -90,13 +102,15 @@ def _sync(prog):
 
 
 @contextlib.contextmanager
-def _profiled(prog, holder):
+def _profiled(prog, holder, steer):
     torch = prog.torch
     acts = [torch.profiler.ProfilerActivity.CPU]
     if prog.device != "cpu":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     _sync(prog)
     with torch.profiler.profile(activities=acts) as prof:
+        # every rank's profiler has started before the first traced step
+        steer.barrier()
         with torch.profiler.record_function(WINDOW):
             yield
             _sync(prog)
@@ -105,6 +119,11 @@ def _profiled(prog, holder):
 
 def _span(prog, name):
     return prog.torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+class Ranks(types.SimpleNamespace):
+    """This process's place in a cell of several cards: rank `rank` of
+    `world` processes, meeting at `coordinator` ("host:port")."""
 
 
 def run_long(prog, ctx):
@@ -116,14 +135,20 @@ def run_long(prog, ctx):
     ctx.mark("Frontend built (device keys)")
     nodes = prog.output_nodes(fe)
     outs, stamps = [], []
+    # rank 0 reads each cycle's outputs for the judgement; the other ranks
+    # of a cell of several cards only stamp their cycles (their result
+    # packet is compared with rank 0's)
+    reading = ctx.steer.rank == 0
 
     def on_cycle(f):
         stamps.append(time.perf_counter())
-        outs.append(prog.read_outputs(f, nodes))
+        if reading:
+            outs.append(prog.read_outputs(f, nodes))
 
     def cycle():
         with _span(prog, "cycle"):
             fe.go(1, on_cycle=on_cycle)
+        ctx.progress()
 
     # warm-up: the first cycles capture the graphs (through the first
     # refresh cycle where there is RAM); then cycles until the card has run
@@ -131,24 +156,32 @@ def run_long(prog, ctx):
     # the window starts at the same cycle of the refresh period every run
     period = int(cfg["ram_refresh_period"]) if circ.rams else 0
     first = period + 1 if period else int(trf["warmup_cycles"])
+    # (rank 0 decides each step for every rank: crew.Steer)
+    steer = ctx.steer
     t_warm = time.perf_counter()
-    while (fe.current_cycle < first
-           or time.perf_counter() - t_warm < float(trf["warmup_seconds"])
-           or (period and fe.current_cycle % period != first % period)):
+    while not steer.stop(not (
+            fe.current_cycle < first
+            or time.perf_counter() - t_warm < float(trf["warmup_seconds"])
+            or (period and fe.current_cycle % period != first % period))):
         cycle()
     ctx.mark(f"{fe.current_cycle} warm-up cycles")
     launches0, graphs0 = prog.launches(), prog.graphs(fe)
     ctx.setup_s = time.time() - ctx.t_start - ctx.ref_s
+    ctx.progress("window")
     t0 = time.perf_counter()
     n0 = len(stamps)
+    steer.reset()
+    end = None        # the cycles run when the window closed
     while True:
         cycle()
-        if stamps[-1] - t0 >= ctx.seconds:
+        if end is None and stamps[-1] - t0 >= ctx.seconds:
+            end = len(stamps), prog.launches()
+        if steer.stop(end is not None):
             break
-    w = [t0] + stamps[n0:]
-    ctx.window = {"start": t0, "end": stamps[-1],
-                  "cycle_s": list(np.diff(w)),
-                  "requests": [], "launches": prog.launches() - launches0}
+    end, launches1 = end or (len(stamps), prog.launches())
+    w = [t0] + stamps[n0:end]
+    ctx.window = {"start": t0, "end": w[-1], "cycle_s": list(np.diff(w)),
+                  "requests": [], "launches": launches1 - launches0}
     q = np.quantile(ctx.window["cycle_s"], [0, 0.25, 0.5, 0.75, 0.95, 1])
     ctx.log("window: cycle s min/q1/median/q3/p95/max "
             + "/".join(f"{x:.4f}" for x in q))
@@ -164,7 +197,7 @@ def run_long(prog, ctx):
             n = math.ceil(n / period) * period
         first = fe.current_cycle
         nodes_before = prog.replayed_kernel_nodes(fe)
-        with _profiled(prog, ctx.profiles):
+        with _profiled(prog, ctx.profiles, ctx.steer):
             for _ in range(n):
                 cycle()
         ctx.expected_ops = prog.replayed_kernel_nodes(fe) - nodes_before
@@ -172,10 +205,11 @@ def run_long(prog, ctx):
                                  for c in range(first, first + n)]}
     result = prog.result(fe)
     ctx.footprint = prog.footprint(fe)
+    if steer.world > 1:
+        ctx.digest = crew.digest(result)
     del fe
     ctx.free()
-    ctx.t_judge = time.time()
-    return judge.judge_long(circ, ctx.sk, request, outs, result)
+    return lambda: judge.judge_long(circ, ctx.sk, request, outs, result)
 
 
 def run_closed_loop(prog, ctx):
@@ -208,37 +242,46 @@ def run_closed_loop(prog, ctx):
         results.append((i, res))
         spans.append({"start": t_a, "first_cycle_end": first[0],
                       "go_end": t_b, "end": t_c})
+        ctx.progress()
 
     for k in range(int(trf["warmup"])):
         request(k)
     ctx.mark(f"{trf['warmup']} warm-up requests")
     ctx.setup_s = time.time() - ctx.t_start - ctx.ref_s
+    ctx.progress("window")
     t0 = time.perf_counter()
     n0 = len(spans)
     k = 0
+    steer = ctx.steer
+    steer.reset()
+    end = None        # the requests run when the window closed
     while True:
         request(k)
         k += 1
-        if spans[-1]["end"] - t0 >= ctx.seconds:
+        if end is None and spans[-1]["end"] - t0 >= ctx.seconds:
+            end = len(spans)
+        if steer.stop(end is not None):
             break
-    ctx.window = {"start": t0, "end": spans[-1]["end"], "cycle_s": [],
-                  "requests": spans[n0:], "launches": None}
+    end = end or len(spans)
+    ctx.window = {"start": t0, "end": spans[end - 1]["end"], "cycle_s": [],
+                  "requests": spans[n0:end], "launches": None}
     ctx.log("window: requests (s: to the first cycle's end, rest of go, "
             "result) " + " ".join(
                 f"{r['first_cycle_end'] - r['start']:.3f}/"
                 f"{r['go_end'] - r['first_cycle_end']:.3f}/"
-                f"{r['end'] - r['go_end']:.3f}" for r in spans[n0:]))
+                f"{r['end'] - r['go_end']:.3f}" for r in spans[n0:end]))
     ctx.read_memory()
     if ctx.trace:
         n = int(trf["trace_requests"])
-        with _profiled(prog, ctx.profiles):
+        with _profiled(prog, ctx.profiles, ctx.steer):
             for _ in range(n):
                 request(k)
                 k += 1
         ctx.traced = {"requests": n}
+    if steer.world > 1:
+        ctx.digest = crew.digest(results)
     ctx.free()
-    ctx.t_judge = time.time()
-    return judge.judge_requests(circ, ctx.sk, pool, cycles, results)
+    return lambda: judge.judge_requests(circ, ctx.sk, pool, cycles, results)
 
 
 KINDS = {"long": run_long, "closed_loop": run_closed_loop}
@@ -250,6 +293,7 @@ class Context(types.SimpleNamespace):
         now = time.time()
         self.log(f"set-up: {what} {now - self.t_mark:.2f} s")
         self.t_mark = now
+        self.progress()
 
     def read_memory(self):
         if self.device == "cpu":
@@ -265,16 +309,30 @@ class Context(types.SimpleNamespace):
 
 def run_cell(root: str, workload: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", control: str = None,
-             t_start: float = None, log=print) -> dict:
-    """The result of one run (run.py prints it as the last line)."""
+             t_start: float = None, log=print, ranks: Ranks = None,
+             progress=None) -> dict:
+    """The result of one run (run.py prints it as the last line); None on
+    a rank other than 0 of a cell of several cards (`ranks`).  progress(
+    [phase]) is called at each set-up step, cycle and request."""
     t_start = time.time() if t_start is None else t_start
     man = cells.Manifest(root)
     cell = man.cell(workload)
     config, traffic = man.config(cell["config"]), man.traffic(cell["traffic"])
+    chips = int(cell["chips"])
     settings = {"IYOKAN_SLAB_CACHE": os.path.join(root, "build", "portbench",
                                                   "slab")}
     if control:
         settings.update(man.control(control)["env"])
+    if chips > 1:
+        if ranks is None or ranks.world != chips:
+            raise SystemExit(f"{workload} runs as {chips} processes, one a "
+                             "card (run.py starts them)")
+        settings.update({"IYOKAN_COORDINATOR": ranks.coordinator,
+                         "IYOKAN_NUM_PROCESSES": str(chips),
+                         "IYOKAN_PROCESS_ID": str(ranks.rank)})
+        if device == "cpu":
+            settings["IYOKAN_TORCH_DEVICE"] = "cpu"
+    progress = progress or (lambda phase=None: None)
     # the reference's own work (its evaluator's circuit, the secret key)
     # is left out of setup_s
     t0 = time.time()
@@ -284,10 +342,28 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         from portbench.program import Program
 
         prog = Program(root, device)
+        steer = crew.Steer()
+        if chips > 1:
+            # one process a card: at most the card's share of the host's
+            # cores each
+            prog.torch.set_num_threads(max(1, min(
+                prog.torch.get_num_threads(), (os.cpu_count() or 1) // chips)))
+            shards = prog.join_mesh()
+            steer = crew.Steer(chips, ranks.rank)
+            sizes = steer.gather(shards)
+            if ranks.rank == 0 and sizes != [chips] * chips:
+                raise RuntimeError(f"the ranks' meshes hold {sizes} shards, "
+                                   f"not {chips} each")
         t_import = time.time()
         log(f"set-up: program imported {t_import - t_start:.2f} s")
-        sk, sk_path, ek_path, key_ref_s = ensure_keys(prog, root, config,
-                                                      log)
+        progress()
+        # one rank makes the keys of a new checkout; the others load them
+        if steer.rank == 0:
+            keys = ensure_keys(prog, root, config, log)
+        steer.barrier()
+        if steer.rank != 0:
+            keys = ensure_keys(prog, root, config, log)
+        sk, sk_path, ek_path, key_ref_s = keys
         ref_s += key_ref_s
         prog.load(sk_path, ek_path,
                   os.path.join(config["_dir"], config["blueprint"]))
@@ -303,9 +379,33 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
                       ref_s=ref_s, sk=sk, setup_s=None, window=None,
                       traced=None, profiles=[], footprint=None, memory_peak=0,
                       expected_ops=None, t_judge=None, log=log,
-                      t_mark=t_import)
+                      t_mark=t_import, steer=steer, progress=progress,
+                      digest=None)
         ctx.mark("keys and blueprint loaded")
-        tally = KINDS[traffic["kind"]](prog, ctx)
+        judge_run = KINDS[traffic["kind"]](prog, ctx)
+    progress("judge")
+    trace_obj = None
+    if ctx.profiles and device != "cpu":
+        trace_obj = Trace.from_profiler(ctx.profiles[0])
+        ctx.profiles.clear()
+    # every rank's readings, in rank order, on rank 0
+    ranks_read = steer.gather({
+        "memory_peak": ctx.memory_peak, "digest": ctx.digest,
+        "busy_s": trace_obj.busy_s if trace_obj else None,
+        "window_s": trace_obj.window_s if trace_obj else None,
+        "steer": steer.stamps})
+    if steer.rank != 0:
+        return None
+    if chips > 1:
+        c = crew.message_cost([r["steer"] for r in ranks_read])
+        step = (ctx.window["end"] - ctx.window["start"]) / max(1, c["steps"])
+        log(f"control: {c['steps']} steps; the slowest rank's host time in "
+            f"the step's message {c['median_s'] * 1e3:.4f} ms (median; "
+            f"largest {c['max_s'] * 1e3:.4f}; rank 0's "
+            f"{c['root_median_s'] * 1e3:.4f}): "
+            f"{100 * c['median_s'] / step:.4f} % of the window's mean step")
+    ctx.t_judge = time.time()
+    tally = judge_run()
     t_end = time.time()
     log(f"timing: setup {ctx.setup_s:.1f} s (the reference's {ref_s:.2f} s "
         f"left out), window and traced span "
@@ -315,14 +415,10 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         f"{k}={v}" for k, v in (ctx.footprint or {}).items())
         + f" peak_reserved={ctx.memory_peak}")
 
-    trace_obj = None
-    if ctx.profiles and device != "cpu":
-        trace_obj = Trace.from_profiler(ctx.profiles[0])
-        ctx.profiles.clear()
     view = types.SimpleNamespace(
         config=config, traffic=traffic, circuit=circ,
         params=config["param_values"], peaks=man.peaks(),
-        layer=man.layer, setup_s=ctx.setup_s,
+        layer=man.layer, setup_s=ctx.setup_s, chips=chips,
         window=ctx.window, traced=ctx.traced, trace=trace_obj)
     metrics = {}
     for m in man.metrics(workload, trace):
@@ -331,22 +427,31 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
             raise RuntimeError(f"{workload}: no reading of {m['name']}")
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    # the fullest card's peak; busy and span seconds averaged over the
+    # cards
     device_rec = {"platform": "gpu" if device != "cpu" else "cpu",
                   "kind": (prog.torch.cuda.get_device_name(0)
                            if device != "cpu" else "cpu"),
-                  "count": 1, "memory_peak_bytes": ctx.memory_peak}
+                  "count": chips,
+                  "memory_peak_bytes": max(r["memory_peak"]
+                                           for r in ranks_read)}
     out = {"correct": None, "attempted": tally.attempted,
            "failed": tally.failed, "metrics": metrics, "device": device_rec}
     if trace_obj is not None:
-        device_rec["busy_s"] = trace_obj.busy_s
-        device_rec["window_s"] = trace_obj.window_s
+        device_rec["busy_s"] = sum(r["busy_s"] for r in ranks_read) / chips
+        device_rec["window_s"] = sum(r["window_s"]
+                                     for r in ranks_read) / chips
         out["breakdown"] = {"device_ops": [list(x) for x in
                                            trace_obj.by_name()[:10]],
                             "idle_gaps": [list(x) for x in
                                           trace_obj.idle_gaps()[:10]]}
         report_layers(man, trace_obj, ctx, log)
     numbers = tally.numbers()
-    limits = config["limits"]
+    limits = dict(config["limits"])
+    if chips > 1:
+        numbers["ranks_differing"] = sum(r["digest"] != ranks_read[0]["digest"]
+                                         for r in ranks_read[1:])
+        limits["ranks_differing"] = 0
     out["correct"] = all(numbers[k] <= limits[k] for k in limits)
     out["compared"] = {k: {"value": numbers[k], "limit": limits[k]}
                        for k in limits}

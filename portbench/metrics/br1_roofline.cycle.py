@@ -1,6 +1,7 @@
 """br1_roofline.cycle: the traced cycles' lvl1 blind-rotation bound
-(workmodel.py: the work the circuit needs, whatever kernel runs it) over
-the device time of the lvl1 blind rotation's kernels, in %."""
+(workmodel.py: the work the circuit needs, whatever kernel runs it; on a
+mesh card 0's share of it) over card 0's device time of the lvl1 blind
+rotation's kernels, in %."""
 
 from portbench.metrics import workmodel
 
@@ -13,6 +14,6 @@ def read(view):
     if not s:
         return None
     bound = sum(workmodel.cycle_bound_s(view.circuit, view.params,
-                                        view.peaks, refresh)
+                                        view.peaks, refresh, view.chips)
                 for refresh in cycles)
     return 100.0 * bound / s

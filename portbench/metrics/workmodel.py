@@ -34,11 +34,20 @@ its batches:
     refresh: one batch of the W written rows, or, on a refresh cycle
     (every ram_refresh_period-th cycle of the configuration), one batch of
     every RAM bit.
+
+On a mesh of several cards the model counts card 0's rows: the mesh's own
+rule (the program's parallel/mesh.py) splits a batch into equal shards,
+one a card, where the rows divide evenly and every card gets at least
+SHARD_MIN_ROWS of them (the program's default, which the harness leaves
+unset), and otherwise runs it whole on every card.  So a roofline share
+stays one card's work over one card's time.
 """
 
 from __future__ import annotations
 
 import math
+
+SHARD_MIN_ROWS = 8
 
 
 def multiplies_per_row(p: dict) -> int:
@@ -60,16 +69,26 @@ def batch_bound_s(p: dict, peaks: dict, rows: int) -> float:
     return max(t_ops, t_bytes)
 
 
-def cycle_batches(circ, refresh: bool) -> list:
-    """Rows of each lvl1 blind-rotation batch of one cycle."""
+def card_rows(rows: int, chips: int) -> int:
+    """Rows of a batch of `rows` that card 0 runs on a mesh of `chips`
+    cards."""
+    if chips > 1 and rows % chips == 0 and rows >= chips * SHARD_MIN_ROWS:
+        return rows // chips
+    return rows
+
+
+def cycle_batches(circ, refresh: bool, chips: int = 1) -> list:
+    """Rows of each lvl1 blind-rotation batch of one cycle that card 0
+    runs."""
     batches = list(circ.level_rows())
     if circ.rams:
         W = sum(m["width"] for m in circ.rams.values())
         bits = sum(m["words"] * m["width"] for m in circ.rams.values())
         batches += [2 * W, bits if refresh else W]
-    return batches
+    return [card_rows(g, chips) for g in batches]
 
 
-def cycle_bound_s(circ, p: dict, peaks: dict, refresh: bool) -> float:
+def cycle_bound_s(circ, p: dict, peaks: dict, refresh: bool,
+                  chips: int = 1) -> float:
     return sum(batch_bound_s(p, peaks, g)
-               for g in cycle_batches(circ, refresh))
+               for g in cycle_batches(circ, refresh, chips))

@@ -6,7 +6,9 @@ The only module of the benchmark that imports the program
 calls of `iyokan_cli tfhe`: Frontend("tfhe", blueprint, request,
 eval_key=...), go(cycles, on_cycle=...), make_result_packet().  Besides
 those it reads the engine's output rows after each cycle
-(engine.read_nodes) and the kernel wrappers' launch counters.
+(engine.read_nodes) and the kernel wrappers' launch counters, and, in a
+cell of several cards, joins the program's gate-batch mesh
+(parallel/distributed.py, parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -30,6 +32,19 @@ class Program:
         self.Blueprint, self.packet_cli = Blueprint, packet_cli
         self.driver, self.tfhe = driver, tfhe
         self.device = device
+
+    def join_mesh(self) -> int:
+        """Join the job's gate-batch mesh, one process a card, and set it
+        for every batch (parallel/distributed.py: initialize() reads
+        IYOKAN_COORDINATOR, IYOKAN_NUM_PROCESSES and IYOKAN_PROCESS_ID and
+        takes card process_id; NCCL on a card, gloo on the CPU).  Returns
+        the number of shards of the mesh now set (1 where none is)."""
+        from iyokan_tpu_torch.parallel import distributed, mesh
+
+        distributed.initialize()
+        mesh.set_mesh(distributed.global_mesh())
+        m = mesh.get_mesh()
+        return 1 if m is None else m.size
 
     # ---------------------------------------------------------------- #
     def make_eval_key(self, sk_path: str, ek_path: str, seed: int) -> None:

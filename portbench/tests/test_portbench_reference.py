@@ -10,7 +10,7 @@ import pytest
 from portbench import generator
 from portbench.reference import tfhe
 from portbench.reference.circuit import Circuit, Run
-from portbench.tests import oracle
+from portbench.tests import gen_nandwide, oracle
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.dirname(HERE)
@@ -70,6 +70,39 @@ def test_circuit_levels_match_the_program():
         comp = compile_mod.compile_design(build_design(Blueprint(bp)))
         theirs = [lv.n_bootstraps for lv in comp.levels if lv.n_bootstraps]
         assert Circuit(bp).level_rows() == theirs
+
+
+def test_nandwide_levels(tmp_path):
+    """nandwide (gen_nandwide.py): exactly 8 levels of 2,048 rotated rows a
+    cycle, 16,384 in all, in the program's levelizer and in the
+    reference's."""
+    from iyokan_tpu_torch.circuit import compile as compile_mod
+    from iyokan_tpu_torch.circuit.blueprint import Blueprint
+    from iyokan_tpu_torch.engine.driver import build_design
+
+    gen_nandwide.write(str(tmp_path), 2048)
+    bp = str(tmp_path / "nandwide.toml")
+    comp = compile_mod.compile_design(build_design(Blueprint(bp)))
+    theirs = [lv.n_bootstraps for lv in comp.levels if lv.n_bootstraps]
+    assert theirs == [2048] * 8 and sum(theirs) == 16_384
+    assert Circuit(bp).level_rows() == theirs
+
+
+def test_nandwide_against_its_definition(tmp_path):
+    """The evaluator on a 64-lane nandwide against the levels written out
+    with numpy rolls."""
+    gen_nandwide.write(str(tmp_path), 64)
+    circ = Circuit(str(tmp_path / "nandwide.toml"))
+    rom, ram, streams = generator.make_request(
+        circ, {}, {"stream_entries": 3}, 2**31 + 9, 0)
+    run = Run(circ, rom, ram, streams)
+    s = np.zeros(64, np.uint8)
+    for c in range(7):
+        assert np.array_equal(run.step()["out"], s), c
+        t = s ^ streams["in"][64 * (c % 3): 64 * (c % 3 + 1)]
+        for j in range(2, 9):
+            t = 1 - (t & np.roll(t, -(1 << (j - 2))))
+        s = t
 
 
 def test_decryption_on_a_toy_key():

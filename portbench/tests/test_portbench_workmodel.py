@@ -10,6 +10,7 @@ import pytest
 
 from portbench.metrics import workmodel
 from portbench.reference.circuit import Circuit
+from portbench.tests import gen_nandwide
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH)
@@ -63,3 +64,23 @@ def test_same_whatever_the_route(route):
                          capture_output=True, check=True).stdout.strip()
     memmac = Circuit(os.path.join(BENCH, "configs", "memmac", "memmac.toml"))
     assert float(out) == workmodel.cycle_bound_s(memmac, CGGI128, PEAKS, True)
+
+
+@pytest.mark.parametrize("chips,rows", [(1, 2048), (4, 512)])
+def test_card_rows_on_the_mesh(chips, rows, tmp_path):
+    """nandwide's levels (gen_nandwide.py): card 0 runs 2,048 rows a level
+    alone and 512 on four cards (the mesh's even shards), and its bound
+    shrinks with them."""
+    gen_nandwide.write(str(tmp_path), 2048)
+    nw = Circuit(str(tmp_path / "nandwide.toml"))
+    assert workmodel.cycle_batches(nw, False, chips) == [rows] * 8
+    assert workmodel.cycle_bound_s(nw, CGGI128, PEAKS, False, chips) \
+        == pytest.approx(8 * rows * 635 * 53_248 / 16_727_040_000_000)
+
+
+def test_card_rows_follow_the_mesh_rule():
+    # split where every card gets at least 8 rows and the rows divide
+    assert workmodel.card_rows(32, 4) == 8
+    assert workmodel.card_rows(31, 4) == 31          # does not divide
+    assert workmodel.card_rows(24, 4) == 24          # 6 rows a card
+    assert workmodel.card_rows(4096, 1) == 4096
