@@ -153,19 +153,21 @@ Phases, one line each or more:
                    tkey route (K1's persistent form) and on v3 (K3) under
                    IYOKAN_FUSE_LEVELS=1, 8 and all (IYOKAN_SCAN_CHUNK=2),
                    on pallas (K5, IYOKAN_UNROLL_MAX=0) under 1 and all, and
-                   memmac x 3 cycles under 1 and all at
-                   IYOKAN_RAM_REFRESH_PERIOD=2 (cycles 1-2 one span of
+                   memmac x 3 cycles under 1, 8 and all at
+                   IYOKAN_RAM_REFRESH_PERIOD=2 (at 8 the memory level and
+                   each refresh flag's RAM write a graph from its second
+                   use; under all cycles 1-2 one span of
                    refresh flags [on, off]: CB on K7, K6, the ROM/RAM
                    trees, both refresh graphs, K1's wgmma form), through
                    the Frontend:
                    each fused result packet (RAM images included) == the
                    route's FUSE=1 packet byte for byte, decrypted == plain
-                   == the integers; every level group, cycle and scan
-                   prologue a graph replayed once per use, the route's
-                   kernels launched by the replays; s/cycle beside FUSE=1's,
-                   graphs captured and replayed, the wrapper launches and
-                   nodes each holds (cuGraphGetNodes), warm-up, capture and
-                   instantiation seconds, the graph pool's bytes; then
+                   == the integers; every graph captured at its second
+                   use and replayed at each later one (check_replays), the
+                   route's kernels launched by the replays; s/cycle beside
+                   FUSE=1's, graphs captured and replayed, the wrapper
+                   launches and nodes each holds (cuGraphGetNodes), capture
+                   and instantiation seconds, the graph pool's bytes; then
                    CB of memmac's 23 address bits eagerly and as one graph
                    holding one K7 launch, its TRGSWs == the eager twin's
                    (blind_rotate2_ref in K7's place).  Phases
@@ -184,6 +186,9 @@ Phases, one line each or more:
                    from 0 over each run, no K1, K4 or K5 launch; the
                    engine's route_counts (rows and rotations a cycle by
                    stage and route) printed, every one v3-unrolled;
+                   every graph replayed as in phase 14 (memmac: the
+                   full refresh write, the reset's, captured at its
+                   second use, cycle 15);
  15. mesh       -- the gate-batch mesh (iyokan_tpu_torch/parallel) on the one
                    card: phase 14's no-mesh cycle graphs hold their
                    recorded nodes (NO_MESH_CYCLE_NODES: an unset mesh adds
@@ -1399,7 +1404,8 @@ FUSION_RUNS = (
      {"IYOKAN_BR_IMPL": "pallas", "IYOKAN_UNROLL_MAX": "0"}, [SCAN2],
      ("br.STEP_LAUNCHES",)),
     ("memmac", "memmac.toml", True, {"IYOKAN_RAM_REFRESH_PERIOD": "2"},
-     [SCAN2], ("tkey.FORM_LAUNCHES.loop", "tkey.FORM_LAUNCHES.wgmma",
+     [{"IYOKAN_FUSE_LEVELS": "8"}, SCAN2],
+     ("tkey.FORM_LAUNCHES.loop", "tkey.FORM_LAUNCHES.wgmma",
                "extprod.LAUNCHES", "br2.LAUNCHES")),
 )
 
@@ -1431,20 +1437,22 @@ def slab_cache_times(ek):
 def fused_run(bp_path, req, ek, env, cycles):
     """One tfhe run through the Frontend under the knobs env: (result
     packet, [(cycles, us)] of each logged cycle or span, the engine's
-    graph records, launches by the wrappers (warm-ups and anything run
-    eagerly) and by the graphs' replays)."""
+    graph records, launches by the wrappers (first uses and anything run
+    eagerly) and by the graphs' replays, the engine calls the Frontend
+    made (engine_calls))."""
     from iyokan_tpu_torch.engine import tfhe
     from iyokan_tpu_torch.engine.driver import Frontend
 
     reset_launches()
-    with timing.cycle_log() as lines, knobs(**env):
+    with timing.cycle_log() as lines, knobs(**env), \
+            engine_calls() as calls:
         fe = Frontend("tfhe", Blueprint(bp_path), req, eval_key=ek,
                       device="cuda")
         fe.go(cycles)
         res = fe.make_result_packet()
     eng = fe.engine
     out = (res, lines, eng.graph_stats(), tfhe.launch_counts(),
-           eng.graph_launches())
+           eng.graph_launches(), calls)
     del fe, eng
     torch.cuda.empty_cache()
     return out
@@ -1454,8 +1462,9 @@ def phase_fusion(smi, mem_files, mem_data):
     """MAC-16 on tkey, v3 and pallas and memmac on tkey, FUSION_CYCLES
     cycles at cggi128, each route under IYOKAN_FUSE_LEVELS=1 and its fused
     modes: every fused result packet (RAM images included) == the route's
-    FUSE=1 packet byte for byte, decrypted == plain == integers, every
-    fused group, cycle and scan prologue a graph replayed once per use."""
+    FUSE=1 packet byte for byte, decrypted == plain == integers, and
+    every graph captured at its second use and replayed at each later one
+    (check_replays)."""
     from iyokan_tpu_torch.engine.driver import Frontend
 
     W, cycles = 16, SLICE_CYCLES
@@ -1486,7 +1495,7 @@ def phase_fusion(smi, mem_files, mem_data):
         ref_path = os.path.join(WORK, f"fusion.{label}.1.res")
         for mode in [{"IYOKAN_FUSE_LEVELS": "1"}] + modes:
             env = {**route, "IYOKAN_SCAN_CHUNK": None, **mode}
-            res, lines, graphs, eager, replayed = fused_run(
+            res, lines, graphs, eager, replayed, calls = fused_run(
                 bp_path, req, r_ek, env, cycles)
             tag = " ".join(f"{k[7:]}={v}" for k, v in mode.items())
             path = os.path.join(WORK, f"fusion.{label}.res")
@@ -1518,11 +1527,8 @@ def phase_fusion(smi, mem_files, mem_data):
                 if not acc == p_acc == want_acc:
                     raise AssertionError(f"fusion {label} {tag}: acc {acc} "
                                          f"/ plain {p_acc} / {want_acc}")
-            # the reset settle and each cycle outside a span
-            settles = (Blueprint(bp_path).at("reset") is not None) + sum(
-                1 for n, _ in lines if n == 1)
             if mode["IYOKAN_FUSE_LEVELS"] != "1":
-                check_replays(label, tag, graphs, lines, settles)
+                check_replays(label, tag, graphs, calls)
                 if not all(replayed.get(k) for k in must):
                     raise AssertionError(f"fusion {label} {tag}: the "
                                          f"replays launched {replayed}, "
@@ -1532,7 +1538,6 @@ def phase_fusion(smi, mem_files, mem_data):
                    "s_per_cycle": us_last / n_last / 1e6,
                    "graphs": len(graphs),
                    "replays": sum(g["replays"] for g in graphs),
-                   "warmup_s": sum(g["warmup_s"] for g in graphs),
                    "capture_s": sum(g["capture_s"] for g in graphs),
                    "instantiate_s": sum(g["instantiate_s"] for g in graphs),
                    "pool_bytes": sum(g["pool_bytes"] for g in graphs),
@@ -1548,13 +1553,12 @@ def phase_fusion(smi, mem_files, mem_data):
                 f"{'span' if n_last > 1 else 'cycle'}; FUSE=1 "
                 f"{ref['s_per_cycle']:.4f}); cycles/spans (n, us) {lines}; "
                 f"{row['graphs']} graphs captured, {row['replays']} "
-                f"replays; warm-up {row['warmup_s']:.2f} s, capture "
+                f"replays; capture "
                 f"{row['capture_s']:.2f} s, instantiation "
                 f"{row['instantiate_s']:.2f} s; pool "
                 f"{row['pool_bytes'] / 2**20:.1f} MiB of the card's "
                 f"{card_gib:.1f} GiB; launches by replays {replayed}, eager "
-                f"(warm-ups, "
-                f"memory levels) {row['eager_launches']}; {smi}")
+                f"(first uses) {row['eager_launches']}; {smi}")
             for g in graphs:
                 if not g["name"].startswith("level group"):
                     say("fusion", f"  {label} {tag} {g['name']}: "
@@ -1597,7 +1601,8 @@ K1_K4_K5 = ("tkey.LAUNCHES", "br.STEP_LAUNCHES", "br.LOOP_LAUNCHES")
 def phase_default(smi, mem_files):
     """MAC-16 and memmac through the Frontend at the port's defaults (the
     phase list, 14b): decrypted == plain == integers, K3 launched and no
-    K1, K4 or K5, route_counts all v3-unrolled.  Returns a row a run."""
+    K1, K4 or K5, route_counts all v3-unrolled, every graph replayed as
+    check_replays counts.  Returns a row a run."""
     from iyokan_tpu_torch.engine import tfhe
     from iyokan_tpu_torch.engine.driver import Frontend
 
@@ -1629,7 +1634,7 @@ def phase_default(smi, mem_files):
         with knobs(**unset):
             ek = host.EvalKey.load(ek_path)
             reset_launches()
-            with timing.cycle_log() as lines:
+            with timing.cycle_log() as lines, engine_calls() as calls:
                 fe = Frontend("tfhe", Blueprint(bp_path), req, eval_key=ek,
                               device="cuda")
                 fe.go(cycles)
@@ -1639,6 +1644,7 @@ def phase_default(smi, mem_files):
             counts = {flag: tfhe.route_counts(eng, refresh=flag)
                       for flag in ((False, True) if eng.d.ram_insts
                                    else (True,))}
+        check_replays("default", bp_name, eng.graph_stats(), calls)
         keys = eng.keys
         if not keys.port_routing or keys.bk_tk is not None:
             raise AssertionError(f"default {bp_name}: keys not on the port's "
@@ -1752,23 +1758,83 @@ def swapped(mod, name, fn):
         setattr(mod, name, real)
 
 
-def check_replays(label, tag, graphs, lines, settles):
-    """Every fused group and cycle ran as a replay: each level-group graph
-    once a settle (the reset settle and each cycle), the cycle graphs once
-    a settle or scanned cycle, each scan prologue once a scanned cycle (a
-    graph's warm-up runs eagerly on a state it puts back)."""
-    scanned = sum(n for n, _ in lines if n > 1)
-    cyc = sum(g["replays"] for g in graphs if g["name"].startswith("cycle"))
-    pro = sum(g["replays"] for g in graphs if g["name"].startswith("scan"))
-    grp = [g["replays"] for g in graphs if g["name"].startswith("level")]
-    if grp:
-        ok = all(n == settles for n in grp) and not cyc and not pro
-    else:
-        ok = cyc == settles + scanned and pro == scanned
-    if not graphs or not ok:
-        raise AssertionError(f"fusion {label} {tag}: replays {grp} groups, "
-                             f"{cyc} cycles, {pro} prologues for {settles} "
-                             f"settles, {scanned} scanned cycles")
+@contextlib.contextmanager
+def engine_calls():
+    """The engine calls the Frontend makes in a block, in order: one record
+    a settle or run_cycles span, with its refresh flags (one a settled or
+    scanned cycle), the execution mode, whether the engine has RAMs, and
+    its memory levels."""
+    from iyokan_tpu_torch.engine.tfhe import TFHEEngine
+
+    calls, settle, scan = [], TFHEEngine.settle, TFHEEngine.run_cycles
+
+    def record(eng, kind, flags, eager=False):
+        calls.append({"kind": kind, "flags": flags, "eager": eager,
+                      "mode": os.environ.get("IYOKAN_FUSE_LEVELS", "8"),
+                      "ram": bool(eng.d.ram_insts),
+                      "mems": [lv for lv, m in enumerate(eng._mems)
+                               if m is not None]})
+
+    def on_settle(eng, vals, rams, roms, timer=None, progress=None,
+                  ram_refresh=True):
+        record(eng, "settle", [bool(ram_refresh)],
+               timer is not None or progress is not None
+               or bool(os.environ.get("IYOKAN_PROFILE")))
+        return settle(eng, vals, rams, roms, timer, progress, ram_refresh)
+
+    def on_scan(eng, vals, rams, roms, in_nodes, in_rows,
+                refresh_flags=None):
+        record(eng, "scan", [True] * len(in_rows) if refresh_flags is None
+               else [bool(f) for f in refresh_flags])
+        return scan(eng, vals, rams, roms, in_nodes, in_rows, refresh_flags)
+
+    TFHEEngine.settle, TFHEEngine.run_cycles = on_settle, on_scan
+    try:
+        yield calls
+    finally:
+        TFHEEngine.settle, TFHEEngine.run_cycles = settle, scan
+
+
+def check_replays(label, tag, graphs, calls):
+    """Every graph ran eagerly at its first use, was captured at its second
+    and replayed at each later one: a graph used k >= 2 times replayed
+    k - 1 times, and one used once was not captured.  The uses come from
+    the engine calls (engine_calls): at IYOKAN_FUSE_LEVELS = N > 1 each
+    level group and memory level once a settle, each RAM write once a
+    settle of its refresh flag; under all each cycle graph once a settled
+    or scanned cycle of its flag (one flag where there is no RAM), each
+    scan prologue slot once a span that reaches it."""
+    uses, settles = {}, 0
+
+    def use(name):
+        uses[name] = uses.get(name, 0) + 1
+
+    for c in calls:
+        if c["eager"] or c["mode"] == "1":
+            continue
+        for j, f in enumerate(c["flags"]):
+            f = f if c["ram"] else True
+            if c["mode"] == "all":
+                use(f"cycle (refresh={f})")
+                if c["kind"] == "scan":
+                    use(f"scan prologue of cycle slot {j}")
+                continue
+            settles += 1
+            for lv in c["mems"]:
+                use(f"memory level {lv}")
+            if c["ram"]:
+                use(f"RAM write (refresh={f})")
+    want = {n: k - 1 for n, k in uses.items() if k > 1}
+    got = {g["name"]: g["replays"] for g in graphs
+           if not g["name"].startswith("level group")}
+    grp = [g["replays"] for g in graphs
+           if g["name"].startswith("level group")]
+    if not graphs or got != want or bool(grp) != (settles > 1) or any(
+            n != settles - 1 for n in grp):
+        raise AssertionError(f"fusion {label} {tag}: replays {got} and "
+                             f"{grp} of the level groups, want {want} and "
+                             f"{settles - 1} each, for the engine calls "
+                             f"{[(c['kind'], c['flags']) for c in calls]}")
 
 
 # Phase 15: the gate-batch mesh (iyokan_tpu_torch/parallel) on the one card
@@ -1780,10 +1846,11 @@ MESH_FUSED_SHARDS = 2    # MAC-16 and memmac under whole-cycle fusion
 # and memmac's again once K1's 16-gate batches became one launch a
 # rotation, 2n - 1 = 1269 nodes fewer for each such rotation, and again
 # once that launch's grid barrier word was zeroed by a memset captured
-# beside it, one node more for each): a mesh that is not set must add no
-# node
+# beside it, one node more for each; memmac's again once the RAM write's
+# selectors became static buffers, one copy node more for each of its two
+# RAMs): a mesh that is not set must add no node
 NO_MESH_CYCLE_NODES = {"tkey": [67095], "v3": [11383], "pallas": [51639],
-                       "memmac": [6499, 9157]}
+                       "memmac": [6501, 9159]}
 
 
 def k1_bound(p, G):
@@ -1920,7 +1987,7 @@ def phase_mesh(smi, mem_files, fusion):
         try:
             with recorded(mesh_mod, "_all_gather", splits,
                           lambda m, t, axis: t.shape[axis]):
-                res, lines, graphs, _, replayed = fused_run(
+                res, lines, graphs, _, replayed, _ = fused_run(
                     bp_path, req, r_ek, {**route, **SCAN2}, SLICE_CYCLES)
         finally:
             mesh_mod.set_mesh(None)

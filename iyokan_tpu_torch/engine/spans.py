@@ -15,12 +15,16 @@ them.  The stages (driver.py and tfhe.py open them):
   scan             one multi-cycle span of engine.run_cycles
   inputs           tick, reset negation, initial RAM and SDFF values,
                    circular inputs
-  gates            a level group's graph (replay, or capture at first use),
-                   or one level's gates, NOT gates and copies
+  gates            a level group's graph (its eager first use, capture at
+                   its second, or replay), or one level's gates, NOT gates
+                   and copies
+  mem.level        a memory level's graph (the same) at
+                   IYOKAN_FUSE_LEVELS=N > 1
   mem.cb, mem.rom_read, mem.ram_read
-                   the stages of a memory level
-  ram_write        the RAM write, refresh included
-  graph.capture    a CUDA graph's warm-up, capture and instantiation
+                   the stages of a memory level where it runs eagerly
+  ram_write        the RAM write, refresh included (its graph's first
+                   use, capture or replay at N > 1)
+  graph.capture    a CUDA graph's capture and instantiation
   result_packet    make_result_packet
 """
 

@@ -36,27 +36,31 @@ Execution modes (the JAX engine's, read from the same knobs; every mode
 gives the same ciphertexts bit for bit):
   IYOKAN_FUSE_LEVELS=1    level by level, each op launched as it comes;
   N > 1 (default 8)       each group of up to N gate-only levels
-                          (_group_plans) one CUDA graph, memory levels and
-                          the RAM write launched as they come;
+                          (_group_plans) one CUDA graph, each memory level
+                          one, and the RAM write one per refresh flag;
   all                     the whole sweep plus the RAM write one CUDA graph
                           per refresh flag (JAX's _cycle_fn), and the
                           Frontend's multi-cycle scan (run_cycles): one graph
                           of tick + input scatter, then the cycle's graph,
                           per cycle.
 timer, progress or IYOKAN_PROFILE force the first in every mode.  Under a
-torch.profiler the gate groups or levels, the memory levels' stages, the
-RAM write and each graph capture are spans (spans.py); they neither sync
-nor change the mode.
-A graph is captured at its first use after one eager warm-up on a side
-stream (the kernels' first-use set-up: nvcc loads, shared-memory
-attributes, occupancy queries, cached tables; the counterpart of JAX's
-compile at first call), on the state the warm-up restored, and replayed
-from then on: the value array, the RAM and ROM stores and the scan's input
-rows are static buffers the graphs read and write in place, and every
-index and constant a cycle needs is a tensor built here beforehand.  A
-failed capture or replay raises, naming the graph; nothing falls back to
-eager execution.  On the CPU, which has no graphs, the same group, cycle
-and span functions run eagerly.
+torch.profiler the gate groups or levels, the memory levels (and their
+stages where they run eagerly), the RAM write and each graph capture are
+spans (spans.py); they neither sync nor change the mode.
+A graph is captured at its second use and replayed from then on; its
+first use runs eagerly and does every first-use set-up (nvcc loads,
+shared-memory attributes, occupancy queries, cached tables, the static
+buffers; the counterpart of JAX's compile at first call), and a graph
+used once (a request's reset settle with its full refresh) is never
+captured.  The value array, the RAM and ROM stores, the RAM write's
+selectors and the scan's input rows are static buffers the graphs read
+and write in place, made outside any capture, and every index and
+constant a cycle needs is a tensor built here beforehand: a tensor one
+graph leaves for another lives in no graph's pool (the graphs share one,
+and a graph replayed in between may reuse what it holds).  A failed
+capture or replay raises, naming the graph; nothing falls back to eager
+execution.  On the CPU, which has no graphs, the same group, memory level,
+cycle and span functions run eagerly.
 
 Under a mesh (parallel/mesh.py: set_mesh) the level batches' rotations and
 the RAM write's refresh rows are sharded where the JAX engine shards them
@@ -227,6 +231,10 @@ def graph_name(key) -> str:
         return f"level group {key[2]} (levels {key[3][0]}-{key[3][-1]})"
     if kind == "cycle":
         return f"cycle (refresh={key[1]})"
+    if kind == "mem":
+        return f"memory level {key[1]}"
+    if kind == "ram_write":
+        return f"RAM write (refresh={key[1]})"
     return f"scan prologue of cycle slot {key[2]}"
 
 
@@ -268,7 +276,9 @@ class TFHEEngine:
         self._ram_bufs = {}
         self._rom_bufs = {}
         self._stage = None     # the scan's input rows [k, n_in, n+1]
+        self._sel_bufs = {}    # RAM name -> the RAM write's selectors
         self._graphs = {}      # key -> record (_capture)
+        self._used = set()     # keys run once, eagerly (_run)
         self._pool = None
 
     # ------------------------------------------------------------------ #
@@ -699,24 +709,36 @@ class TFHEEngine:
                 self._level_body(self.keys, self._vals, pp)
             self._simple(self._vals, pp)
 
+    def _mem_reads(self, lv):
+        """Memory level lv on the static buffers, its RAMs' selectors
+        copied into the selector buffers the RAM write reads (made at the
+        first, eager, use)."""
+        ram_sel = {}
+        self._mem_level(self.keys, self._vals, self._ram_bufs,
+                        self._rom_bufs, lv, ram_sel, lambda: 0.0)
+        for n, gn in ram_sel.items():
+            self._sel_bufs[n] = self._into(self._sel_bufs.get(n), gn)
+
+    def _ram_write(self, refresh: bool):
+        """The RAM write on the static buffers: the new stores copied into
+        the RAM buffers."""
+        names = tuple(sorted(self._ram_bufs))
+        outs = self._ram_write_all(
+            names, self.keys, self._vals, [self._ram_bufs[n] for n in names],
+            [self._sel_bufs[n] for n in names], refresh=refresh)
+        for n, out in zip(names, outs):
+            self._ram_bufs[n].copy_(out)
+
     def _cycle(self, refresh: bool):
         """The whole sweep plus the RAM write on the static buffers: every
-        level's gates and memory reads, then the RAM write, whose new
-        stores are copied into the RAM buffers."""
-        keys, vals, ram_sel = self.keys, self._vals, {}
+        level's gates and memory reads, then the RAM write."""
         for lv in range(len(self.c.levels)):
             self._gate_levels((lv,))
             if self._mems[lv] is not None:
-                self._mem_level(keys, vals, self._ram_bufs, self._rom_bufs,
-                                lv, ram_sel, lambda: 0.0)
+                self._mem_reads(lv)
         if self._ram_bufs:
-            names = tuple(sorted(self._ram_bufs))
             with span("ram_write"):
-                outs = self._ram_write_all(
-                    names, keys, vals, [self._ram_bufs[n] for n in names],
-                    [ram_sel[n] for n in names], refresh=refresh)
-            for n, out in zip(names, outs):
-                self._ram_bufs[n].copy_(out)
+                self._ram_write(refresh)
 
     def _prologue(self, nodes: tuple, slot: int):
         """A scanned cycle's tick and input scatter (row `slot` of the
@@ -743,18 +765,19 @@ class TFHEEngine:
             for n, s in (stores or {}).items():
                 bufs[n] = self._into(bufs.get(n), s)
 
-    def _state(self):
-        """The buffers a graph writes: the value array and the RAM stores."""
-        return [self._vals] + list(self._ram_bufs.values())
-
     def _run(self, key, fn):
-        """fn() on the card as the replay of its CUDA graph (captured at its
-        first use); on the CPU, fn() itself."""
+        """fn() on the card: eagerly at the key's first use, then as the
+        replay of its CUDA graph, captured at its second; on the CPU, fn()
+        itself."""
         if self.device.type != "cuda":
             fn()
             return
         rec = self._graphs.get(key)
         if rec is None:
+            if key not in self._used:
+                self._used.add(key)
+                fn()
+                return
             with span("graph.capture"):
                 rec = self._graphs[key] = self._capture(key, fn)
         try:
@@ -765,30 +788,16 @@ class TFHEEngine:
         rec["replays"] += 1
 
     def _capture(self, key, fn):
-        """Capture fn() as a CUDA graph: one eager warm-up on a side stream
-        (every first-use set-up happens there), the state it wrote put
-        back, then the capture into the engine's graph pool.  Records the
+        """Capture fn() (which has run eagerly once: every first-use set-up
+        is done) as a CUDA graph in the engine's graph pool.  Records the
         kernel launches it holds (the wrappers' counts during the capture,
-        which are taken back: a capture launches nothing), the warm-up,
-        capture and instantiation seconds, the pool bytes it added and
-        its nodes (the three times split its graph.capture span).  Raises,
-        naming the graph, where anything fails."""
+        which are taken back: a capture launches nothing), the capture and
+        instantiation seconds (which split its graph.capture span), the
+        pool bytes it added and its nodes.  Raises, naming the graph, where
+        anything fails."""
         dev = self.device
         before = None
         try:
-            state = self._state()
-            saved = [t.clone() for t in state]
-            t0 = time.time()
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            for t, s in zip(state, saved):
-                t.copy_(s)
-            del saved
-            torch.cuda.synchronize(dev)
-            t_warm = time.time() - t0
             before = launch_counts()
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -817,7 +826,7 @@ class TFHEEngine:
         return {"graph": graph, "name": graph_name(key), "replays": 0,
                 "kernels": {k: after[k] - before[k] for k in after
                             if after[k] != before[k]},
-                "warmup_s": t_warm, "capture_s": t_cap,
+                "capture_s": t_cap,
                 "instantiate_s": t_inst,
                 "pool_bytes": torch.cuda.memory_reserved(dev) - mem0,
                 "nodes": None if nodes is None else nodes[0],
@@ -825,9 +834,9 @@ class TFHEEngine:
 
     def graph_stats(self) -> list:
         """One record per captured graph: name, replays, the wrappers'
-        launch counts it holds ("kernels"), warm-up / capture /
-        instantiation seconds, the pool bytes its capture added, and its
-        nodes and kernel nodes (None where not read)."""
+        launch counts it holds ("kernels"), capture and instantiation
+        seconds, the pool bytes its capture added, and its nodes and
+        kernel nodes (None where not read)."""
         return [{k: v for k, v in rec.items() if k != "graph"}
                 for rec in self._graphs.values()]
 
@@ -902,6 +911,26 @@ class TFHEEngine:
             self._fused_cycle(ram_refresh)
             return self._vals, dict(self._ram_bufs)
         fuse = 8 if fuse_env == "all" else int(fuse_env)
+        if not sync and progress is None and fuse > 1:
+            # one graph per group of gate levels, per memory level and per
+            # RAM write of a refresh flag, on the static buffers
+            self._adopt(vals, rams, roms)
+            for i, entry in enumerate(self._group_plans(fuse)):
+                if entry[0] == "group":
+                    with span("gates"):
+                        self._run(("group", fuse, i, entry[1]),
+                                  lambda lvs=entry[1]: self._gate_levels(lvs))
+                else:
+                    with span("mem.level"):
+                        self._run(("mem", entry[1]),
+                                  lambda lv=entry[1]: self._mem_reads(lv))
+            if self._ram_bufs:
+                flag = bool(ram_refresh)
+                with span("ram_write"):
+                    self._run(("ram_write", flag),
+                              lambda: self._ram_write(flag))
+            return self._vals, dict(self._ram_bufs)
+
         last = [time.time()]
 
         def mark():
@@ -913,37 +942,23 @@ class TFHEEngine:
             return dt
 
         ram_sel = {}
-        if not sync and progress is None and fuse > 1:
-            # one graph per group of gate levels; memory levels as they are
-            self._adopt(vals)
-            vals = self._vals
-            for i, entry in enumerate(self._group_plans(fuse)):
-                if entry[0] == "group":
-                    with span("gates"):
-                        self._run(("group", fuse, i, entry[1]),
-                                  lambda lvs=entry[1]: self._gate_levels(lvs))
-                else:
-                    vals, _ = self._mem_level(keys, vals, rams, roms,
-                                              entry[1], ram_sel, mark)
-        else:
-            for lv, (plan, pp) in enumerate(zip(self.c.levels,
-                                                self._plans)):
-                lv_t = 0.0
-                if (pp["nb"] or pp["nm"] or len(pp["not_out"])
-                        or len(pp["copy_out"])):
-                    with span("gates"):
-                        if pp["nb"] or pp["nm"]:
-                            vals = self._level_body(keys, vals, pp)
-                        vals = self._simple(vals, pp)
-                        lv_t += mark()
-                if self._mems[lv] is not None:
-                    vals, t = self._mem_level(keys, vals, rams, roms, lv,
-                                              ram_sel, mark)
-                    lv_t += t
-                if timer is not None:
-                    timer.append(lv_t)
-                if progress is not None:
-                    progress(plan.n_gates)
+        for lv, (plan, pp) in enumerate(zip(self.c.levels, self._plans)):
+            lv_t = 0.0
+            if (pp["nb"] or pp["nm"] or len(pp["not_out"])
+                    or len(pp["copy_out"])):
+                with span("gates"):
+                    if pp["nb"] or pp["nm"]:
+                        vals = self._level_body(keys, vals, pp)
+                    vals = self._simple(vals, pp)
+                    lv_t += mark()
+            if self._mems[lv] is not None:
+                vals, t = self._mem_level(keys, vals, rams, roms, lv,
+                                          ram_sel, mark)
+                lv_t += t
+            if timer is not None:
+                timer.append(lv_t)
+            if progress is not None:
+                progress(plan.n_gates)
 
         new_rams = {}
         if rams:

@@ -12,11 +12,15 @@
   what these cases hold to the reference.
 * The Frontend: _circular_input_rows and the execution-mode log line equal
   JAX's (every knob combination, the "disabled by" cases and an invalid
-  IYOKAN_SCAN_CHUNK); a snapshot taken inside a scanned run resumes to
-  the straight run's bits.
+  IYOKAN_SCAN_CHUNK); a snapshot taken inside a scanned run, or at the
+  default mode, resumes to the straight run's bits.
 * On the card (cuda-marked): each mode's CUDA graph replays equal the
-  card's level-by-level run, and a capture that fails raises, naming the
-  graph, with no eager fallback.
+  card's level-by-level run; at FUSE = 8 and 2 every graph (level groups,
+  memory levels, the RAM write of each refresh flag) is captured at its
+  second use and replayed from then on, with no eager launch after it;
+  the RAM write's selectors survive gate groups captured before the
+  memory level and replayed between it and the write; and a capture that
+  fails raises, naming the graph, with no eager fallback.
 * The device-key caches: a disk hit equals the rebuilt slab byte for byte
   (fat, fat2, the unrolled slab), a changed knob misses, IYOKAN_SLAB_CACHE=0
   writes nothing, a truncated file is rebuilt, and the in-process LRU
@@ -26,6 +30,7 @@
 import contextlib
 import logging
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -329,27 +334,25 @@ def test_execution_mode_log_matches_jax(toy_sk, toy_ek, caplog, case):
     assert len(got) == (2 if "chunk" in case and case != "scan-max" else 1)
 
 
-def test_snapshot_inside_a_scan_resumes_bit_identical(toy_sk, toy_ek):
-    """tiny-ram under IYOKAN_FUSE_LEVELS=all, chunk 2, refresh period 2:
-    4 straight cycles (cycle 0, the span 1-2, cycle 3) == 2 cycles (cycle
-    0, cycle 1), a snapshot, and 2 resumed cycles (the span 2-3)."""
+def _snapshot_resumes_bit_identical(sk, ek, fuse, chunk):
+    """tiny-ram at refresh period 2 in the mode (fuse, chunk): 4 straight
+    cycles == 2 cycles, a snapshot, and 2 resumed cycles."""
     path = os.path.join(DATA, "tiny-ram.toml")
     init = np.zeros(16, np.uint8)
     init[4:8] = 1
     req = jpacket.PlainPacket(ram={"ramA": init}, bits={
         "addr": np.array([0, 1, 1, 0, 1, 0, 0, 1], np.uint8),
         "wren": np.array([1, 0, 1, 0], np.uint8),
-        "wdata": np.array([1, 0, 1, 1] * 4, np.uint8)}).encrypt(toy_sk,
-                                                                 seed=5)
+        "wdata": np.array([1, 0, 1, 1] * 4, np.uint8)}).encrypt(sk, seed=5)
     with _env(**JAX_ENV, IYOKAN_RAM_REFRESH_PERIOD="2",
-              **_mode_env("all", "2")):
-        straight = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
+              **_mode_env(fuse, chunk)):
+        straight = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
                              device="cpu")
         straight.go(4)
-        first = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
+        first = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
                           device="cpu")
         first.go(2)
-        resumed = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
+        resumed = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
                             snapshot_state=first.snapshot_state(),
                             device="cpu")
         resumed.go(2)
@@ -357,6 +360,24 @@ def test_snapshot_inside_a_scan_resumes_bit_identical(toy_sk, toy_ek):
                         straight.make_result_packet())
     np.testing.assert_array_equal(
         resumed.snapshot_state()["vals"], straight.snapshot_state()["vals"])
+    return straight, resumed
+
+
+def test_snapshot_inside_a_scan_resumes_bit_identical(toy_sk, toy_ek):
+    """Under IYOKAN_FUSE_LEVELS=all, chunk 2: the straight run is cycle 0,
+    the span 1-2, cycle 3; the resumed one cycle 0, cycle 1, a snapshot,
+    the span 2-3."""
+    _snapshot_resumes_bit_identical(toy_sk, toy_ek, "all", "2")
+
+
+def test_snapshot_at_the_default_mode_resumes_bit_identical(toy_sk, toy_ek):
+    """At the default IYOKAN_FUSE_LEVELS (8), where the memory level and
+    the RAM write run on the engine's static buffers: the snapshot's RAM
+    stores are those buffers, and the resumed run adopts them anew."""
+    straight, resumed = _snapshot_resumes_bit_identical(toy_sk, toy_ek,
+                                                        None, None)
+    for fe in (straight, resumed):
+        assert fe.rams["ramA"] is fe.engine._ram_bufs["ramA"]
 
 
 def test_scanned_span_dumps_each_cycles_graph(toy_sk, toy_ek, tmp_path):
@@ -395,6 +416,155 @@ def test_graph_replays_equal_eager_on_card(toy_sk, toy_ek, name, fuse,
     assert stats and all(g["replays"] > 0 for g in stats)
     if name == "mac4" or fuse == "all":   # tiny-ram's levels only copy
         assert sum(fe.engine.graph_launches().values()) > 0
+
+
+def _memmac_request():
+    sys.path.insert(0, DATA)
+    import gen_mac
+
+    rom, rams, streams = gen_mac.memmac_request(4, 0)
+    return jpacket.PlainPacket(rom={"rom": rom}, ram=rams, bits=streams)
+
+
+# name -> (blueprint, request, knobs, cycles of each go(), the go() after
+# which no kernel launches eagerly)
+MEMORY_GRAPH_RUNS = {
+    "tiny-ram": ("tiny-ram.toml", _tiny_ram_request,
+                 {"IYOKAN_RAM_REFRESH_PERIOD": "2"}, (2, 1, 3), 1),
+    "memmac": ("memmac.toml", _memmac_request,
+               {"IYOKAN_RAM_REFRESH_PERIOD": None}, (1, 1, 2), 0),
+}
+
+
+def _expected_memory_graphs(engine, settles):
+    """{graph name: replays} of the memory levels' and RAM writes' graphs
+    after the settles [refresh flag, ...]: a graph used k >= 2 times was
+    captured at its second use and replayed k - 1 times; one used once was
+    not captured."""
+    from iyokan_tpu_torch.engine.tfhe import graph_name
+
+    uses = {("mem", lv): len(settles)
+            for lv, m in enumerate(engine._mems) if m is not None}
+    for flag in settles:
+        key = ("ram_write", flag)
+        uses[key] = uses.get(key, 0) + 1
+    return {graph_name(k): n - 1 for k, n in uses.items() if n > 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fuse", [("tiny-ram", "8"), ("tiny-ram", "2"),
+                                       ("memmac", "8")])
+def test_memory_graphs_replay_on_card(toy_sk, toy_ek, name, fuse):
+    """At FUSE = N > 1 the memory levels and the RAM write of each refresh
+    flag replay CUDA graphs captured at their second use: the packet ==
+    FUSE=1's byte for byte (tiny-ram: both flags over three refresh
+    periods of 2; memmac: its @reset settle, whose full refresh write is
+    used once), each graph's replays == its uses - 1 after every go(), a
+    graph used once never captured, the gate groups replayed from the
+    second settle on, and no eager launch once every graph in use has been
+    captured."""
+    _card()
+    from iyokan_tpu_torch.engine import tfhe
+
+    bp, make_req, knobs, stops, frozen_from = MEMORY_GRAPH_RUNS[name]
+    path = os.path.join(DATA, bp)
+    req = make_req().encrypt(toy_sk, seed=7)
+    with _env(**JAX_ENV, **knobs, **_mode_env("1", None)):
+        ref = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
+                        device="cuda")
+        ref.go(sum(stops))
+        want = ref.make_result_packet()
+    period = int(knobs["IYOKAN_RAM_REFRESH_PERIOD"] or 16)
+    settles = [True] if TBlueprint(path).at("reset") is not None else []
+    counts = []
+    with _env(**JAX_ENV, **knobs, **_mode_env(fuse, None)):
+        fe = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
+                       device="cuda")
+        for n in stops:
+            c0 = fe.current_cycle
+            fe.go(n)
+            settles += [(c + 1) % period == 0 for c in range(c0, c0 + n)]
+            stats = fe.engine.graph_stats()
+            got = {g["name"]: g["replays"] for g in stats
+                   if not g["name"].startswith("level group")}
+            assert got == _expected_memory_graphs(fe.engine, settles)
+            groups = [g["replays"] for g in stats
+                      if g["name"].startswith("level group")]
+            assert groups and all(r == len(settles) - 1 for r in groups)
+            counts.append(tfhe.launch_counts())
+        got_packet = fe.make_result_packet()
+    _assert_same_packet(got_packet, want)
+    assert {True, False} <= set(settles)
+    assert all(c == counts[frozen_from] for c in counts[frozen_from:])
+
+
+@pytest.mark.cuda
+def test_ram_selectors_survive_groups_captured_before_them_on_card(
+        toy_sk, toy_ek, monkeypatch):
+    """memmac at FUSE=8, refresh period 2: its gate groups, which run
+    between the memory level and the RAM write, are captured before the
+    memory level (right after the reset settle), and each fills and drops
+    a scratch tensor of the circuit bootstrapping's output size.  Their
+    freed blocks are what the memory level's capture in the shared pool
+    would be handed for its selectors, and their replays would overwrite
+    them before the RAM write read them; the selectors are static buffers
+    made at the first use, so the packet == FUSE=1's byte for byte."""
+    _card()
+    from iyokan_tpu_torch.engine import tfhe
+
+    path = os.path.join(DATA, "memmac.toml")
+    req = _memmac_request().encrypt(toy_sk, seed=7)
+    knobs = {"IYOKAN_RAM_REFRESH_PERIOD": "2"}
+    with _env(**JAX_ENV, **knobs, **_mode_env("1", None)):
+        ref = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
+                        device="cuda")
+        ref.go(4)
+        want = ref.make_result_packet()
+
+    eng_cls = tfhe.TFHEEngine
+    real_cb, real_gates = eng_cls._cb_pairs, eng_cls._gate_levels
+    real_settle = eng_cls.settle
+    seen = {}
+
+    def cb_pairs(self, *a):
+        out = real_cb(self, *a)
+        seen.setdefault("cb", (out.shape, out.dtype))
+        return out
+
+    def gate_levels(self, levels):
+        real_gates(self, levels)
+        shape, dtype = seen["cb"]
+        torch.full(shape, -1, dtype=dtype, device=self.device)
+
+    def settle(self, *a, **kw):
+        out = real_settle(self, *a, **kw)
+        if "sel" not in seen:
+            seen["sel"] = {n: t.data_ptr() for n, t in self._sel_bufs.items()}
+            plan = self._group_plans(8)
+            assert plan[0][0] == "mem" and len(plan) > 1
+            for i, entry in enumerate(plan):
+                if entry[0] == "group":   # its second use: captured
+                    self._run(("group", 8, i, entry[1]),
+                              lambda lvs=entry[1]: self._gate_levels(lvs))
+        return out
+
+    monkeypatch.setattr(eng_cls, "_cb_pairs", cb_pairs)
+    monkeypatch.setattr(eng_cls, "_gate_levels", gate_levels)
+    monkeypatch.setattr(eng_cls, "settle", settle)
+    with _env(**JAX_ENV, **knobs, **_mode_env("8", None)):
+        fe = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
+                       device="cuda")
+        fe.go(4)
+        got = fe.make_result_packet()
+    names = [g["name"] for g in fe.engine.graph_stats()]
+    first_mem = names.index("memory level 0")
+    assert first_mem > 0 and all(n.startswith("level group")
+                                 for n in names[:first_mem])
+    assert {"RAM write (refresh=True)", "RAM write (refresh=False)"} <= set(
+        names)
+    assert seen["sel"] and seen["sel"] == {
+        n: t.data_ptr() for n, t in fe.engine._sel_bufs.items()}
+    _assert_same_packet(got, want)
 
 
 @pytest.mark.cuda

@@ -140,8 +140,8 @@ def test_tiny_ram_spans(runs):
     ev = runs["tiny-ram"]["events"]
     names = {n for n, _, _ in ev}
     assert {"iyokan.frontend.build", "iyokan.cycle", "iyokan.inputs",
-            "iyokan.mem.cb", "iyokan.mem.ram_read", "iyokan.ram_write",
-            "iyokan.result_packet"} <= names
+            "iyokan.mem.level", "iyokan.mem.cb", "iyokan.mem.ram_read",
+            "iyokan.ram_write", "iyokan.result_packet"} <= names
     assert "iyokan.reset" not in names
     cycles = [(s, e) for n, s, e in ev if n == "iyokan.cycle"]
     hooks = [s for n, s, _ in ev if n == ON_CYCLE]
@@ -172,7 +172,7 @@ def test_mac4_spans(runs):
 @pytest.mark.cuda
 def test_graph_capture_spans_on_card():
     """One graph.capture span per graph the engine captured (FUSE=8: the
-    level groups of the reset settle and the cycles)."""
+    level groups, each at its second use)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA graphs, CUDA kernels)")
     sk = host.keygen(params.TOY, seed=42)
