@@ -150,16 +150,14 @@ Phases, one line each or more:
                    (IYOKAN_SLAB_CACHE; the in-process cache cleared before
                    each): build + write, then read, the read slab == the
                    built one, both times; then MAC-16 x 3 cycles on the
-                   tkey route (K1's persistent form) and on v3 (K3) under
-                   IYOKAN_FUSE_LEVELS=1, 8 and all (IYOKAN_SCAN_CHUNK=2),
-                   on pallas (K5, IYOKAN_UNROLL_MAX=0) under 1 and all, and
-                   memmac x 3 cycles under 1, 8 and all at
-                   IYOKAN_RAM_REFRESH_PERIOD=2 (at 8 the memory level and
-                   each refresh flag's RAM write a graph from its second
-                   use; under all cycles 1-2 one span of
-                   refresh flags [on, off]: CB on K7, K6, the ROM/RAM
-                   trees, both refresh graphs, K1's wgmma form), through
-                   the Frontend:
+                   tkey route (K1's persistent form), on v3 (K3) and on
+                   pallas (K5, IYOKAN_UNROLL_MAX=0) under
+                   IYOKAN_FUSE_LEVELS=1 and 8, and memmac x 3 cycles
+                   under 1 and 8 at IYOKAN_RAM_REFRESH_PERIOD=2 (at 8 the
+                   memory level and each refresh flag's RAM write a graph
+                   from its second use: CB on K7, K6, the ROM/RAM trees,
+                   both refresh graphs, K1's wgmma form), through the
+                   Frontend:
                    each fused result packet (RAM images included) == the
                    route's FUSE=1 packet byte for byte, decrypted == plain
                    == the integers; every graph captured at its second
@@ -177,8 +175,8 @@ Phases, one line each or more:
  14b. default   -- MAC-16 x 3 cycles and memmac x 16 cycles through the
                    Frontend at the port's own defaults: none of PREP_KNOBS
                    set (crypto/ops.py: K3 at M = 3 on the unrolled key for
-                   every gate rotation, no slab), IYOKAN_FUSE_LEVELS,
-                   IYOKAN_SCAN_CHUNK and IYOKAN_RAM_REFRESH_PERIOD unset
+                   every gate rotation, no slab), IYOKAN_FUSE_LEVELS and
+                   IYOKAN_RAM_REFRESH_PERIOD unset
                    (groups of 8 levels as graphs; memmac's cycle 15
                    refreshes all 4096 RAM bits in 2048-row rotations);
                    decrypted == plain == integers, RAM images included;
@@ -190,15 +188,12 @@ Phases, one line each or more:
                    full refresh write, the reset's, captured at its
                    second use, cycle 15);
  15. mesh       -- the gate-batch mesh (iyokan_tpu_torch/parallel) on the one
-                   card: phase 14's no-mesh cycle graphs hold their
-                   recorded nodes (NO_MESH_CYCLE_NODES: an unset mesh adds
-                   nothing); 2048
-                   NANDs at cggi128 under make_mesh(4) == the unsharded
+                   card: 2048 NANDs at cggi128 under make_mesh(4) == the unsharded
                    batch byte for byte, 0 wrong, K1 launched 4 times
                    (counters) on 512 rows each, gate bootstraps/s both
                    ways, K1 at 512 rows == its twin; MAC-16 (tkey) and
                    memmac x 3 cycles under make_mesh(2) at
-                   IYOKAN_FUSE_LEVELS=all, IYOKAN_SCAN_CHUNK=2: each packet
+                   IYOKAN_FUSE_LEVELS=8: each packet
                    == phase 14's FUSE=1 packet byte for byte, memmac's
                    4096-row RAM refresh split, s/cycle and graph nodes
                    beside phase 14's; then the error-rate tool
@@ -1394,17 +1389,17 @@ def phase_memory(files, data, smi):
 # launch counts the graphs' replays must raise).  The pallas route takes
 # IYOKAN_UNROLL_MAX=0, or its batches of at most 256 rows would take the
 # unrolled key (extprod1 per key-bit pair) instead of K5.
-SCAN2 = {"IYOKAN_FUSE_LEVELS": "all", "IYOKAN_SCAN_CHUNK": "2"}
+FUSE8 = {"IYOKAN_FUSE_LEVELS": "8"}
 FUSION_RUNS = (
-    ("tkey", "mac16.toml", False, {}, [{"IYOKAN_FUSE_LEVELS": "8"}, SCAN2],
+    ("tkey", "mac16.toml", False, {}, [FUSE8],
      ("tkey.FORM_LAUNCHES.loop", "tkey.FORM_LAUNCHES.mma")),
-    ("v3", "mac16.toml", False, {"IYOKAN_BR_IMPL": "v3"},
-     [{"IYOKAN_FUSE_LEVELS": "8"}, SCAN2], ("br3.LAUNCHES",)),
+    ("v3", "mac16.toml", False, {"IYOKAN_BR_IMPL": "v3"}, [FUSE8],
+     ("br3.LAUNCHES",)),
     ("pallas", "mac16.toml", False,
-     {"IYOKAN_BR_IMPL": "pallas", "IYOKAN_UNROLL_MAX": "0"}, [SCAN2],
+     {"IYOKAN_BR_IMPL": "pallas", "IYOKAN_UNROLL_MAX": "0"}, [FUSE8],
      ("br.STEP_LAUNCHES",)),
     ("memmac", "memmac.toml", True, {"IYOKAN_RAM_REFRESH_PERIOD": "2"},
-     [{"IYOKAN_FUSE_LEVELS": "8"}, SCAN2],
+     [FUSE8],
      ("tkey.FORM_LAUNCHES.loop", "tkey.FORM_LAUNCHES.wgmma",
                "extprod.LAUNCHES", "br2.LAUNCHES")),
 )
@@ -1436,7 +1431,7 @@ def slab_cache_times(ek):
 
 def fused_run(bp_path, req, ek, env, cycles):
     """One tfhe run through the Frontend under the knobs env: (result
-    packet, [(cycles, us)] of each logged cycle or span, the engine's
+    packet, the us of each logged cycle, the engine's
     graph records, launches by the wrappers (first uses and anything run
     eagerly) and by the graphs' replays, the engine calls the Frontend
     made (engine_calls))."""
@@ -1494,7 +1489,7 @@ def phase_fusion(smi, mem_files, mem_data):
         plain = plain_fe.make_result_packet()
         ref_path = os.path.join(WORK, f"fusion.{label}.1.res")
         for mode in [{"IYOKAN_FUSE_LEVELS": "1"}] + modes:
-            env = {**route, "IYOKAN_SCAN_CHUNK": None, **mode}
+            env = {**route, **mode}
             res, lines, graphs, eager, replayed, calls = fused_run(
                 bp_path, req, r_ek, env, cycles)
             tag = " ".join(f"{k[7:]}={v}" for k, v in mode.items())
@@ -1533,9 +1528,8 @@ def phase_fusion(smi, mem_files, mem_data):
                     raise AssertionError(f"fusion {label} {tag}: the "
                                          f"replays launched {replayed}, "
                                          f"need {must}")
-            n_last, us_last = lines[-1]
             row = {"route": label, "mode": mode, "cycles_us": lines,
-                   "s_per_cycle": us_last / n_last / 1e6,
+                   "s_per_cycle": lines[-1] / 1e6,
                    "graphs": len(graphs),
                    "replays": sum(g["replays"] for g in graphs),
                    "capture_s": sum(g["capture_s"] for g in graphs),
@@ -1550,8 +1544,8 @@ def phase_fusion(smi, mem_files, mem_data):
             say("fusion", f"{label} {bp_name} x {cycles} cycles, {tag}: "
                 "packet == FUSE=1's byte for byte, decrypts == plain == "
                 f"integers; {row['s_per_cycle']:.4f} s/cycle (last "
-                f"{'span' if n_last > 1 else 'cycle'}; FUSE=1 "
-                f"{ref['s_per_cycle']:.4f}); cycles/spans (n, us) {lines}; "
+                f"cycle; FUSE=1 {ref['s_per_cycle']:.4f}); cycles (us) "
+                f"{lines}; "
                 f"{row['graphs']} graphs captured, {row['replays']} "
                 f"replays; capture "
                 f"{row['capture_s']:.2f} s, instantiation "
@@ -1607,7 +1601,6 @@ def phase_default(smi, mem_files):
     from iyokan_tpu_torch.engine.driver import Frontend
 
     unset = {k: None for k in (*ops.PREP_KNOBS, "IYOKAN_FUSE_LEVELS",
-                               "IYOKAN_SCAN_CHUNK",
                                "IYOKAN_RAM_REFRESH_PERIOD")}
     mac = {k: os.path.join(WORK, k) for k in ("sk", "ek", "req.plain",
                                               "req.enc")}
@@ -1679,9 +1672,8 @@ def phase_default(smi, mem_files):
                 f"default {bp_name}: routes {routes}, K3 launches {k3} "
                 f"(levels alone {level_rot} a cycle x {cycles}), others "
                 f"{others}")
-        n_last, us_last = lines[-1]
         row = {"blueprint": bp_name, "cycles": cycles, "cycles_us": lines,
-               "s_per_cycle_last": us_last / n_last / 1e6,
+               "s_per_cycle_last": lines[-1] / 1e6,
                "k3_launches": {"eager": eager.get("br3.LAUNCHES", 0),
                                "replays": replayed.get("br3.LAUNCHES", 0)},
                "route_counts": {("refresh" if f else "no_refresh"): c
@@ -1692,7 +1684,7 @@ def phase_default(smi, mem_files):
             f"(no PREP_KNOBS, FUSE and refresh period unset): decrypted == "
             f"plain == integers; K3 launches {row['k3_launches']}, K1/K4/K5 "
             f"{others}; route_counts a cycle {row['route_counts']}; "
-            f"{row['graphs']} graphs; cycles (n, us) {lines}; {smi}")
+            f"{row['graphs']} graphs; cycles (us) {lines}; {smi}")
         del fe, eng, keys
         ops.clear_device_key_cache()
         torch.cuda.empty_cache()
@@ -1760,50 +1752,39 @@ def swapped(mod, name, fn):
 
 @contextlib.contextmanager
 def engine_calls():
-    """The engine calls the Frontend makes in a block, in order: one record
-    a settle or run_cycles span, with its refresh flags (one a settled or
-    scanned cycle), the execution mode, whether the engine has RAMs, and
-    its memory levels."""
+    """The settles the Frontend makes in a block, in order: one record a
+    settle, with its refresh flag, whether it ran eagerly (a timer, a
+    progress callback or IYOKAN_PROFILE), the execution mode, whether the
+    engine has RAMs, and its memory levels."""
     from iyokan_tpu_torch.engine.tfhe import TFHEEngine
 
-    calls, settle, scan = [], TFHEEngine.settle, TFHEEngine.run_cycles
+    calls, settle = [], TFHEEngine.settle
 
-    def record(eng, kind, flags, eager=False):
-        calls.append({"kind": kind, "flags": flags, "eager": eager,
+    def on_settle(eng, vals, rams, roms, timer=None, progress=None,
+                  ram_refresh=True):
+        calls.append({"flag": bool(ram_refresh),
+                      "eager": timer is not None or progress is not None
+                      or bool(os.environ.get("IYOKAN_PROFILE")),
                       "mode": os.environ.get("IYOKAN_FUSE_LEVELS", "8"),
                       "ram": bool(eng.d.ram_insts),
                       "mems": [lv for lv, m in enumerate(eng._mems)
                                if m is not None]})
-
-    def on_settle(eng, vals, rams, roms, timer=None, progress=None,
-                  ram_refresh=True):
-        record(eng, "settle", [bool(ram_refresh)],
-               timer is not None or progress is not None
-               or bool(os.environ.get("IYOKAN_PROFILE")))
         return settle(eng, vals, rams, roms, timer, progress, ram_refresh)
 
-    def on_scan(eng, vals, rams, roms, in_nodes, in_rows,
-                refresh_flags=None):
-        record(eng, "scan", [True] * len(in_rows) if refresh_flags is None
-               else [bool(f) for f in refresh_flags])
-        return scan(eng, vals, rams, roms, in_nodes, in_rows, refresh_flags)
-
-    TFHEEngine.settle, TFHEEngine.run_cycles = on_settle, on_scan
+    TFHEEngine.settle = on_settle
     try:
         yield calls
     finally:
-        TFHEEngine.settle, TFHEEngine.run_cycles = settle, scan
+        TFHEEngine.settle = settle
 
 
 def check_replays(label, tag, graphs, calls):
     """Every graph ran eagerly at its first use, was captured at its second
     and replayed at each later one: a graph used k >= 2 times replayed
     k - 1 times, and one used once was not captured.  The uses come from
-    the engine calls (engine_calls): at IYOKAN_FUSE_LEVELS = N > 1 each
+    the settles (engine_calls): at IYOKAN_FUSE_LEVELS = N > 1 or all each
     level group and memory level once a settle, each RAM write once a
-    settle of its refresh flag; under all each cycle graph once a settled
-    or scanned cycle of its flag (one flag where there is no RAM), each
-    scan prologue slot once a span that reaches it."""
+    settle of its refresh flag."""
     uses, settles = {}, 0
 
     def use(name):
@@ -1812,18 +1793,11 @@ def check_replays(label, tag, graphs, calls):
     for c in calls:
         if c["eager"] or c["mode"] == "1":
             continue
-        for j, f in enumerate(c["flags"]):
-            f = f if c["ram"] else True
-            if c["mode"] == "all":
-                use(f"cycle (refresh={f})")
-                if c["kind"] == "scan":
-                    use(f"scan prologue of cycle slot {j}")
-                continue
-            settles += 1
-            for lv in c["mems"]:
-                use(f"memory level {lv}")
-            if c["ram"]:
-                use(f"RAM write (refresh={f})")
+        settles += 1
+        for lv in c["mems"]:
+            use(f"memory level {lv}")
+        if c["ram"]:
+            use(f"RAM write (refresh={c['flag']})")
     want = {n: k - 1 for n, k in uses.items() if k > 1}
     got = {g["name"]: g["replays"] for g in graphs
            if not g["name"].startswith("level group")}
@@ -1833,24 +1807,13 @@ def check_replays(label, tag, graphs, calls):
             n != settles - 1 for n in grp):
         raise AssertionError(f"fusion {label} {tag}: replays {got} and "
                              f"{grp} of the level groups, want {want} and "
-                             f"{settles - 1} each, for the engine calls "
-                             f"{[(c['kind'], c['flags']) for c in calls]}")
+                             f"{settles - 1} each, for the settles' refresh "
+                             f"flags {[c['flag'] for c in calls]}")
 
 
 # Phase 15: the gate-batch mesh (iyokan_tpu_torch/parallel) on the one card
 MESH_NAND_SHARDS = 4     # 2048 NANDs: 4 shards of 512 rows, K1's wgmma form
-MESH_FUSED_SHARDS = 2    # MAC-16 and memmac under whole-cycle fusion
-# the no-mesh cycle graphs' nodes as first measured with the graphs
-# (phase 14, before any mesh existed; memmac's again once circuit
-# bootstrapping became one K7 launch, 116,387 nodes fewer in each; tkey's
-# and memmac's again once K1's 16-gate batches became one launch a
-# rotation, 2n - 1 = 1269 nodes fewer for each such rotation, and again
-# once that launch's grid barrier word was zeroed by a memset captured
-# beside it, one node more for each; memmac's again once the RAM write's
-# selectors became static buffers, one copy node more for each of its two
-# RAMs): a mesh that is not set must add no node
-NO_MESH_CYCLE_NODES = {"tkey": [67095], "v3": [11383], "pallas": [51639],
-                       "memmac": [6501, 9159]}
+MESH_FUSED_SHARDS = 2    # MAC-16 and memmac in groups of 8 levels
 
 
 def k1_bound(p, G):
@@ -1882,28 +1845,11 @@ def recorded(mod, name, log, rows_of):
 def phase_mesh(smi, mem_files, fusion):
     """The mesh on the card: 2048 NANDs under make_mesh(4) == the unsharded
     batch byte for byte, 0 wrong, K1 launched once a shard at 512 rows;
-    MAC-16 (tkey) and memmac x 3 cycles under make_mesh(2) at FUSE=all,
-    scan chunk 2: each packet == phase 14's FUSE=1 packet, memmac's
-    4096-row refresh split; phase 14's no-mesh cycle graphs kept their
-    recorded nodes (NO_MESH_CYCLE_NODES); then the error-rate tool at its
-    defaults on the tkey route."""
+    MAC-16 (tkey) and memmac x 3 cycles under make_mesh(2) at FUSE=8:
+    each packet == phase 14's FUSE=1 packet, memmac's 4096-row refresh
+    split; then the error-rate tool at its defaults on the tkey route."""
     from iyokan_tpu_torch.parallel import mesh as mesh_mod
     from iyokan_tpu_torch.tools import measure_error_rate
-
-    # a mismatch is reported now and fails the run at its end (main), so
-    # one run still measures every phase
-    node_errors = []
-    for row in fusion:
-        want = NO_MESH_CYCLE_NODES.get(row["route"])
-        if want is None or row["mode"] != SCAN2:
-            continue
-        got = sorted(n for n in row["nodes"] if n > 3)
-        if got != want:
-            node_errors.append(f"mesh: phase 14's {row['route']} cycle "
-                               f"graphs hold {got} nodes, recorded {want}")
-    say("mesh", f"no mesh set: phase 14's cycle graphs hold their recorded "
-        f"nodes {NO_MESH_CYCLE_NODES}: "
-        f"{'; '.join(node_errors) if node_errors else 'yes'}")
 
     p = params.CGGI128
     f = {k: os.path.join(WORK, k) for k in ("sk", "ek", "req.enc")}
@@ -1988,7 +1934,7 @@ def phase_mesh(smi, mem_files, fusion):
             with recorded(mesh_mod, "_all_gather", splits,
                           lambda m, t, axis: t.shape[axis]):
                 res, lines, graphs, _, replayed, _ = fused_run(
-                    bp_path, req, r_ek, {**route, **SCAN2}, SLICE_CYCLES)
+                    bp_path, req, r_ek, {**route, **FUSE8}, SLICE_CYCLES)
         finally:
             mesh_mod.set_mesh(None)
         path = os.path.join(WORK, f"mesh.{label}.res")
@@ -2000,18 +1946,17 @@ def phase_mesh(smi, mem_files, fusion):
                                      "make_mesh(2) != the FUSE=1 packet")
         if not splits or (label == "memmac" and 4096 not in splits):
             raise AssertionError(f"mesh {label}: batches split {splits}")
-        n_last, us_last = lines[-1]
         ref = next(r for r in fusion
-                   if r["route"] == label and r["mode"] == SCAN2)
+                   if r["route"] == label and r["mode"] == FUSE8)
         row = {"route": label, "shards": MESH_FUSED_SHARDS,
-               "s_per_cycle": us_last / n_last / 1e6,
+               "s_per_cycle": lines[-1] / 1e6,
                "no_mesh_s_per_cycle": ref["s_per_cycle"],
                "cycles_us": lines, "split_rows": sorted(set(splits)),
                "nodes": [g["nodes"] for g in graphs],
                "graph_launches": replayed}
         out["fused"].append(row)
         say("mesh", f"{label} {bp_name} x {SLICE_CYCLES} cycles under "
-            f"make_mesh({MESH_FUSED_SHARDS}), FUSE=all chunk 2: packet == "
+            f"make_mesh({MESH_FUSED_SHARDS}), FUSE=8: packet == "
             f"FUSE=1's byte for byte; {row['s_per_cycle']:.4f} s/cycle "
             f"(no mesh {ref['s_per_cycle']:.4f}); batches split (rows) "
             f"{row['split_rows']}; graph nodes {row['nodes']} (no mesh "
@@ -2032,7 +1977,7 @@ def phase_mesh(smi, mem_files, fusion):
         f"margin {rec['margin_sigmas']:.2f} sigma; "
         f"{(rec['gates'] + rec['cascade_gates']) / rec['gate_s']:.1f} "
         f"gates/s; {json.dumps(rec)}")
-    return out, k1, node_errors
+    return out, k1
 
 
 # Phase 16: the microbenchmark tools (T1-T3) at their own full shapes
@@ -2610,10 +2555,8 @@ def main() -> int:
     k3_launches, v3_s_cycle = phase_slice(smi, "br-slice")
     fusion = phase_fusion(smi, files, data)
     default = phase_default(smi, files)
-    mesh, mesh_k1, node_errors = phase_mesh(smi, files, fusion)
+    mesh, mesh_k1 = phase_mesh(smi, files, fusion)
     micro_recs = phase_micro(smi)
-    if node_errors:
-        raise AssertionError("; ".join(node_errors))
 
     say("summary", json.dumps({
         "card": smi, "blind_rotate_ms": times,

@@ -12,18 +12,15 @@ them.  The stages (driver.py and tfhe.py open them):
   reset            the reset settle at the start of go()
   cycle            one cycle of go(), tick to the end-of-cycle sync, closed
                    before on_cycle is called
-  scan             one multi-cycle span of engine.run_cycles
   inputs           tick, reset negation, initial RAM and SDFF values,
                    circular inputs
-  gates            a level group's graph (its eager first use, capture at
-                   its second, or replay), or one level's gates, NOT gates
-                   and copies
-  mem.level        a memory level's graph (the same) at
-                   IYOKAN_FUSE_LEVELS=N > 1
+  gates            a level group's _run: its eager first use, its capture
+                   at its second or a replay; at IYOKAN_FUSE_LEVELS=1 one
+                   level's gates, NOT gates and copies, eagerly
+  mem.level        a memory level's _run (the same)
   mem.cb, mem.rom_read, mem.ram_read
                    the stages of a memory level where it runs eagerly
-  ram_write        the RAM write, refresh included (its graph's first
-                   use, capture or replay at N > 1)
+  ram_write        the RAM write's _run, refresh included (the same)
   graph.capture    a CUDA graph's capture and instantiation
   result_packet    make_result_packet
 """

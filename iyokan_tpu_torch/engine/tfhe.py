@@ -32,35 +32,31 @@ tests (tests/test_torch_memory.py) hold all of it against the JAX engine
 at toy parameters; on the card chip_smoke.py's memory phase runs
 tests/data/memmac.toml at cggi128.
 
-Execution modes (the JAX engine's, read from the same knobs; every mode
-gives the same ciphertexts bit for bit):
-  IYOKAN_FUSE_LEVELS=1    level by level, each op launched as it comes;
-  N > 1 (default 8)       each group of up to N gate-only levels
-                          (_group_plans) one CUDA graph, each memory level
-                          one, and the RAM write one per refresh flag;
-  all                     the whole sweep plus the RAM write one CUDA graph
-                          per refresh flag (JAX's _cycle_fn), and the
-                          Frontend's multi-cycle scan (run_cycles): one graph
-                          of tick + input scatter, then the cycle's graph,
-                          per cycle.
-timer, progress or IYOKAN_PROFILE force the first in every mode.  Under a
-torch.profiler the gate groups or levels, the memory levels (and their
-stages where they run eagerly), the RAM write and each graph capture are
-spans (spans.py); they neither sync nor change the mode.
+Execution modes (IYOKAN_FUSE_LEVELS, the JAX engine's knob; every mode
+gives the same ciphertexts bit for bit).  A cycle's sweep is one loop over
+_group_plans(N): each group of up to N consecutive gate-only levels, each
+memory level and the RAM write of the cycle's refresh flag, in order, on
+the static buffers;
+  N > 1 (default 8)       each of them one CUDA graph;
+  all                     the same with groups of no size limit;
+  1                       level by level, each run eagerly.
+A timer, a progress callback or IYOKAN_PROFILE runs groups of one level
+eagerly at any N.  Under a torch.profiler the gate groups, the memory
+levels (and their stages where they run eagerly), the RAM write and each
+graph capture are spans (spans.py); they neither sync nor change the mode.
 A graph is captured at its second use and replayed from then on; its
 first use runs eagerly and does every first-use set-up (nvcc loads,
 shared-memory attributes, occupancy queries, cached tables, the static
 buffers; the counterpart of JAX's compile at first call), and a graph
 used once (a request's reset settle with its full refresh) is never
-captured.  The value array, the RAM and ROM stores, the RAM write's
-selectors and the scan's input rows are static buffers the graphs read
-and write in place, made outside any capture, and every index and
-constant a cycle needs is a tensor built here beforehand: a tensor one
-graph leaves for another lives in no graph's pool (the graphs share one,
-and a graph replayed in between may reuse what it holds).  A failed
-capture or replay raises, naming the graph; nothing falls back to eager
-execution.  On the CPU, which has no graphs, the same group, memory level,
-cycle and span functions run eagerly.
+captured.  The value array, the RAM and ROM stores and the RAM write's
+selectors are static buffers the graphs read and write in place, made
+outside any capture, and every index and constant a cycle needs is a
+tensor built here beforehand: a tensor one graph leaves for another lives
+in no graph's pool (the graphs share one, and a graph replayed in between
+may reuse what it holds).  A failed capture or replay raises, naming the
+graph; nothing falls back to eager execution.  On the CPU, which has no
+graphs, the same group, memory level and span functions run eagerly.
 
 Under a mesh (parallel/mesh.py: set_mesh) the level batches' rotations and
 the RAM write's refresh rows are sharded where the JAX engine shards them
@@ -229,20 +225,16 @@ def graph_name(key) -> str:
     kind = key[0]
     if kind == "group":
         return f"level group {key[2]} (levels {key[3][0]}-{key[3][-1]})"
-    if kind == "cycle":
-        return f"cycle (refresh={key[1]})"
     if kind == "mem":
         return f"memory level {key[1]}"
-    if kind == "ram_write":
-        return f"RAM write (refresh={key[1]})"
-    return f"scan prologue of cycle slot {key[2]}"
+    return f"RAM write (refresh={key[1]})"
 
 
 class TFHEEngine:
     """The encrypted levelized engine on one device (module docstring).
     Execution mode by IYOKAN_FUSE_LEVELS: 1 = level by level; N > 1
-    (default 8) = a CUDA graph per group of N gate levels; all = a graph
-    per cycle (and the Frontend's multi-cycle scan)."""
+    (default 8) = a CUDA graph per group of N gate levels, per memory
+    level and per RAM write; all = the same with unbounded groups."""
 
     def __init__(self, compiled: Compiled, eval_key: host.EvalKey, device):
         self.c = compiled
@@ -275,7 +267,6 @@ class TFHEEngine:
         self._vals = None
         self._ram_bufs = {}
         self._rom_bufs = {}
-        self._stage = None     # the scan's input rows [k, n_in, n+1]
         self._sel_bufs = {}    # RAM name -> the RAM write's selectors
         self._graphs = {}      # key -> record (_capture)
         self._used = set()     # keys run once, eagerly (_run)
@@ -530,11 +521,14 @@ class TFHEEngine:
         both = torch.stack([trgsw, ops.trgsw_invert(trgsw, p)], dim=1)
         return ops.prep_trgsw(both, p)
 
-    def _mem_level(self, keys, vals, rams, roms, lv, ram_sel, mark):
-        """All ROM/RAM reads of level lv: ONE circuit-bootstrap batch over
-        every instance's address bits (the n-step lvl2 rotation is
-        latency-bound at these widths), then the per-instance trees.
-        Returns (vals, seconds marked)."""
+    def _mem_level(self, lv, mark):
+        """All ROM/RAM reads of level lv on the static buffers: ONE
+        circuit-bootstrap batch over every instance's address bits (the
+        n-step lvl2 rotation is latency-bound at these widths), then the
+        per-instance trees, then each RAM's selectors copied into the
+        selector buffers the RAM write reads (made at the first, eager,
+        use).  Returns the seconds mark() gave."""
+        keys, vals = self.keys, self._vals
         addr, spans = self._mems[lv]
         with span("mem.cb"):
             gn_all = self._cb_pairs(keys, vals, addr)
@@ -543,14 +537,17 @@ class TFHEEngine:
             gn = gn_all[lo:hi]
             if kind == "rom":
                 with span("mem.rom_read"):
-                    vals = self._rom_read(keys, vals, roms[nm], gn, nm)
+                    self._rom_read(keys, vals, self._rom_bufs[nm], gn, nm)
                     t += mark()
             else:
                 with span("mem.ram_read"):
-                    vals = self._ram_read(keys, vals, rams[nm], gn, nm)
+                    self._ram_read(keys, vals, self._ram_bufs[nm], gn, nm)
                     t += mark()
-                ram_sel[nm] = gn
-        return vals, t
+        for kind, nm, lo, hi in spans:
+            if kind == "ram":
+                self._sel_bufs[nm] = self._into(self._sel_bufs.get(nm),
+                                                gn_all[lo:hi])
+        return t
 
     def _rom_read(self, keys, vals, rom_store, gn, name):
         """Reference TaskTFHEppROMUX: UROMUX inter-word CMUX tree then LROMUX
@@ -670,12 +667,12 @@ class TFHEEngine:
     # ------------------------------------------------------------------ #
     # execution modes
     # ------------------------------------------------------------------ #
-    def _group_plans(self, max_group: int):
+    def _group_plans(self, max_group):
         """The JAX engine's partition of the sweep (cached per max_group):
-        ("group", levels, n_gates) for up to max_group consecutive levels
-        with gates, NOT gates or copies, and ("mem", level) for a level
-        that reads a ROM or RAM, which ends the group before it (its own
-        gates close that group)."""
+        ("group", levels, n_gates) for up to max_group (None: any number
+        of) consecutive levels with gates, NOT gates or copies, and ("mem",
+        level) for a level that reads a ROM or RAM, which ends the group
+        before it (its own gates close that group)."""
         if max_group in self._groups:
             return self._groups[max_group]
         groups, cur, gates = [], [], 0
@@ -694,7 +691,7 @@ class TFHEEngine:
             if plan.rom_reads or plan.ram_reads:
                 flush()
                 groups.append(("mem", lv))
-            elif len(cur) >= max_group:
+            elif max_group is not None and len(cur) >= max_group:
                 flush()
         flush()
         self._groups[max_group] = groups
@@ -709,16 +706,6 @@ class TFHEEngine:
                 self._level_body(self.keys, self._vals, pp)
             self._simple(self._vals, pp)
 
-    def _mem_reads(self, lv):
-        """Memory level lv on the static buffers, its RAMs' selectors
-        copied into the selector buffers the RAM write reads (made at the
-        first, eager, use)."""
-        ram_sel = {}
-        self._mem_level(self.keys, self._vals, self._ram_bufs,
-                        self._rom_bufs, lv, ram_sel, lambda: 0.0)
-        for n, gn in ram_sel.items():
-            self._sel_bufs[n] = self._into(self._sel_bufs.get(n), gn)
-
     def _ram_write(self, refresh: bool):
         """The RAM write on the static buffers: the new stores copied into
         the RAM buffers."""
@@ -728,24 +715,6 @@ class TFHEEngine:
             [self._sel_bufs[n] for n in names], refresh=refresh)
         for n, out in zip(names, outs):
             self._ram_bufs[n].copy_(out)
-
-    def _cycle(self, refresh: bool):
-        """The whole sweep plus the RAM write on the static buffers: every
-        level's gates and memory reads, then the RAM write."""
-        for lv in range(len(self.c.levels)):
-            self._gate_levels((lv,))
-            if self._mems[lv] is not None:
-                self._mem_reads(lv)
-        if self._ram_bufs:
-            with span("ram_write"):
-                self._ram_write(refresh)
-
-    def _prologue(self, nodes: tuple, slot: int):
-        """A scanned cycle's tick and input scatter (row `slot` of the
-        staged input rows)."""
-        self.tick(self._vals)
-        if nodes:
-            self._vals[self._nodes_index(nodes)] = self._stage[slot]
 
     @staticmethod
     def _into(buf, t):
@@ -765,19 +734,18 @@ class TFHEEngine:
             for n, s in (stores or {}).items():
                 bufs[n] = self._into(bufs.get(n), s)
 
-    def _run(self, key, fn):
+    def _run(self, key, fn, eager=False):
         """fn() on the card: eagerly at the key's first use, then as the
-        replay of its CUDA graph, captured at its second; on the CPU, fn()
-        itself."""
-        if self.device.type != "cuda":
-            fn()
-            return
+        replay of its CUDA graph, captured at its second; eagerly every
+        time where `eager` is set, and on the CPU.  Returns what fn()
+        returns where it runs eagerly, else None."""
+        if eager or self.device.type != "cuda":
+            return fn()
         rec = self._graphs.get(key)
         if rec is None:
             if key not in self._used:
                 self._used.add(key)
-                fn()
-                return
+                return fn()
             with span("graph.capture"):
                 rec = self._graphs[key] = self._capture(key, fn)
         try:
@@ -849,124 +817,63 @@ class TFHEEngine:
                 out[k] = out.get(k, 0) + n * rec["replays"]
         return out
 
-    def _fused_cycle(self, refresh: bool):
-        """One cycle's sweep and RAM write as its graph of this refresh
-        flag (one flag where there is no RAM)."""
-        flag = bool(refresh) if self._ram_bufs else True
-        self._run(("cycle", flag), lambda: self._cycle(flag))
-
-    def run_cycles(self, vals, rams, roms, in_nodes, in_rows,
-                   refresh_flags=None):
-        """Run k = len(in_rows) full cycles (tick -> input scatter ->
-        combinational sweep -> RAM write): the JAX engine's lax.scan span.
-        The input rows go to the device in one copy; each cycle replays
-        the graph of its tick and input scatter, then the cycle graph of
-        its refresh flag (chosen here from the schedule, where JAX takes
-        lax.cond); nothing syncs inside the span.
-
-        in_nodes: node ids receiving circular inputs each cycle;
-        in_rows: u32 [k, len(in_nodes), n+1] ciphertext rows;
-        refresh_flags: optional bool [k], the Frontend's periodic RAM
-        refresh schedule (None = refresh every cycle).
-        Returns (vals, rams), the static buffers."""
-        self._adopt(vals, rams, roms)
-        k = len(in_rows)
-        flags = ([True] * k if refresh_flags is None
-                 else [bool(f) for f in refresh_flags])
-        nodes = tuple(int(n) for n in in_nodes)
-        if nodes:
-            rows = np.ascontiguousarray(np.asarray(in_rows, np.uint32))
-            if (self._stage is None or self._stage.shape[0] < k
-                    or tuple(self._stage.shape[1:]) != rows.shape[1:]):
-                # a new staging buffer: the prologue graphs read the old
-                self._graphs = {key: rec for key, rec in self._graphs.items()
-                                if key[0] != "prologue"}
-                self._stage = torch.empty(rows.shape, dtype=torch.int32,
-                                          device=self.device)
-            self._stage[:k].copy_(torch.from_numpy(rows.view(np.int32)))
-        for c in range(k):
-            self._run(("prologue", nodes, c),
-                      lambda c=c: self._prologue(nodes, c))
-            self._fused_cycle(flags[c])
-        return self._vals, dict(self._ram_bufs)
 
     def settle(self, vals, rams, roms, timer=None, progress=None,
                ram_refresh=True):
-        """The per-cycle combinational sweep and RAM write, in the mode
-        IYOKAN_FUSE_LEVELS names (module docstring; as the JAX engine's
-        settle dispatches).
+        """The per-cycle combinational sweep and RAM write on the static
+        buffers: one loop over _group_plans of the mode IYOKAN_FUSE_LEVELS
+        names (module docstring), each gate group, memory level and the
+        RAM write of this refresh flag run by _run.
 
-        timer: optional list collecting per-level wall-clock seconds.
-        progress: optional callable(n_gates_done).  timer and
-        IYOKAN_PROFILE force a device sync per stage; they and progress
-        force the level-by-level path.  ram_refresh=False keeps the
-        CMUX-tree output as the RAM stores (periodic refresh, see
-        driver.py).
+        timer: optional list, extended by each level's wall-clock seconds.
+        progress: optional callable(n_gates_done), called after each gate
+        level.  timer and IYOKAN_PROFILE sync the device after each stage;
+        they and progress run groups of one level, eagerly.
+        ram_refresh=False keeps the CMUX-tree output as the RAM stores
+        (periodic refresh, see driver.py).
         """
-        keys = self.keys
         sync = bool(os.environ.get("IYOKAN_PROFILE")) or timer is not None
         fuse_env = os.environ.get("IYOKAN_FUSE_LEVELS", "8")
-        if fuse_env == "all" and not sync and progress is None:
-            self._adopt(vals, rams, roms)
-            self._fused_cycle(ram_refresh)
-            return self._vals, dict(self._ram_bufs)
-        fuse = 8 if fuse_env == "all" else int(fuse_env)
-        if not sync and progress is None and fuse > 1:
-            # one graph per group of gate levels, per memory level and per
-            # RAM write of a refresh flag, on the static buffers
-            self._adopt(vals, rams, roms)
-            for i, entry in enumerate(self._group_plans(fuse)):
-                if entry[0] == "group":
-                    with span("gates"):
-                        self._run(("group", fuse, i, entry[1]),
-                                  lambda lvs=entry[1]: self._gate_levels(lvs))
-                else:
-                    with span("mem.level"):
-                        self._run(("mem", entry[1]),
-                                  lambda lv=entry[1]: self._mem_reads(lv))
-            if self._ram_bufs:
-                flag = bool(ram_refresh)
-                with span("ram_write"):
-                    self._run(("ram_write", flag),
-                              lambda: self._ram_write(flag))
-            return self._vals, dict(self._ram_bufs)
-
+        fuse = None if fuse_env == "all" else int(fuse_env)
+        if sync or progress is not None:
+            fuse = 1
+        eager = fuse is not None and fuse <= 1
+        self._adopt(vals, rams, roms)
         last = [time.time()]
 
         def mark():
             if not sync:
                 return 0.0
-            self.block_until_ready(vals)
+            self.block_until_ready(self._vals)
             now = time.time()
             dt, last[0] = now - last[0], now
             return dt
 
-        ram_sel = {}
-        for lv, (plan, pp) in enumerate(zip(self.c.levels, self._plans)):
-            lv_t = 0.0
-            if (pp["nb"] or pp["nm"] or len(pp["not_out"])
-                    or len(pp["copy_out"])):
+        level_s = [0.0] * len(self.c.levels)
+        for i, entry in enumerate(self._group_plans(fuse)):
+            if entry[0] == "group":
+                lv = entry[1][-1]    # a timer's groups hold one level
                 with span("gates"):
-                    if pp["nb"] or pp["nm"]:
-                        vals = self._level_body(keys, vals, pp)
-                    vals = self._simple(vals, pp)
-                    lv_t += mark()
-            if self._mems[lv] is not None:
-                vals, t = self._mem_level(keys, vals, rams, roms, lv,
-                                          ram_sel, mark)
-                lv_t += t
+                    self._run(("group", fuse, i, entry[1]),
+                              lambda lvs=entry[1]: self._gate_levels(lvs),
+                              eager)
+                    t = mark()
+                if progress is not None:
+                    progress(entry[2])
+            else:
+                lv = entry[1]
+                with span("mem.level"):
+                    t = self._run(("mem", lv),
+                                  lambda lv=lv: self._mem_level(lv, mark),
+                                  eager)
             if timer is not None:
-                timer.append(lv_t)
-            if progress is not None:
-                progress(plan.n_gates)
-
-        new_rams = {}
-        if rams:
-            names = tuple(sorted(rams))
+                level_s[lv] += t
+        if self._ram_bufs:
+            flag = bool(ram_refresh)
             with span("ram_write"):
-                outs = self._ram_write_all(
-                    names, keys, vals, [rams[n] for n in names],
-                    [ram_sel[n] for n in names], refresh=bool(ram_refresh))
+                self._run(("ram_write", flag), lambda: self._ram_write(flag),
+                          eager)
                 mark()
-            new_rams = dict(zip(names, outs))
-        return vals, new_rams
+        if timer is not None:
+            timer.extend(level_s)
+        return self._vals, dict(self._ram_bufs)

@@ -16,10 +16,10 @@ Every worker, from the same seeds (keys 0 / 1 at P, default cggi128):
      G/N rows; ms a batch both ways (CUDA events after a barrier, 3 reps);
   2. tests/data/<circuit>.toml (default mac16) for C cycles (default 3) on
      random inputs: with no mesh at IYOKAN_FUSE_LEVELS=1 (the reference),
-     then at 1, 8 and all (IYOKAN_SCAN_CHUNK=2) with no mesh and under
+     then at 1, 8 and all (groups of any size) with no mesh and under
      the mesh: each result packet == the reference byte for byte, and the
      decrypted reference == the plain engine's; s/cycle of the last cycle
-     or span of each run. A
+     of each run. A
      fused mode whose CUDA-graph capture of the collectives fails is
      recorded with the capture's error (the engine raises, naming the
      graph; nothing runs eagerly in its place).
@@ -43,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 MODES = {"1": {"IYOKAN_FUSE_LEVELS": "1"},
          "8": {"IYOKAN_FUSE_LEVELS": "8"},
-         "all": {"IYOKAN_FUSE_LEVELS": "all", "IYOKAN_SCAN_CHUNK": "2"}}
+         "all": {"IYOKAN_FUSE_LEVELS": "all"}}
 
 
 def _nands(args, p, sk, dk, mesh, device, rec):
@@ -134,9 +134,7 @@ def _circuit(args, sk, ek, mesh, device, rec):
     want_plain = pf.make_result_packet()
 
     def run(mode, with_mesh):
-        saved = {k: os.environ.get(k) for k in
-                 ("IYOKAN_FUSE_LEVELS", "IYOKAN_SCAN_CHUNK")}
-        os.environ.pop("IYOKAN_SCAN_CHUNK", None)
+        saved = os.environ.get("IYOKAN_FUSE_LEVELS")
         os.environ.update(MODES[mode])
         mesh_mod.set_mesh(mesh if with_mesh else None)
         try:
@@ -147,11 +145,10 @@ def _circuit(args, sk, ek, mesh, device, rec):
             return fe.make_result_packet(), lines
         finally:
             mesh_mod.set_mesh(None)
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+            if saved is None:
+                os.environ.pop("IYOKAN_FUSE_LEVELS", None)
+            else:
+                os.environ["IYOKAN_FUSE_LEVELS"] = saved
 
     def same(x, y):
         return all(np.array_equal(x.bits[k], y.bits[k]) for k in y.bits) \
@@ -163,9 +160,8 @@ def _circuit(args, sk, ek, mesh, device, rec):
                       "decrypts_to_plain": ok, "modes": []}
     for mode in MODES:
         alone, lines = run(mode, False)
-        n, us = lines[-1]
         row = {"mode": mode, "no_mesh_equal": same(alone, ref),
-               "no_mesh_s_per_cycle": us / n / 1e6}
+               "no_mesh_s_per_cycle": lines[-1] / 1e6}
         ok = ok and row["no_mesh_equal"]
         try:
             got, lines = run(mode, True)
@@ -176,8 +172,7 @@ def _circuit(args, sk, ek, mesh, device, rec):
             rec["circuit"]["modes"].append(row)
             ok = False
             continue
-        n, us = lines[-1]
-        row.update(equal=same(got, ref), s_per_cycle=us / n / 1e6,
+        row.update(equal=same(got, ref), s_per_cycle=lines[-1] / 1e6,
                    cycles_us=lines)
         ok = ok and row["equal"]
         rec["circuit"]["modes"].append(row)

@@ -7,8 +7,8 @@
                                warm_s seconds of run(n));
   int_mm_ms(a, b, reps)        mean ms of torch._int_mm(a, b) after a
                                warm-up (raises what torch._int_mm raises);
-  cycle_log()                  [cycles, us] of each cycle or scan span the
-                               Frontend logs while the block runs.
+  cycle_log()                  us of each cycle the Frontend logs while
+                               the block runs.
 
 Imports no JAX.
 """
@@ -70,28 +70,21 @@ def int_mm_ms(a: torch.Tensor, b: torch.Tensor, reps: int = 20) -> float:
 
 @contextlib.contextmanager
 def cycle_log():
-    """Yields a list that collects [cycles, us] of each cycle ("#c") or
-    scan span ("#a..#b") the Frontend logs at INFO while the block runs,
-    us from its "done. (N us)" line."""
-    lines = []
+    """Yields a list that collects the us of each cycle the Frontend logs
+    at INFO while the block runs, from its "done. (N us)" line."""
+    cycles = []
 
-    class Spans(logging.Handler):
+    class Cycles(logging.Handler):
         def emit(self, record):
-            msg = record.getMessage()
-            m = re.match(r"#(\d+)\.\.#(\d+)", msg)
+            m = re.match(r"\s*done\. \((\d+) us\)", record.getMessage())
             if m:
-                lines.append([int(m.group(2)) - int(m.group(1)) + 1, None])
-            elif re.match(r"#\d+$", msg):
-                lines.append([1, None])
-            m = re.match(r"\s*done\. \((\d+) us\)", msg)
-            if m and lines:
-                lines[-1][1] = int(m.group(1))
+                cycles.append(int(m.group(1)))
 
     lg = logging.getLogger("iyokan")
     lg.setLevel(logging.INFO)
-    handler = Spans()
+    handler = Cycles()
     lg.addHandler(handler)
     try:
-        yield lines
+        yield cycles
     finally:
         lg.removeHandler(handler)

@@ -1,19 +1,22 @@
 """The port's execution modes against the JAX package, and its key caches.
 
-* The level partition: the port's _group_plans(1 / 2 / 8 / 10**9) equals
-  the JAX engine's on mac16, memmac and tiny-ram.
-* Under IYOKAN_FUSE_LEVELS = 2, 8 and all (scan chunk 2 and max) the
-  port's Frontend gives the ciphertexts and RAM stores of the JAX Frontend
-  at IYOKAN_FUSE_LEVELS=1 (tkey slab, Pallas in interpret mode): MAC-4 x 3
-  cycles, tiny-ram x 3 cycles at refresh period 2 (a write, then a read of
-  it inside the scanned span of mixed refresh flags) and tiny-rom x 1.
-  On the CPU the modes' group, cycle and span functions run eagerly; the
-  Frontend's span logic, the static buffers and the scan's input staging are
-  what these cases hold to the reference.
-* The Frontend: _circular_input_rows and the execution-mode log line equal
-  JAX's (every knob combination, the "disabled by" cases and an invalid
-  IYOKAN_SCAN_CHUNK); a snapshot taken inside a scanned run, or at the
-  default mode, resumes to the straight run's bits.
+* The level partition: the port's _group_plans(1 / 2 / 8 / 10**9 / None,
+  the groups of IYOKAN_FUSE_LEVELS=all) equals the JAX engine's on mac16,
+  memmac and tiny-ram.
+* Under IYOKAN_FUSE_LEVELS = 1, 2, 3 (which divides no circuit's levels),
+  8 and all the port's Frontend gives the ciphertexts and RAM stores of the
+  JAX Frontend at IYOKAN_FUSE_LEVELS=1 (tkey slab, Pallas in interpret
+  mode): MAC-4 x 3 cycles, tiny-ram x 3 cycles at refresh period 2 (a
+  write, then a read of it, under both refresh flags) and tiny-rom x 1.
+  On the CPU every mode's group, memory level and RAM write functions run
+  eagerly on the static buffers; the sweep's one loop and those buffers
+  are what these cases hold to the reference.  A timer and a progress
+  callback run groups of one level: one time CSV row a level, progress
+  counts summing to the circuit's gates, the same packet.
+* The Frontend: the execution-mode log line equals JAX's (every knob
+  combination; under all the port's own line); a snapshot taken at the
+  default mode, or at FUSE=1 and resumed at 8, resumes to the straight
+  run's bits.
 * On the card (cuda-marked): each mode's CUDA graph replays equal the
   card's level-by-level run; at FUSE = 8 and 2 every graph (level groups,
   memory levels, the RAM write of each refresh flag) is captured at its
@@ -50,8 +53,8 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 # interpret mode, no slab file
 JAX_ENV = {"IYOKAN_BR_IMPL": "tkey", "IYOKAN_PALLAS_INTERPRET": "1",
            "IYOKAN_SLAB_CACHE": "0"}
-MODES = [("2", None), ("8", None), ("all", "2"), ("all", "max")]
-MODE_IDS = ["fuse2", "fuse8", "all-chunk2", "all-chunkmax"]
+MODES = ["1", "2", "3", "8", "all"]
+MODE_IDS = ["fuse1", "fuse2", "fuse3", "fuse8", "all"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -81,8 +84,8 @@ def _env(**kw):
         put(saved)
 
 
-def _mode_env(fuse, chunk):
-    return {"IYOKAN_FUSE_LEVELS": fuse, "IYOKAN_SCAN_CHUNK": chunk}
+def _mode_env(fuse):
+    return {"IYOKAN_FUSE_LEVELS": fuse}
 
 
 # --------------------------------------------------------------------------- #
@@ -100,7 +103,7 @@ def _mac4_request():
 def _tiny_ram_request():
     """Cycle 0 writes 0b1011 to address 2, cycle 1 writes 0b0110 to
     address 1, cycle 2 reads address 1 back: at refresh period 2 cycles 1
-    and 2 are one span of flags [on, off]."""
+    and 2 take the refresh flags on and off."""
     init = np.zeros(16, np.uint8)
     init[12:16] = 1
     return jpacket.PlainPacket(ram={"ramA": init}, bits={
@@ -142,9 +145,9 @@ def _jax_reference(name, sk, ek):
     return _JAX_REFS[name]
 
 
-def _port_run(name, sk, ek, fuse, chunk, device="cpu"):
+def _port_run(name, sk, ek, fuse, device="cpu"):
     bp, _, cycles, extra = CASES[name]
-    with _env(**JAX_ENV, **extra, **_mode_env(fuse, chunk)):
+    with _env(**JAX_ENV, **extra, **_mode_env(fuse)):
         fe = TFrontend("tfhe", TBlueprint(os.path.join(DATA, bp)),
                        _encrypted(name, sk), eval_key=ek, device=device)
         fe.go(cycles)
@@ -230,13 +233,15 @@ def _port_partition(teng, max_group):
     return out
 
 
-@pytest.mark.parametrize("max_group", [1, 2, 8, 10**9])
+@pytest.mark.parametrize("max_group", [1, 2, 8, 10**9, "all"])
 @pytest.mark.parametrize("bp_name", ["mac16.toml", "memmac.toml",
                                      "tiny-ram.toml"])
 def test_group_plans_match_jax(toy_ek, bp_name, max_group):
+    """"all": the port's groups of no size limit (_group_plans(None)), the
+    JAX engine's of 10**9 levels."""
     jeng, teng = _engines(bp_name, toy_ek)
-    want = _jax_partition(jeng, max_group)
-    got = _port_partition(teng, max_group)
+    want = _jax_partition(jeng, 10**9 if max_group == "all" else max_group)
+    got = _port_partition(teng, None if max_group == "all" else max_group)
     assert got == want
     assert any(e[0] == "group" for e in got)
     if bp_name != "mac16.toml":
@@ -248,11 +253,11 @@ def test_group_plans_match_jax(toy_ek, bp_name, max_group):
 # --------------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("fuse,chunk", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("fuse", MODES, ids=MODE_IDS)
 @pytest.mark.parametrize("name", list(CASES))
-def test_modes_match_jax(toy_sk, toy_ek, name, fuse, chunk):
+def test_modes_match_jax(toy_sk, toy_ek, name, fuse):
     want = _jax_reference(name, toy_sk, toy_ek)
-    _, got = _port_run(name, toy_sk, toy_ek, fuse, chunk)
+    _, got = _port_run(name, toy_sk, toy_ek, fuse)
     _assert_same_packet(got, want)
     if name == "tiny-ram":
         dec = got.decrypt(toy_sk)
@@ -261,8 +266,59 @@ def test_modes_match_jax(toy_sk, toy_ek, name, fuse, chunk):
                                       [0, 1, 1, 0, 1, 1, 0, 1])
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_timer_and_progress_run_level_by_level(toy_sk, toy_ek, tmp_path,
+                                               monkeypatch, name):
+    """--dump-time-csv-prefix and --show-combinational-progress at the
+    default mode run the sweep in groups of one level: the packet == the
+    JAX Frontend's at FUSE=1, each cycle's timer holds one entry a level
+    (the time CSV one row of seconds a level), and its progress counts sum
+    to the circuit's gates; the circuit-graph dumps name every cycle."""
+    from iyokan_tpu_torch.engine import tfhe
+
+    real = tfhe.TFHEEngine.settle
+    seen = []                            # (timer, progress counts) a cycle
+
+    def settle(self, vals, rams, roms, timer=None, progress=None, **kw):
+        if timer is None:                # the reset settle
+            return real(self, vals, rams, roms, **kw)
+        counts = []
+        out = real(self, vals, rams, roms, timer=timer,
+                   progress=lambda n: (counts.append(n), progress(n)), **kw)
+        seen.append((timer, counts))
+        return out
+
+    monkeypatch.setattr(tfhe.TFHEEngine, "settle", settle)
+    bp, _, cycles, extra = CASES[name]
+    want = _jax_reference(name, toy_sk, toy_ek)
+    with _env(**JAX_ENV, **extra, **_mode_env(None)):
+        fe = TFrontend("tfhe", TBlueprint(os.path.join(DATA, bp)),
+                       _encrypted(name, toy_sk), eval_key=toy_ek,
+                       device="cpu")
+        fe.go(cycles, dump_time_csv_prefix=str(tmp_path / "t"),
+              show_combinational_progress=True,
+              dump_graph_json_prefix=str(tmp_path / "g"),
+              dump_graph_dot_prefix=str(tmp_path / "d"))
+    _assert_same_packet(fe.make_result_packet(), want)
+    levels = fe.compiled.levels
+    gate_levels = [p for p in levels if p.n_gates]
+    assert len(seen) == cycles
+    for c, (timer, counts) in enumerate(seen):
+        assert len(timer) == len(levels) and min(timer) >= 0
+        assert counts == [p.n_gates for p in gate_levels]
+        assert sum(counts) == sum(p.n_gates for p in levels)
+        with open(tmp_path / f"t-{c}.csv") as f:
+            rows = [ln.rstrip("\n").split(",") for ln in f][1:]
+        assert [r[1] for r in rows] == [
+            str(lv + 1) for lv in range(len(levels))] + ["total"]
+        assert all(float(r[3]) >= 0 for r in rows)
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        f"{k}-{c}.{ext}" for c in range(cycles)
+        for k, ext in (("d", "dot"), ("g", "json"), ("t", "csv")))
+
+
 # --------------------------------------------------------------------------- #
-# the Frontend: input rows, the mode's log line, snapshot inside a scan
+# the Frontend: the mode's log line, snapshots
 # --------------------------------------------------------------------------- #
 
 
@@ -280,28 +336,12 @@ def _frontends(sk, ek, mode="tfhe", bp_name="mac4.toml"):
     return jfe, tfe
 
 
-@pytest.mark.parametrize("start,k", [(0, 3), (1, 2), (5, 4)])
-def test_circular_input_rows_match_jax(toy_sk, toy_ek, start, k):
-    jfe, tfe = _frontends(toy_sk, toy_ek)
-    jn, jr = jfe._circular_input_rows(start, k)
-    tn, tr = tfe._circular_input_rows(start, k)
-    assert list(tn) == list(jn)
-    assert tr.dtype == jr.dtype == np.uint32
-    np.testing.assert_array_equal(tr, jr)
-
-
 # (knobs, go() keywords): every branch of _log_execution_mode
 LOG_CASES = {
     "default": ({}, {}),
     "fuse1": ({"IYOKAN_FUSE_LEVELS": "1"}, {}),
     "fuse3": ({"IYOKAN_FUSE_LEVELS": "3"}, {}),
-    "scan": ({"IYOKAN_FUSE_LEVELS": "all"}, {}),
-    "scan-max": ({"IYOKAN_FUSE_LEVELS": "all", "IYOKAN_SCAN_CHUNK": "max"},
-                 {}),
-    "scan-chunk0": ({"IYOKAN_FUSE_LEVELS": "all", "IYOKAN_SCAN_CHUNK": "0"},
-                    {}),
-    "scan-chunk-junk": ({"IYOKAN_FUSE_LEVELS": "all",
-                         "IYOKAN_SCAN_CHUNK": "x2"}, {}),
+    "all": ({"IYOKAN_FUSE_LEVELS": "all"}, {}),
     "dump": ({"IYOKAN_FUSE_LEVELS": "all"}, {"dump_prefix": "unused"}),
     "profile-csv": ({"IYOKAN_FUSE_LEVELS": "all", "IYOKAN_PROFILE": "1"},
                     {"stdout_csv": True}),
@@ -311,12 +351,17 @@ LOG_CASES = {
                    "on_cycle": lambda fe: None}),
     "plain": ({"IYOKAN_FUSE_LEVELS": "all"}, {}),
 }
+# the port's own line under IYOKAN_FUSE_LEVELS=all, whatever observes the
+# cycles: groups of any size (the JAX package's whole-cycle path and its
+# scan are not the port's)
+ALL_LINE = ("execution mode: per-level dispatch, gate levels fused in "
+            "groups of any size (IYOKAN_FUSE_LEVELS=all)")
 
 
 def _mode_lines(fe, knobs, kw, caplog):
     caplog.clear()
-    with _env(**{"IYOKAN_FUSE_LEVELS": None, "IYOKAN_SCAN_CHUNK": None,
-                 "IYOKAN_PROFILE": None, **knobs}):
+    with _env(**{"IYOKAN_FUSE_LEVELS": None, "IYOKAN_PROFILE": None,
+                 **knobs}):
         with caplog.at_level(logging.INFO, logger="iyokan"):
             fe.go(0, skip_reset=True, **kw)
     return [r.getMessage() for r in caplog.records
@@ -328,15 +373,18 @@ def test_execution_mode_log_matches_jax(toy_sk, toy_ek, caplog, case):
     knobs, kw = LOG_CASES[case]
     jfe, tfe = _frontends(toy_sk, toy_ek,
                           mode="plain" if case == "plain" else "tfhe")
-    want = _mode_lines(jfe, knobs, kw, caplog)
     got = _mode_lines(tfe, knobs, kw, caplog)
-    assert got == want
-    assert len(got) == (2 if "chunk" in case and case != "scan-max" else 1)
+    if knobs.get("IYOKAN_FUSE_LEVELS") == "all" and case != "plain":
+        assert got == [ALL_LINE]
+    else:
+        assert got == _mode_lines(jfe, knobs, kw, caplog)
+        assert len(got) == 1
 
 
-def _snapshot_resumes_bit_identical(sk, ek, fuse, chunk):
-    """tiny-ram at refresh period 2 in the mode (fuse, chunk): 4 straight
-    cycles == 2 cycles, a snapshot, and 2 resumed cycles."""
+def _snapshot_resumes_bit_identical(sk, ek, fuse, first_fuse=None):
+    """tiny-ram at refresh period 2: 4 straight cycles == 2 cycles, a
+    snapshot, and 2 resumed cycles; the straight and resumed runs in the
+    mode `fuse`, the snapshotted one in `first_fuse` (default: the same)."""
     path = os.path.join(DATA, "tiny-ram.toml")
     init = np.zeros(16, np.uint8)
     init[4:8] = 1
@@ -344,18 +392,20 @@ def _snapshot_resumes_bit_identical(sk, ek, fuse, chunk):
         "addr": np.array([0, 1, 1, 0, 1, 0, 0, 1], np.uint8),
         "wren": np.array([1, 0, 1, 0], np.uint8),
         "wdata": np.array([1, 0, 1, 1] * 4, np.uint8)}).encrypt(sk, seed=5)
-    with _env(**JAX_ENV, IYOKAN_RAM_REFRESH_PERIOD="2",
-              **_mode_env(fuse, chunk)):
-        straight = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
-                             device="cpu")
-        straight.go(4)
-        first = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
-                          device="cpu")
-        first.go(2)
-        resumed = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
-                            snapshot_state=first.snapshot_state(),
-                            device="cpu")
-        resumed.go(2)
+    with _env(**JAX_ENV, IYOKAN_RAM_REFRESH_PERIOD="2"):
+        with _env(**_mode_env(fuse)):
+            straight = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
+                                 device="cpu")
+            straight.go(4)
+        with _env(**_mode_env(first_fuse or fuse)):
+            first = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
+                              device="cpu")
+            first.go(2)
+        with _env(**_mode_env(fuse)):
+            resumed = TFrontend("tfhe", TBlueprint(path), req, eval_key=ek,
+                                snapshot_state=first.snapshot_state(),
+                                device="cpu")
+            resumed.go(2)
     _assert_same_packet(resumed.make_result_packet(),
                         straight.make_result_packet())
     np.testing.assert_array_equal(
@@ -363,34 +413,20 @@ def _snapshot_resumes_bit_identical(sk, ek, fuse, chunk):
     return straight, resumed
 
 
-def test_snapshot_inside_a_scan_resumes_bit_identical(toy_sk, toy_ek):
-    """Under IYOKAN_FUSE_LEVELS=all, chunk 2: the straight run is cycle 0,
-    the span 1-2, cycle 3; the resumed one cycle 0, cycle 1, a snapshot,
-    the span 2-3."""
-    _snapshot_resumes_bit_identical(toy_sk, toy_ek, "all", "2")
-
-
 def test_snapshot_at_the_default_mode_resumes_bit_identical(toy_sk, toy_ek):
     """At the default IYOKAN_FUSE_LEVELS (8), where the memory level and
     the RAM write run on the engine's static buffers: the snapshot's RAM
     stores are those buffers, and the resumed run adopts them anew."""
     straight, resumed = _snapshot_resumes_bit_identical(toy_sk, toy_ek,
-                                                        None, None)
+                                                        None)
     for fe in (straight, resumed):
         assert fe.rams["ramA"] is fe.engine._ram_bufs["ramA"]
 
 
-def test_scanned_span_dumps_each_cycles_graph(toy_sk, toy_ek, tmp_path):
-    """The circuit-graph dumps name every cycle of a scanned span, as the
-    per-cycle path does."""
-    with _env(**JAX_ENV, **_mode_env("all", "max")):
-        fe = TFrontend("tfhe", TBlueprint(os.path.join(DATA, "mac4.toml")),
-                       _encrypted("mac4", toy_sk), eval_key=toy_ek,
-                       device="cpu")
-        fe.go(3, dump_graph_json_prefix=str(tmp_path / "g"),
-              dump_graph_dot_prefix=str(tmp_path / "d"))
-    assert sorted(os.listdir(tmp_path)) == [
-        "d-0.dot", "d-1.dot", "d-2.dot", "g-0.json", "g-1.json", "g-2.json"]
+def test_snapshot_at_fuse1_resumes_at_fuse8_bit_identical(toy_sk, toy_ek):
+    """A snapshot taken level by level (FUSE=1) resumes in groups of 8 to
+    the bits of a straight run in groups of 8."""
+    _snapshot_resumes_bit_identical(toy_sk, toy_ek, "8", first_fuse="1")
 
 
 # --------------------------------------------------------------------------- #
@@ -404,18 +440,20 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fuse,chunk", MODES[:3], ids=MODE_IDS[:3])
+@pytest.mark.parametrize("fuse", ["2", "8", "all"],
+                         ids=["fuse2", "fuse8", "all"])
 @pytest.mark.parametrize("name", ["mac4", "tiny-ram"])
-def test_graph_replays_equal_eager_on_card(toy_sk, toy_ek, name, fuse,
-                                           chunk):
+def test_graph_replays_equal_eager_on_card(toy_sk, toy_ek, name, fuse):
     _card()
-    _, want = _port_run(name, toy_sk, toy_ek, "1", None, device="cuda")
-    fe, got = _port_run(name, toy_sk, toy_ek, fuse, chunk, device="cuda")
+    _, want = _port_run(name, toy_sk, toy_ek, "1", device="cuda")
+    fe, got = _port_run(name, toy_sk, toy_ek, fuse, device="cuda")
     _assert_same_packet(got, want)
     stats = fe.engine.graph_stats()
     assert stats and all(g["replays"] > 0 for g in stats)
-    if name == "mac4" or fuse == "all":   # tiny-ram's levels only copy
-        assert sum(fe.engine.graph_launches().values()) > 0
+    assert all(g["name"].startswith(("level group", "memory level",
+                                     "RAM write")) for g in stats)
+    # tiny-ram's levels only copy: its launches are its memory graphs'
+    assert sum(fe.engine.graph_launches().values()) > 0
 
 
 def _memmac_request():
@@ -469,7 +507,7 @@ def test_memory_graphs_replay_on_card(toy_sk, toy_ek, name, fuse):
     bp, make_req, knobs, stops, frozen_from = MEMORY_GRAPH_RUNS[name]
     path = os.path.join(DATA, bp)
     req = make_req().encrypt(toy_sk, seed=7)
-    with _env(**JAX_ENV, **knobs, **_mode_env("1", None)):
+    with _env(**JAX_ENV, **knobs, **_mode_env("1")):
         ref = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
                         device="cuda")
         ref.go(sum(stops))
@@ -477,7 +515,7 @@ def test_memory_graphs_replay_on_card(toy_sk, toy_ek, name, fuse):
     period = int(knobs["IYOKAN_RAM_REFRESH_PERIOD"] or 16)
     settles = [True] if TBlueprint(path).at("reset") is not None else []
     counts = []
-    with _env(**JAX_ENV, **knobs, **_mode_env(fuse, None)):
+    with _env(**JAX_ENV, **knobs, **_mode_env(fuse)):
         fe = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
                        device="cuda")
         for n in stops:
@@ -515,7 +553,7 @@ def test_ram_selectors_survive_groups_captured_before_them_on_card(
     path = os.path.join(DATA, "memmac.toml")
     req = _memmac_request().encrypt(toy_sk, seed=7)
     knobs = {"IYOKAN_RAM_REFRESH_PERIOD": "2"}
-    with _env(**JAX_ENV, **knobs, **_mode_env("1", None)):
+    with _env(**JAX_ENV, **knobs, **_mode_env("1")):
         ref = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
                         device="cuda")
         ref.go(4)
@@ -551,7 +589,7 @@ def test_ram_selectors_survive_groups_captured_before_them_on_card(
     monkeypatch.setattr(eng_cls, "_cb_pairs", cb_pairs)
     monkeypatch.setattr(eng_cls, "_gate_levels", gate_levels)
     monkeypatch.setattr(eng_cls, "settle", settle)
-    with _env(**JAX_ENV, **knobs, **_mode_env("8", None)):
+    with _env(**JAX_ENV, **knobs, **_mode_env("8")):
         fe = TFrontend("tfhe", TBlueprint(path), req, eval_key=toy_ek,
                        device="cuda")
         fe.go(4)
@@ -584,7 +622,7 @@ def test_failed_capture_raises_without_eager_fallback(toy_sk, toy_ek,
     monkeypatch.setattr(tfhe.TFHEEngine, "_gate_levels", syncing)
     with pytest.raises(RuntimeError, match="CUDA graph capture of level "
                                            "group"):
-        _port_run("mac4", toy_sk, toy_ek, "8", None, device="cuda")
+        _port_run("mac4", toy_sk, toy_ek, "8", device="cuda")
 
 
 # --------------------------------------------------------------------------- #

@@ -16,13 +16,13 @@ package under its 8-device mesh and against the port with no mesh:
   unsharded run and to JAX's sharded blind_rotate (Pallas in interpret
   mode);
 * the Frontend under make_mesh(8) at IYOKAN_FUSE_LEVELS = 1, 8 and all
-  (scan chunk 2) on mac4 (the F1 adder's place: the integer model),
+  (groups of any size) on mac4 (the F1 adder's place: the integer model),
   tiny-ram, tiny-2ram (its 64-row refresh, exactly at the threshold,
   split 8 ways) and tiny-romram (its adder netlist made here: the
   blueprint names a reference fixture this repository lacks), also at
   IYOKAN_SHARD_MIN_ROWS=1, where the gate levels split too;
-* __graft_entry__.dryrun_multichip's scenario on tiny-romram: one cycle,
-  then whole-cycle fusion with a scan of chunk 2 over 3 cycles.
+* __graft_entry__.dryrun_multichip's scenario on tiny-romram: one cycle
+  in the default mode (its 3 cycles under all are the all case above).
 On the card (cuda-marked): the same runs under make_mesh(4) equal the
 card's run with no mesh, and the tkey route launches K1 once per shard.
 """
@@ -55,8 +55,7 @@ JAX_ENV = {"IYOKAN_BR_IMPL": "tkey", "IYOKAN_PALLAS_INTERPRET": "1",
            "IYOKAN_SLAB_CACHE": "0"}
 MODES = {"fuse1": {"IYOKAN_FUSE_LEVELS": "1"},
          "fuse8": {"IYOKAN_FUSE_LEVELS": "8"},
-         "all-chunk2": {"IYOKAN_FUSE_LEVELS": "all",
-                        "IYOKAN_SCAN_CHUNK": "2"},
+         "all": {"IYOKAN_FUSE_LEVELS": "all"},
          "fuse1-minrows1": {"IYOKAN_FUSE_LEVELS": "1",
                             "IYOKAN_SHARD_MIN_ROWS": "1"}}
 
@@ -452,8 +451,8 @@ def check_frontend_under_mesh(name, mode, sk, ek, romram_bp, splits):
 def test_frontend_under_mesh_matches_jax(name, mode, toy_sk, toy_ek,
                                          romram_bp, splits):
     """mac4 (in the F1 adder's place: decrypted == the integer model) and
-    tiny-ram (a write, then a read of it inside a scanned span of mixed
-    refresh flags) under the mesh."""
+    tiny-ram (a write, then a read of it, under both refresh flags) under
+    the mesh."""
     check_frontend_under_mesh(name, mode, toy_sk, toy_ek, romram_bp, splits)
 
 
@@ -493,7 +492,7 @@ def test_tkey_route_one_launch_per_shard_on_card(toy_sk, toy_ek):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fuse1", "fuse8", "all-chunk2"])
+@pytest.mark.parametrize("mode", ["fuse1", "fuse8", "all"])
 @pytest.mark.parametrize("name", ["mac4", "tiny-2ram"])
 def test_frontend_under_mesh_on_card(name, mode, toy_sk, toy_ek, romram_bp):
     """make_mesh(4) on the card, in each execution mode (the shards are

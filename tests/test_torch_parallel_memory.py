@@ -9,9 +9,9 @@ side by side):
   netlist made by the fixture): gate levels, circuit bootstrapping, the
   ROM read and the RAM read and write under the mesh;
 * __graft_entry__.dryrun_multichip's scenario: one sharded cycle of
-  tiny-romram in the default mode, and (the all-chunk2 case above) whole-
-  cycle fusion with a scan of chunk 2 over 3 cycles;
-each at IYOKAN_FUSE_LEVELS = 1, 8 and all (scan chunk 2), and at
+  tiny-romram in the default mode (its 3 cycles under all are the all
+  case above);
+each at IYOKAN_FUSE_LEVELS = 1, 8 and all (groups of any size), and at
 IYOKAN_SHARD_MIN_ROWS=1, byte for byte against the JAX Frontend and the
 port with no mesh.
 """

@@ -9,7 +9,7 @@
   blind_rotate calls one eager sweep and RAM write make, route by route.
   Cases: the port's rule (every rotation on K3) and IYOKAN_BR_IMPL=tkey
   (the JAX package's table: every rotation on K1).
-* On the card (cuda-marked): a default MAC-16 cycle graph holds
+* On the card (cuda-marked): a default MAC-16 cycle's group graphs hold
   br_cluster_kernel nodes (K3) and none of K1's (tkey_loop_kernel,
   conv_kernel, conv_wgmma_kernel), read from a profiled replay.
 """
@@ -147,19 +147,21 @@ def test_route_counts_match_a_cycle(toy_sk, toy_ek, monkeypatch, name, rule,
 
 @pytest.mark.cuda
 def test_default_mac16_cycle_graph_runs_k3(toy_sk, toy_ek, monkeypatch):
-    """A default MAC-16 cycle graph (FUSE=all) on the card: its replay
-    launches br_cluster_kernel and none of K1's kernels."""
+    """A default MAC-16 cycle's graphs (its level groups at FUSE=8) on the
+    card: their replays launch br_cluster_kernel and none of K1's
+    kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (CUDA graphs, CUDA kernels)")
     for k in ops.PREP_KNOBS:
         monkeypatch.delenv(k, raising=False)
-    monkeypatch.setenv("IYOKAN_FUSE_LEVELS", "all")
+    monkeypatch.delenv("IYOKAN_FUSE_LEVELS", raising=False)
     fe = _frontend("mac16", toy_sk, toy_ek, device="cuda")
     assert fe.engine.keys.port_routing and fe.engine.keys.bk_tk is None
-    fe.go(2)                            # captures the cycle graph
-    cycles = [g for g in fe.engine.graph_stats()
-              if g["name"].startswith("cycle")]
-    assert cycles and cycles[0]["kernels"].get("br3.LAUNCHES", 0) > 0
+    fe.go(2)                            # captures the group graphs
+    groups = [g for g in fe.engine.graph_stats()
+              if g["name"].startswith("level group")]
+    assert groups and sum(g["kernels"].get("br3.LAUNCHES", 0)
+                          for g in groups) > 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
