@@ -1439,6 +1439,7 @@ def fused_run(bp_path, req, ek, env, cycles):
     from iyokan_tpu_torch.engine.driver import Frontend
 
     reset_launches()
+    tfhe.clear_engine_cache()     # check_replays counts a fresh engine's
     with timing.cycle_log() as lines, knobs(**env), \
             engine_calls() as calls:
         fe = Frontend("tfhe", Blueprint(bp_path), req, eval_key=ek,
@@ -1449,6 +1450,7 @@ def fused_run(bp_path, req, ek, env, cycles):
     out = (res, lines, eng.graph_stats(), tfhe.launch_counts(),
            eng.graph_launches(), calls)
     del fe, eng
+    tfhe.clear_engine_cache()
     torch.cuda.empty_cache()
     return out
 
@@ -1624,6 +1626,7 @@ def phase_default(smi, mem_files):
         plain_fe.go(cycles)
         plain = plain_fe.make_result_packet()
         ops.clear_device_key_cache()
+        tfhe.clear_engine_cache()     # check_replays counts a fresh engine's
         with knobs(**unset):
             ek = host.EvalKey.load(ek_path)
             reset_launches()
@@ -1687,6 +1690,7 @@ def phase_default(smi, mem_files):
             f"{row['graphs']} graphs; cycles (us) {lines}; {smi}")
         del fe, eng, keys
         ops.clear_device_key_cache()
+        tfhe.clear_engine_cache()
         torch.cuda.empty_cache()
     return out
 

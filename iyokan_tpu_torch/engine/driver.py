@@ -23,7 +23,10 @@ the reset settle, each cycle and its inputs, and the result packet are
 spans (engine/spans.py).  The execution mode is the engine's
 (IYOKAN_FUSE_LEVELS, default 8; engine/tfhe.py), logged at go() start in
 the JAX package's words for a number of levels; every cycle runs through
-the one per-cycle loop of go().
+the one per-cycle loop of go().  A tfhe Frontend leases its engine
+(engine/tfhe.py: lease_engine): the engine, with its CUDA graphs, outlives
+the Frontend, and the next Frontend of the same circuit and key takes it
+over once this one is gone.
 """
 
 from __future__ import annotations
@@ -136,11 +139,14 @@ class Frontend:
                 self.engine = PlainEngine(self.compiled, self.device)
                 self.params = None
             else:
-                from .tfhe import TFHEEngine
+                from .tfhe import lease_engine
 
                 assert eval_key is not None, "tfhe mode requires an eval key"
                 self.params = eval_key.params
-                self.engine = TFHEEngine(self.compiled, eval_key, self.device)
+                # an engine a released Frontend left, graphs and all, where
+                # one matches (engine/tfhe.py: lease_engine)
+                self.engine = lease_engine(self.compiled, eval_key,
+                                           self.device, self)
 
             self._init_state(snapshot_state)
 
@@ -256,7 +262,8 @@ class Frontend:
     def _log_execution_mode(self) -> None:
         """One line at go() start naming the execution mode, in the JAX
         package's words for a number of levels (IYOKAN_FUSE_LEVELS=all:
-        groups of any size)."""
+        groups of any size), and in tfhe mode one more with the engines
+        built and taken over (engine/tfhe.py: engine_reuse_counts)."""
         if self.mode != "tfhe":
             log.info("execution mode: plain (per-level batched eval)")
             return
@@ -264,9 +271,14 @@ class Frontend:
         if fuse_env == "all":
             log.info("execution mode: per-level dispatch, gate levels fused "
                      "in groups of any size (IYOKAN_FUSE_LEVELS=all)")
-            return
-        log.info("execution mode: per-level dispatch, gate levels fused in "
-                 "groups of %s (IYOKAN_FUSE_LEVELS)", fuse_env)
+        else:
+            log.info("execution mode: per-level dispatch, gate levels fused "
+                     "in groups of %s (IYOKAN_FUSE_LEVELS)", fuse_env)
+        from .tfhe import engine_reuse_counts
+
+        log.info("TFHE engines in this process: %(built)d built, "
+                 "%(reused)d taken over from an earlier Frontend",
+                 engine_reuse_counts())
 
     def go(self, num_cycles: Optional[int], skip_reset: bool = False,
            dump_prefix: Optional[str] = None,

@@ -44,19 +44,27 @@ A timer, a progress callback or IYOKAN_PROFILE runs groups of one level
 eagerly at any N.  Under a torch.profiler the gate groups, the memory
 levels (and their stages where they run eagerly), the RAM write and each
 graph capture are spans (spans.py); they neither sync nor change the mode.
-A graph is captured at its second use and replayed from then on; its
-first use runs eagerly and does every first-use set-up (nvcc loads,
-shared-memory attributes, occupancy queries, cached tables, the static
-buffers; the counterpart of JAX's compile at first call), and a graph
-used once (a request's reset settle with its full refresh) is never
-captured.  The value array, the RAM and ROM stores and the RAM write's
-selectors are static buffers the graphs read and write in place, made
-outside any capture, and every index and constant a cycle needs is a
-tensor built here beforehand: a tensor one graph leaves for another lives
-in no graph's pool (the graphs share one, and a graph replayed in between
-may reuse what it holds).  A failed capture or replay raises, naming the
-graph; nothing falls back to eager execution.  On the CPU, which has no
-graphs, the same group, memory level and span functions run eagerly.
+A graph is captured at its second use by its engine and replayed from
+then on; its first use runs eagerly and does every first-use set-up (nvcc
+loads, shared-memory attributes, occupancy queries, cached tables, the
+static buffers; the counterpart of JAX's compile at first call), and a
+graph used once is never captured.  An engine outlives the Frontend that
+leased it (lease_engine): released, it waits in a process-wide cache of
+IDLE_ENGINES, and the next Frontend of the same compiled circuit, eval
+key, device, mesh and IYOKAN_* settings takes it over with its graphs,
+its state copied into the static buffers (_adopt) before the first
+replay.  So the RAM write of a request's reset settle, with its full
+refresh, is captured by the second request, and later requests run on
+replays alone.  The value array, the RAM and ROM stores and the RAM
+write's selectors are static buffers the graphs read and write in place,
+made outside any capture, and every index and constant a cycle needs is
+a tensor built here beforehand: a tensor one graph leaves for another
+lives in no graph's pool (the graphs share one, and a graph replayed in
+between may reuse what it holds).  A failed capture or replay raises,
+naming the graph; nothing falls back to eager execution, and the engine
+is not kept for another Frontend.  On the CPU, which has no graphs, the
+same group, memory level and span functions run eagerly (and engines are
+kept all the same).
 
 Under a mesh (parallel/mesh.py: set_mesh) the level batches' rotations and
 the RAM write's refresh rows are sharded where the JAX engine shards them
@@ -71,8 +79,12 @@ across processes the all-gathers are NCCL collectives inside the capture
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import hashlib
 import os
+import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -80,7 +92,7 @@ import torch
 from .. import gates as G
 from ..circuit.compile import Compiled
 from ..crypto import host, ops
-from ..parallel.mesh import replicated, shard_batch
+from ..parallel.mesh import get_mesh, replicated, shard_batch
 from .spans import span
 
 # Level batches bootstrap in chunks of at most this many rows: bounds the
@@ -271,6 +283,8 @@ class TFHEEngine:
         self._graphs = {}      # key -> record (_capture)
         self._used = set()     # keys run once, eagerly (_run)
         self._pool = None
+        self._failed = False   # a capture or replay raised: not kept
+        self._cache_key = None  # lease_engine's _engine_key
 
     # ------------------------------------------------------------------ #
     def _idx(self, a) -> torch.Tensor:
@@ -751,6 +765,7 @@ class TFHEEngine:
         try:
             rec["graph"].replay()
         except Exception as e:
+            self._failed = True
             raise RuntimeError(
                 f"CUDA graph replay of {graph_name(key)} failed: {e}") from e
         rec["replays"] += 1
@@ -785,6 +800,7 @@ class TFHEEngine:
             torch.cuda.synchronize(dev)
             t_inst = time.time() - t0
         except Exception as e:
+            self._failed = True
             if before is not None:
                 _set_launch_counts(before)
             raise RuntimeError(
@@ -877,3 +893,114 @@ class TFHEEngine:
         if timer is not None:
             timer.extend(level_s)
         return self._vals, dict(self._ram_bufs)
+
+
+# --------------------------------------------------------------------------- #
+# engines kept across Frontends
+# --------------------------------------------------------------------------- #
+
+# Released engines wait in _IDLE, the least recently released first, for
+# a Frontend that matches them.  Each holds its device keys, static
+# buffers and graph pools.
+IDLE_ENGINES = 2
+_IDLE = []
+_RELEASED = []       # engines whose Frontend has gone, not yet in _IDLE
+_LOCK = threading.Lock()
+_COUNTS = {"built": 0, "reused": 0}
+
+
+def _circuit_digest(c: Compiled) -> str:
+    """sha1 of all the engine builds from a compiled circuit: its arrays
+    and counts, every level plan, and the ROM and RAM instances."""
+    h = hashlib.sha1()
+
+    def put(name, v):
+        if isinstance(v, np.ndarray):
+            h.update(f"{name}:{v.dtype}{v.shape}:".encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        else:
+            h.update(f"{name}={v!r};".encode())
+
+    for f in dataclasses.fields(c):
+        if f.name not in ("design", "levels"):
+            put(f.name, getattr(c, f.name))
+    for lv, plan in enumerate(c.levels):
+        for f in dataclasses.fields(plan):
+            put(f"{lv}.{f.name}", getattr(plan, f.name))
+    for insts in (c.design.rom_insts, c.design.ram_insts):
+        for name in sorted(insts):
+            put(name, dataclasses.astuple(insts[name]))
+    return h.hexdigest()
+
+
+def _engine_key(compiled: Compiled, eval_key: host.EvalKey, device) -> tuple:
+    """Everything an engine's plans and graphs bake in: the circuit, the
+    eval key (with its CB flag), the device, the mesh in force and every
+    IYOKAN_* setting (routes, chunking and the execution mode read them)."""
+    d = compiled.design
+    return (_circuit_digest(compiled),
+            ops.key_fingerprint(eval_key, bool(d.rom_insts or d.ram_insts)),
+            str(device), get_mesh(),
+            tuple(sorted((k, v) for k, v in os.environ.items()
+                         if k.startswith("IYOKAN_"))))
+
+
+def _drain() -> None:
+    """Move released engines into _IDLE, evicting beyond IDLE_ENGINES
+    (under _LOCK)."""
+    while _RELEASED:
+        eng = _RELEASED.pop(0)
+        if not eng._failed:
+            _IDLE.append(eng)
+        del _IDLE[:-IDLE_ENGINES]
+
+
+def _release(eng: "TFHEEngine") -> None:
+    """The holder of eng's lease is gone: eng becomes idle.  This runs
+    wherever the holder is collected, maybe inside code that holds _LOCK:
+    then the next lease_engine or clear_engine_cache takes it in."""
+    _RELEASED.append(eng)
+    if _LOCK.acquire(blocking=False):
+        try:
+            _drain()
+        finally:
+            _LOCK.release()
+
+
+def lease_engine(compiled: Compiled, eval_key: host.EvalKey, device,
+                 holder) -> "TFHEEngine":
+    """The engine for holder (a Frontend) while it lives: the most recently
+    released idle engine of the same _engine_key, with its graphs, or a new
+    one.  One holder at a time: a second Frontend alive beside the first
+    builds its own.  Its next settle copies holder's state into the static
+    buffers (_adopt) before any graph runs."""
+    key = _engine_key(compiled, eval_key, device)
+    with _LOCK:
+        _drain()
+        eng = next((e for e in reversed(_IDLE) if e._cache_key == key), None)
+        if eng is not None:
+            _IDLE.remove(eng)
+            _COUNTS["reused"] += 1
+    if eng is None:
+        eng = TFHEEngine(compiled, eval_key, device)
+        eng._cache_key = key
+        with _LOCK:
+            _COUNTS["built"] += 1
+    else:   # the same circuit by the digest; the old Frontend's goes
+        eng.c, eng.d = compiled, compiled.design
+    weakref.finalize(holder, _release, eng).atexit = False
+    return eng
+
+
+def engine_reuse_counts() -> dict:
+    """{"built": engines built, "reused": engines taken over} by
+    lease_engine in this process."""
+    with _LOCK:
+        return dict(_COUNTS)
+
+
+def clear_engine_cache() -> None:
+    """Drop every idle engine (leased ones stay with their Frontends)."""
+    with _LOCK:
+        _drain()
+        _IDLE.clear()

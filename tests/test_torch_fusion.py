@@ -504,6 +504,7 @@ def test_memory_graphs_replay_on_card(toy_sk, toy_ek, name, fuse):
     _card()
     from iyokan_tpu_torch.engine import tfhe
 
+    tfhe.clear_engine_cache()     # the counts are a fresh engine's
     bp, make_req, knobs, stops, frozen_from = MEMORY_GRAPH_RUNS[name]
     path = os.path.join(DATA, bp)
     req = make_req().encrypt(toy_sk, seed=7)
@@ -550,6 +551,7 @@ def test_ram_selectors_survive_groups_captured_before_them_on_card(
     _card()
     from iyokan_tpu_torch.engine import tfhe
 
+    tfhe.clear_engine_cache()     # its graphs are captured in this test
     path = os.path.join(DATA, "memmac.toml")
     req = _memmac_request().encrypt(toy_sk, seed=7)
     knobs = {"IYOKAN_RAM_REFRESH_PERIOD": "2"}
@@ -613,6 +615,7 @@ def test_failed_capture_raises_without_eager_fallback(toy_sk, toy_ek,
     _card()
     from iyokan_tpu_torch.engine import tfhe
 
+    tfhe.clear_engine_cache()     # a kept engine would replay, not capture
     real = tfhe.TFHEEngine._gate_levels
 
     def syncing(self, levels):

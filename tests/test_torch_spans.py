@@ -23,6 +23,7 @@ import torch
 from iyokan_tpu_torch import packet, params
 from iyokan_tpu_torch.circuit.blueprint import Blueprint
 from iyokan_tpu_torch.crypto import host
+from iyokan_tpu_torch.engine import tfhe
 from iyokan_tpu_torch.engine.driver import Frontend
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -177,6 +178,7 @@ def test_graph_capture_spans_on_card():
         pytest.skip("needs an NVIDIA card (CUDA graphs, CUDA kernels)")
     sk = host.keygen(params.TOY, seed=42)
     ek = host.genevalkey(sk, seed=43)
+    tfhe.clear_engine_cache()     # a fresh engine captures every graph
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("IYOKAN_FUSE_LEVELS", raising=False)
         mp.setenv("IYOKAN_SLAB_CACHE", "0")
